@@ -1,0 +1,245 @@
+"""simx engine: the fixed-timestep simulation driven from the host (port of
+``repro/simx/engine.py`` for the megha and oracle rules).
+
+The round-synchronous approximation of the event backend is the
+reference's, unchanged (see the ``repro.simx.engine`` docstring): within a
+round completions come first, then heartbeats, then every GM matches and
+every LM verifies, with conflicts arbitrated by a per-round rotating GM
+priority.
+
+The reference runs ``chunk`` rounds per jitted ``lax.scan`` and reads the
+all-done probe once per chunk; the port runs the same rounds as a Python
+loop and reads the probe at the same points, so the final ``t``/``rnd``
+(and every delay) are the reference's.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.base import LONG_JOB_THRESHOLD, grid_workers
+from repro_torch.core.metrics import JobRecord, RunMetrics, TaskRecord, classify_long
+from repro_torch.device import resolve_device
+from repro_torch.simx import runtime
+
+# importing the rule modules registers them (paper scheduler, then the
+# oracle baseline)
+from repro_torch.simx import megha as simx_megha  # noqa: F401
+from repro_torch.simx import oracle as simx_oracle  # noqa: F401
+from repro_torch.simx.runtime import scan_rounds
+from repro_torch.simx.state import CoreState, SimxConfig, TaskArrays, export_workload
+from repro_torch.workload.traces import Workload
+
+
+def make_chunk_runner(step: Callable, chunk: int = 256) -> Callable:
+    """A ``chunk``-round advance of ``step`` that also returns the all-done
+    probe (a device bool: reading it is the caller's host sync)."""
+
+    def run(state):
+        state = scan_rounds(step, state, chunk)
+        return state, torch.all(state.task_finish <= state.t)
+
+    return run
+
+
+def _run_tail(step: Callable, state, n: int):
+    """The final partial chunk of ``run_to_completion``: exactly ``n <
+    chunk`` rounds, with the same done probe."""
+    return make_chunk_runner(step, n)(state)
+
+
+def run_to_completion(
+    step: Callable,
+    state,
+    *,
+    chunk: int = 256,
+    max_rounds: int = 1_000_000,
+):
+    """Drive ``step`` in ``chunk``-round pieces until every task is done
+    (or ``max_rounds``).  The done probe is read only at the end of each
+    chunk, as in the reference, and a final partial chunk runs exactly
+    the remainder, so the state never advances past the budget."""
+    runtime.check_round_budget(max_rounds, "run_to_completion(max_rounds=...)")
+    run_chunk = make_chunk_runner(step, chunk)
+    rounds = 0
+    while rounds < max_rounds:
+        n = min(chunk, max_rounds - rounds)
+        if n == chunk:
+            state, done = run_chunk(state)
+        else:
+            state, done = _run_tail(step, state, n)
+        rounds += n
+        if bool(done):
+            break
+    return state
+
+
+def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays) -> int:
+    """Upper-bound round count: arrival span + 4 x the perfectly packed
+    drain time + the longest task + one heartbeat interval.  The duration
+    sum is taken in float32, as the reference takes it (torch and XLA sum
+    in different orders, so the last bit of the sum can differ on
+    non-integer durations; the round counts agree on the test traces)."""
+    span = (
+        float(torch.max(tasks.submit))
+        + 4.0 * float(torch.sum(tasks.duration)) / cfg.num_workers
+        + float(torch.max(tasks.duration))
+        + cfg.heartbeat_interval
+        + 1.0
+    )
+    return int(math.ceil(span / cfg.dt))
+
+
+@dataclass
+class SimxRun:
+    """A finished simx simulation plus everything needed to report it.
+    ``borrow_rounds`` counts the rounds that ran megha's borrow pass (each
+    one a second match launch); it is 0 for the oracle."""
+
+    scheduler: str
+    workload_name: str
+    cfg: SimxConfig
+    tasks: TaskArrays
+    state: CoreState
+    borrow_rounds: int = 0
+
+    @property
+    def end_time(self) -> float:
+        return float(self.state.t)
+
+    @property
+    def tasks_completed(self) -> int:
+        return int(torch.sum(self.state.task_finish <= self.state.t))
+
+    def job_finish_times(self) -> np.ndarray:
+        """float64[J] job finish (max task finish; nan if any task is
+        unfinished), through the runtime's shared reduction."""
+        _, job_finish = runtime.job_delays_from_state(
+            self.state.task_finish, self.state.t, self.tasks
+        )
+        out = job_finish.cpu().numpy().astype(np.float64)
+        return np.where(np.isfinite(out), out, np.nan)
+
+    def job_delays(self) -> np.ndarray:
+        """float64[J] JCT delay (Eq. 2) for completed jobs, nan otherwise."""
+        delays, _ = runtime.job_delays_from_state(
+            self.state.task_finish, self.state.t, self.tasks
+        )
+        return delays.cpu().numpy().astype(np.float64)
+
+    def to_run_metrics(self) -> RunMetrics:
+        """Materialize ``RunMetrics`` records so event-backend consumers
+        (``summary()``, percentile helpers) work unchanged.  One Python
+        object per job and task: a known cost at 500k tasks."""
+        m = RunMetrics(scheduler=self.scheduler, workload=self.workload_name)
+        m.inconsistencies = int(self.state.inconsistencies)
+        m.repartitions = int(self.state.repartitions)
+        m.messages = int(self.state.messages)
+        m.probes = int(self.state.probes)
+        job_finish = self.job_finish_times().tolist()
+        submit = self.tasks.job_submit.cpu().numpy().astype(np.float64).tolist()
+        ideal = self.tasks.job_ideal.cpu().numpy().astype(np.float64).tolist()
+        ntasks = self.tasks.job_ntasks.cpu().numpy().tolist()
+        for j in range(self.tasks.num_jobs):
+            m.jobs.append(
+                JobRecord(
+                    job_id=j,
+                    submit_time=submit[j],
+                    ideal_jct=ideal[j],
+                    num_tasks=ntasks[j],
+                    finish_time=job_finish[j],
+                    is_long=classify_long(ideal[j], LONG_JOB_THRESHOLD),
+                )
+            )
+        # megha and the oracle schedule centrally: a task waits at the
+        # scheduling entity, never in a worker queue
+        t_job = self.tasks.job.cpu().numpy().tolist()
+        t_dur = self.tasks.duration.cpu().numpy().astype(np.float64)
+        t_sub = self.tasks.submit.cpu().numpy().astype(np.float64)
+        t_fin_raw = self.state.task_finish.cpu().numpy().astype(np.float64)
+        # finish was recorded at launch as start + duration
+        t_start = t_fin_raw - t_dur
+        t_fin = np.where(t_fin_raw <= self.end_time, t_fin_raw, np.inf)
+        hops = 3 * self.cfg.hop
+        t_dur, t_sub = t_dur.tolist(), t_sub.tolist()
+        t_start, t_fin = t_start.tolist(), t_fin.tolist()
+        for i in range(self.tasks.num_tasks):
+            started = math.isfinite(t_start[i])
+            tr = TaskRecord(
+                job_id=t_job[i],
+                task_index=i,
+                duration=t_dur[i],
+                submit_time=t_sub[i],
+                start_time=t_start[i] if started else math.nan,
+                finish_time=t_fin[i] if math.isfinite(t_fin[i]) else math.nan,
+            )
+            if started:
+                pre = max(0.0, t_start[i] - t_sub[i])
+                tr.d_comm = min(pre, hops)
+                tr.d_queue_scheduler = pre - tr.d_comm
+            m.tasks.append(tr)
+        return m
+
+
+def simulate_workload(
+    scheduler: str,
+    workload: Workload,
+    num_workers: int,
+    *,
+    num_gms: int = 8,
+    num_lms: int = 8,
+    heartbeat_interval: float = 5.0,
+    dt: float = 0.05,
+    seed: int = 0,
+    chunk: int = 256,
+    max_rounds: Optional[int] = None,
+    until: Optional[float] = None,
+    use_kernel: bool = True,
+    orders: Optional[torch.Tensor] = None,
+    device=None,
+) -> SimxRun:
+    """Run one (scheduler, workload) simx simulation to completion on
+    ``device`` (``None`` = the CUDA card).
+
+    ``scheduler`` is ``"megha"`` or ``"oracle"``.  ``until`` caps the
+    simulated time span instead of running until all tasks finish.
+    ``use_kernel`` selects the rank-and-select kernel (the default) or its
+    plain version.  ``orders`` (int32[G, W]) are megha's per-GM priority
+    orders; without them they are drawn from a ``torch.Generator`` seeded
+    with ``seed``."""
+    dev = resolve_device(device)
+    name = scheduler.lower()
+    rule = runtime.get_rule(name)
+    tasks = export_workload(workload, dev)
+    if rule.needs_grid:
+        num_workers = grid_workers(num_workers, num_gms, num_lms)
+    cfg = SimxConfig(
+        num_workers=num_workers,
+        num_gms=num_gms,
+        num_lms=num_lms,
+        heartbeat_interval=heartbeat_interval,
+        dt=dt,
+    )
+    generator = torch.Generator().manual_seed(seed)
+    step = rule.build_step(
+        cfg, tasks, generator,
+        match_fn=runtime.default_match_fn(use_kernel), orders=orders,
+    )
+    state = rule.init(cfg, tasks)
+    cap = max_rounds if max_rounds is not None else estimate_rounds(cfg, tasks)
+    if until is not None:
+        cap = min(cap, int(math.ceil(until / dt)))
+    state = run_to_completion(step, state, chunk=chunk, max_rounds=cap)
+    return SimxRun(
+        scheduler=name,
+        workload_name=workload.name,
+        cfg=cfg,
+        tasks=tasks,
+        state=state,
+        borrow_rounds=getattr(step, "borrow_rounds", 0),
+    )

@@ -1,0 +1,286 @@
+"""Megha transition rule for the simx round-stepped backend (port of
+``repro/simx/megha.py``, without faults, telemetry, provenance or the
+streaming layout).
+
+One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
+
+  1. **complete** — workers whose task finished inside the round window just
+     ended free up; the scheduling GM's view regains NON-borrowed workers
+     immediately (borrowed ones wait for the owner's heartbeat, §3.4).
+  2. **heartbeat** — every ``heartbeat_rounds`` rounds all LM snapshots
+     overwrite every GM view (§3.1).
+  3. **internal match** — each GM ranks the free workers of its own
+     partitions (in its shuffled priority order, §3.3) with the
+     rank-and-select primitive and proposes its queued tasks (FIFO) onto
+     them; the LM ground truth verifies each mapping.
+  4. **borrow match** (only when some GM's queue outruns its internal free
+     view) — the §3.2 repartition pass over each GM's whole priority
+     order, simultaneous claims arbitrated by a per-round rotating GM
+     priority.  Failed proposals in either phase are inconsistencies: the
+     proposing GM keeps those workers marked busy and gets a piggybacked
+     fresh snapshot of every LM that rejected it (§3.4.1).
+
+The reference enters the borrow pass through ``lax.cond``; here it is a
+Python ``if`` on a device scalar, one host sync per round.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.simx import runtime as rt
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.state import MeghaState, SimxConfig, TaskArrays, init_megha_state
+
+
+def gm_orders(generator: torch.Generator, cfg: SimxConfig) -> torch.Tensor:
+    """int32[G, W] (on the CPU) per-GM priority permutations: own
+    partitions (shuffled) first, then external partitions (shuffled).
+
+    The reference draws these with ``jax.random``; the port draws them
+    with ``torch.randperm`` from ``generator``, so the two agree in
+    distribution only.  Parity runs pass the reference's orders in."""
+    cfg.validate_megha_grid()
+    w = np.arange(cfg.num_workers)
+    part_gm = (w % cfg.workers_per_lm) // cfg.partition_size
+    rows = []
+    for g in range(cfg.num_gms):
+        internal = torch.from_numpy(w[part_gm == g].astype(np.int32))
+        external = torch.from_numpy(w[part_gm != g].astype(np.int32))
+        rows.append(torch.cat([
+            internal[torch.randperm(internal.numel(), generator=generator)],
+            external[torch.randperm(external.numel(), generator=generator)],
+        ]))
+    return torch.stack(rows)
+
+
+def make_megha_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    orders: torch.Tensor,
+    match_fn: MatchFn | None = None,
+) -> Callable[[MeghaState], MeghaState]:
+    """Build the one-round transition function on ``tasks``' device.
+
+    Layout, as in the reference: tasks live in a compact per-GM layout
+    ``gm_tasks[G, Tg]`` (jobs round-robin over GMs, padded with the
+    sentinel T); each GM examines a ``C``-wide FIFO window from its
+    launched-prefix ``head``, ``C = max(W / G, 64)`` (capped at the
+    longest GM queue), so the G GMs together can fill the whole DC in one
+    round; the common case runs on [G, W/G] internal-partition arrays and
+    the [G, W] borrow pass runs only on rounds that need it; GM <-> worker
+    coordinates convert through precomputed inverse permutations
+    (gathers, not scatters).
+
+    The returned step carries ``step.borrow_rounds``, the number of rounds
+    that entered the borrow pass."""
+    if match_fn is None:
+        match_fn = default_match_fn()
+    cfg.validate_megha_grid()
+    dev = tasks.device
+    G, L, W = cfg.num_gms, cfg.num_lms, cfg.num_workers
+    wpl = cfg.workers_per_lm
+    wi = W // G                                        # internal workers per GM
+    T = tasks.num_tasks
+    hb = cfg.heartbeat_rounds
+    part_gm = cfg.partition_gms(dev)                   # int32[W]
+    g_col = torch.arange(G, dtype=torch.int32, device=dev)[:, None]
+    l_row = torch.arange(L, dtype=torch.int32, device=dev)[None, None, :]
+    w_row = torch.arange(W, dtype=torch.int64, device=dev)
+    orders = orders.to(device=dev, dtype=torch.int64)
+    if tuple(orders.shape) != (G, W):
+        raise ValueError(f"orders must be [{G}, {W}], got {tuple(orders.shape)}")
+    inv_orders = torch.argsort(orders, dim=1)          # [G, W]
+    int_ord = orders[:, :wi].contiguous()              # [G, wi] own workers
+    # rows of int_ord partition [0, W): flattening gives a W-permutation
+    inv_int = torch.argsort(int_ord.reshape(-1))       # [W] -> flat (g, i)
+    lm_int = (int_ord // wpl).to(torch.int32)          # int32[G, wi]
+
+    # compact per-GM task partition (jobs round-robin over GMs)
+    task_gm = tasks.job.cpu().numpy() % G
+    tg = max(1, int(np.max(np.bincount(task_gm, minlength=G))))
+    C = min(max(W // G, 64), tg)
+    # pad with C sentinels so the head window never leaves the row
+    gm_tasks_np = np.full((G, tg + C), T, np.int32)
+    for g in range(G):
+        mine = np.nonzero(task_gm == g)[0]
+        gm_tasks_np[g, : mine.size] = mine
+    gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)   # int32[G, Tg+C]
+    # task submit times in the padded compact layout (sentinel -> inf)
+    submit_c = torch.cat(
+        [tasks.submit, tasks.submit.new_full((1,), float("inf"))]
+    )[gm_tasks.to(torch.int64)]
+    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+
+    def launch_updates(t, launch_w, task_w, gm_w, task_finish, worker_finish,
+                       worker_task, worker_gm, worker_borrowed):
+        """Apply one phase's launches ([W]-space masks): the shared launch
+        bookkeeping plus megha's owner/borrow tracking.  start = round
+        time + client->GM + GM->LM + LM->worker hops."""
+        task_finish, worker_finish, worker_task = rt.apply_launch(
+            launch_w, task_w, t + 3 * cfg.hop, dur_pad,
+            task_finish, worker_finish, worker_task, T,
+        )
+        worker_gm = torch.where(launch_w, gm_w, worker_gm)
+        worker_borrowed = torch.where(launch_w, part_gm != gm_w, worker_borrowed)
+        return task_finish, worker_finish, worker_task, worker_gm, worker_borrowed
+
+    def piggyback(view, truth, invalid_gl):
+        """Refresh GM g's view of every LM that rejected one of its
+        proposals with that LM's fresh ground truth (§3.4.1)."""
+        refresh = torch.repeat_interleave(invalid_gl, wpl, dim=1)  # bool[G,W]
+        return torch.where(refresh, truth[None, :], view)
+
+    def dispatch(s, t, task_finish0, worker_finish0, truth, comp, lost_w):
+        del lost_w
+        head0 = s.head
+
+        # -- 1. completions (truth/comp = the runtime's completion stage) ---
+        regain = (s.worker_gm[None, :] == g_col) & (comp & ~s.worker_borrowed)
+        view = s.view | regain
+        messages = s.messages + torch.sum(comp, dtype=torch.int32)  # LM -> GM
+
+        # -- 2. heartbeat ---------------------------------------------------
+        do_hb = (s.rnd % hb) == (hb - 1)
+        view = torch.where(do_hb, truth[None, :], view)
+        messages = messages + do_hb.to(torch.int32) * (G * L)
+
+        # -- 3. internal match (FIFO windows, [G, W/G] arrays) --------------
+        wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[G,C]
+        wsubmit = rt.slice_rows(submit_c, head0, C)               # float32[G,C]
+        fpad = rt.finish_pad(task_finish0)
+        launched_w = rt.window_launched(fpad, wtask, T)           # bool[G,C]
+        queued_w = ~launched_w & (wsubmit <= t)                   # bool[G,C]
+        nq = torch.sum(queued_w, dim=1, dtype=torch.int32)        # int32[G]
+        fifo = rt.sorted_fifo(queued_w, C)                        # int32[G,C]
+        avail_int = torch.gather(view, 1, int_ord)                # bool[G,wi]
+        ranks_i = match_fn(avail_int, nq)                         # int32[G,wi]
+        sel_pos = torch.gather(fifo, 1, ranks_i.clamp(0, C - 1).to(torch.int64))
+        sel_task_i = torch.where(
+            ranks_i >= 0,
+            torch.gather(wtask, 1, sel_pos.clamp(0, C - 1).to(torch.int64)),
+            -1,
+        )                                                         # int32[G,wi]
+        proposed_i = sel_task_i >= 0
+        truth_int = truth[int_ord]                                # bool[G,wi]
+        launch_i = proposed_i & truth_int
+        invalid_i = proposed_i & ~truth_int
+        # flat (g, i) -> worker coordinates via the static inverse perm
+        launch_w = launch_i.reshape(-1)[inv_int]                  # bool[W]
+        task_w = torch.where(launch_w, sel_task_i.reshape(-1)[inv_int], T)
+        (task_finish, worker_finish, worker_task, worker_gm,
+         worker_borrowed) = launch_updates(
+            t, launch_w, task_w, part_gm,
+            task_finish0, worker_finish0, s.worker_task,
+            s.worker_gm, s.worker_borrowed,
+        )
+        truth = truth & ~launch_w
+        # the proposing GM marks every proposed internal worker busy in its
+        # own view (popped from the free pool when the batch was built)
+        proposed_own = proposed_i.reshape(-1)[inv_int]            # bool[W]
+        view = view & ~(proposed_own[None, :] & (part_gm[None, :] == g_col))
+        inconsistencies = s.inconsistencies + torch.sum(invalid_i, dtype=torch.int32)
+        inval_gl = (invalid_i[:, :, None] & (lm_int[:, :, None] == l_row)).any(dim=1)
+        view = piggyback(view, truth, inval_gl)
+        batch_gl = (proposed_i[:, :, None] & (lm_int[:, :, None] == l_row)).any(dim=1)
+        messages = messages + 2 * torch.sum(batch_gl, dtype=torch.int32)
+        repartitions = s.repartitions
+
+        # -- 4. borrow match (full [G, W] pass, only when queues outrun the
+        #       internal views): a host sync on the device flag -----------
+        placed_i = torch.sum(proposed_i, dim=1, dtype=torch.int32)
+        if bool(torch.any(nq > placed_i)):
+            step.borrow_rounds += 1
+            fpad2 = rt.finish_pad(task_finish)
+            launched2 = rt.window_launched(fpad2, wtask, T)
+            queued2 = ~launched2 & (wsubmit <= t)
+            nq2 = torch.sum(queued2, dim=1, dtype=torch.int32)
+            fifo2 = rt.sorted_fifo(queued2, C)
+            avail_ord = torch.gather(view, 1, orders)               # bool[G,W]
+            ranks = match_fn(avail_ord, nq2)                        # int32[G,W]
+            sel_pos2 = torch.gather(fifo2, 1, ranks.clamp(0, C - 1).to(torch.int64))
+            sel_task = torch.where(
+                ranks >= 0,
+                torch.gather(wtask, 1, sel_pos2.clamp(0, C - 1).to(torch.int64)),
+                -1,
+            )
+            # ordered positions -> worker coordinates (inverse gather)
+            prop = torch.gather(sel_task, 1, inv_orders)
+            proposed = prop >= 0
+            repartitions = repartitions + torch.sum(
+                proposed & (part_gm[None, :] != g_col), dtype=torch.int32
+            )
+            # simultaneous claims: per-round rotating GM priority, one
+            # min-reduction over (priority, gm) packed into a single int
+            pri = (g_col + s.rnd) % G
+            enc = torch.where(proposed, (pri * G).expand(G, W) + g_col, G * G)
+            win_enc = torch.amin(enc, dim=0)                        # int32[W]
+            any_prop = win_enc < G * G
+            win_g = torch.where(any_prop, win_enc % G, 0)
+            launch = any_prop & truth                               # bool[W]
+            win_task = torch.where(
+                launch, prop[win_g.to(torch.int64), w_row], T
+            )
+            (task_finish, worker_finish, worker_task, worker_gm,
+             worker_borrowed) = launch_updates(
+                t, launch, win_task, win_g,
+                task_finish, worker_finish, worker_task,
+                worker_gm, worker_borrowed,
+            )
+            truth = truth & ~launch
+            view = view & ~proposed
+            launched_by_g = launch[None, :] & (g_col == win_g[None, :])
+            invalid = proposed & ~launched_by_g                     # bool[G,W]
+            inconsistencies = inconsistencies + torch.sum(invalid, dtype=torch.int32)
+            inval2_gl = invalid.reshape(G, L, wpl).any(dim=2)
+            view = piggyback(view, truth, inval2_gl)
+            batch2 = proposed.reshape(G, L, wpl).any(dim=2)
+            messages = messages + 2 * torch.sum(batch2, dtype=torch.int32)
+
+        # -- 5. advance each GM's FIFO head past its launched prefix --------
+        fpad3 = rt.finish_pad(task_finish)
+        launched3 = rt.window_launched(fpad3, wtask, T)            # bool[G,C]
+        head = torch.clamp(head0 + rt.launched_lead(launched3), max=tg)
+
+        return dict(
+            task_finish=task_finish,
+            head=head,
+            worker_finish=worker_finish,
+            worker_task=worker_task,
+            worker_gm=worker_gm,
+            worker_borrowed=worker_borrowed,
+            view=view,
+            inconsistencies=inconsistencies,
+            repartitions=repartitions,
+            messages=messages,
+        )
+
+    step = rt.compose_step(cfg, tasks, dispatch)
+    step.borrow_rounds = 0
+    return step
+
+
+def _build_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    generator: torch.Generator,
+    *,
+    match_fn: MatchFn | None = None,
+    orders: torch.Tensor | None = None,
+) -> Callable[[MeghaState], MeghaState]:
+    if orders is None:
+        orders = gm_orders(generator, cfg)
+    return make_megha_step(cfg, tasks, orders, match_fn)
+
+
+RULE = rt.register_rule(
+    rt.Rule(
+        name="megha",
+        init=lambda cfg, tasks: init_megha_state(cfg, tasks.num_tasks, tasks.device),
+        build_step=_build_step,
+        needs_grid=True,
+    )
+)

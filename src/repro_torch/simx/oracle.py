@@ -1,0 +1,111 @@
+"""Omniscient centralized oracle — the global-knowledge lower bound (port
+of ``repro/simx/oracle.py``, without faults, telemetry or provenance).
+
+One centralized scheduler with perfect, instant knowledge of every worker
+serves one global FIFO: each round every queued task in the head window is
+matched onto the actually-free workers through the same rank-and-select
+primitive, with the same launch hop costs as the real schedulers.  The gap
+between a scheduler's p50/p95 job delay and the oracle's on the same trace
+is its partial-knowledge cost.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.simx import runtime as rt
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.state import OracleState, SimxConfig, TaskArrays, init_oracle_state
+
+
+def make_oracle_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    match_fn: MatchFn | None = None,
+) -> Callable[[OracleState], OracleState]:
+    """Build the one-round transition function on ``tasks``' device.
+
+    The global FIFO is the task-id order itself (``export_workload`` sorts
+    tasks by job submit time), so the queue is a head pointer over
+    ``arange(T)``; the oracle matches against ground truth, so every
+    proposal launches.  The window is at least W wide (capped at T), so a
+    single round can fill the entire datacenter."""
+    if match_fn is None:
+        match_fn = default_match_fn()
+    dev = tasks.device
+    T = tasks.num_tasks
+    C = int(min(max(cfg.num_workers, 64), max(T, 1)))
+    # the FIFO: task ids in submit order, padded so the window never
+    # leaves the row at head == T
+    fifo = torch.cat([
+        torch.arange(T, dtype=torch.int32, device=dev),
+        torch.full((C,), T, dtype=torch.int32, device=dev),
+    ])[None, :]
+    submit_pad = torch.cat([tasks.submit, tasks.submit.new_full((1,), float("inf"))])
+    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+
+    def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
+        del comp, lost_w
+        head0 = s.head
+
+        # -- 1. queued window ----------------------------------------------
+        wtask = rt.slice_rows(fifo, head0[None], C)[0]             # int32[C]
+        wsub = torch.where(
+            wtask >= T, float("inf"),
+            submit_pad[torch.clamp(wtask, max=T).to(torch.int64)],
+        )
+        fpad = rt.finish_pad(task_finish0)
+        launched = rt.window_launched(fpad, wtask, T)              # bool[C]
+        queued = ~launched & (wsub <= t)
+        nq = torch.sum(queued, dtype=torch.int32)
+        fifo_pos = rt.sorted_fifo(queued, C)
+
+        # -- 2. perfect match: FIFO ranks onto actually-free workers --------
+        ranks = match_fn(free[None, :], nq[None])[0]               # int32[W]
+        sel_task = rt.select_from_window(ranks, fifo_pos, wtask, T)
+        launch = sel_task < T
+
+        # -- 3. launch: same hop costs as the real schedulers ---------------
+        task_finish, worker_finish, worker_task = rt.apply_launch(
+            launch, sel_task, t + 3 * cfg.hop, dur_pad,
+            task_finish0, worker_finish0, s.worker_task, T,
+        )
+        messages = s.messages + torch.sum(launch, dtype=torch.int32)
+
+        # -- 4. advance the head past the launched prefix -------------------
+        fpad2 = rt.finish_pad(task_finish)
+        launched2 = rt.window_launched(fpad2, wtask, T)
+        head = torch.clamp(head0 + rt.launched_lead(launched2), max=T)
+
+        return dict(
+            task_finish=task_finish,
+            worker_finish=worker_finish,
+            worker_task=worker_task,
+            head=head,
+            messages=messages,
+        )
+
+    return rt.compose_step(cfg, tasks, dispatch)
+
+
+def _build_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    generator: torch.Generator,
+    *,
+    match_fn: MatchFn | None = None,
+    orders: torch.Tensor | None = None,
+) -> Callable[[OracleState], OracleState]:
+    del generator, orders  # deterministic, no per-GM orders
+    return make_oracle_step(cfg, tasks, match_fn)
+
+
+RULE = rt.register_rule(
+    rt.Rule(
+        name="oracle",
+        init=lambda cfg, tasks: init_oracle_state(cfg, tasks.num_tasks, tasks.device),
+        build_step=_build_step,
+    )
+)

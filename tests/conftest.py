@@ -23,6 +23,12 @@ def require_or_skip_hypothesis():
 import pytest  # noqa: E402 — after the sys.path insert above
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one"
+    )
+
+
 @pytest.fixture
 def compile_sentinel():
     """Recompile/tracer-leak sentinel for any suite: yields the

@@ -1,0 +1,73 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
+``jax`` and nothing of the reference package ``repro``."""
+
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT.rglob("*.py")
+)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def test_fresh_interpreter_imports_no_jax_or_repro():
+    code = (
+        "import importlib, json, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for m in {MODULES!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=120, check=True,
+    )
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "chip_smoke" in loaded and "repro_torch.sim.simulator" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_chip_smoke_fails_without_a_card():
+    """With no CUDA device visible the script exits non-zero and prints no
+    result (in particular not the device line)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], capture_output=True,
+        text=True, env=env, cwd=ROOT, timeout=120,
+    )
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_has_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            bad += [
+                a.value for a in node.args
+                if isinstance(a, ast.Constant) and _forbidden(str(a.value))
+            ]
+    assert bad == []
