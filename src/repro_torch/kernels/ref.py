@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the rank-and-select kernel.
+"""Plain PyTorch versions of the rank-and-select kernels.
 
-Port of ``repro/kernels/ref.py``'s ``match_ranks_ref`` and
-``match_ranks_batched_ref``.  They are what ``match.match_ranks_batched``
-runs for a tensor on the CPU, and what the CUDA kernel is held against on
-the card.  Ranks stay int32, as in the reference (``torch.cumsum`` would
-widen to int64 unless told otherwise).
+Port of ``repro/kernels/ref.py``: ``match_ranks_ref``,
+``match_ranks_batched_ref``, ``match_tasks_ref`` and ``verify_ref``.  They
+are what the wrappers in ``match.py`` run for a tensor on the CPU, and what
+the CUDA kernels are held against on the card.  Ranks stay int32, as in the
+reference (``torch.cumsum`` would widen to int64 unless told otherwise).
 """
 
 from __future__ import annotations
@@ -34,3 +34,32 @@ def match_ranks_batched_ref(avail: torch.Tensor, n_tasks: torch.Tensor) -> torch
     n = torch.as_tensor(n_tasks, dtype=torch.int32, device=a.device)[..., None]
     take = (a > 0) & (rank < n)
     return torch.where(take, rank, torch.full_like(rank, -1))
+
+
+def match_tasks_ref(
+    avail: torch.Tensor, n_tasks: torch.Tensor | int, max_tasks: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full match: task -> ordered-worker-position assignment.
+
+    Returns ``assignment`` int32[max_tasks] (the ordered worker position of
+    each task, -1 where unplaced) and ``placed`` int32[] (the number of
+    lanes given a rank).  The inverse scatter ``out[rank] = position``
+    writes into a sentinel slot ``max_tasks`` that is sliced off, standing
+    in for the reference's ``mode="drop"``: ranks are unique, so no two
+    lanes write one real slot."""
+    ranks = match_ranks_ref(avail, n_tasks)
+    w = avail.shape[0]
+    out = torch.full((max_tasks + 1,), -1, dtype=torch.int32, device=avail.device)
+    idx = torch.where((ranks >= 0) & (ranks < max_tasks), ranks, max_tasks)
+    positions = torch.arange(w, dtype=torch.int32, device=avail.device)
+    out = out.index_put((idx.to(torch.int64),), positions)[:max_tasks]
+    placed = (ranks >= 0).sum(dtype=torch.int32)
+    return out, placed
+
+
+def verify_ref(truth: torch.Tensor, assignment: torch.Tensor) -> torch.Tensor:
+    """LM-side verification oracle: for each assigned worker position, is it
+    *actually* free in the LM's ground truth?  -1 assignments are invalid."""
+    safe = assignment.clamp(0, truth.shape[0] - 1)
+    ok = truth.to(torch.bool)[safe]
+    return ok & (assignment >= 0)

@@ -340,7 +340,7 @@ def test_plain_match_path_equals_kernel_wrapper_path(small):
 def test_entry_points_refuse_what_is_not_ported(monkeypatch):
     wl = synth.synthetic_trace(num_jobs=2, tasks_per_job=4, num_workers=64, seed=0)
     with pytest.raises(NotImplementedError, match="event backend"):
-        run_simulation("megha", wl, 64)
+        run_simulation("sparrow", wl, 64)
     with pytest.raises(NotImplementedError, match="fault"):
         run_simulation("megha", wl, 64, backend="simx", faults=object(), device="cpu")
     with pytest.raises(ValueError, match="implements"):
