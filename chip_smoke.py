@@ -14,9 +14,12 @@ workers and 480,000 tasks, the Megha serving engine at 49,984 slots with
 per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
-  kernel       the batched kernel against its plain version over a sweep of
-               widths, dtypes and n, then at the main path's shapes: error,
-               time, plain time, torch.cumsum time, bytes and the byte bound
+  kernel       the batched kernel (both designs: wide rows split over blocks,
+               narrow rows one warp each) against its plain version over a
+               sweep of widths (tile and narrow-threshold edges among them),
+               dtypes and n, and at [50000, 64]; then at the main path's
+               shapes and the narrow [50000, 64]: error, time, plain time,
+               torch.cumsum time, bytes and the byte bound
   kernel_single  the single-row kernel (both entry points, match_ranks and
                the fused match_tasks) likewise, at the serving and SDPS
                shapes
@@ -27,7 +30,8 @@ per phase:
                rounds, delays, counters, kernel launches, host syncs per
                round, wall, memory (printed after the two phases above,
                which give its rounds and syncs)
-  megha_profile  torch.profiler over a steady window: device busy/idle
+  megha_profile  torch.profiler over a steady window: device busy/idle,
+               the batched kernel's µs per launch and share of device time
   oracle       the oracle on the same trace, and megha's gap above it
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
                kernel and plain engines in turns: identical stats and final
@@ -87,6 +91,17 @@ DEVICE = "cuda"
 
 SWEEP_WIDTHS = (1, 100, 128, 1024, 8192, 50_000)
 SWEEP_DTYPES = (torch.int8, torch.int32, torch.bool)
+#: the batched kernel's sweep adds narrow rows that share a thread's 8
+#: lanes (7) or straddle threads (33), the edges of the narrow design
+#: (NARROW_MAX_LANES, +1) and of the wide tile (tile - 1, tile, tile + 1,
+#: 2 tile + 1)
+_TILE = match.WIDE_TILE_LANES
+BATCHED_SWEEP_WIDTHS = tuple(sorted(set(SWEEP_WIDTHS) | {
+    7, 33, 64, match.NARROW_MAX_LANES, match.NARROW_MAX_LANES + 1,
+    _TILE - 1, _TILE, _TILE + 1, 2 * _TILE + 1}))
+#: the sparrow/eagle head-of-queue pick at the paper's scale: one narrow
+#: row of R = 64 queue slots per worker, n = 1
+NARROW_SHAPE = ("queue_pick", 50_000, 64)
 
 #: The main path's match shapes at the paper scale (8 GMs, 8 LMs).
 MAIN_SHAPES = (
@@ -177,40 +192,45 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     names = ("match", "match_tasks")
     with ThreadPoolExecutor(len(names)) as pool:
-        infos = dict(zip(names, pool.map(build.build, names)))
-    match._launch_fn()  # load each library and bind its C signature
+        infos = list(pool.map(build.build, names))
+    match._batched_fns()  # load each library and bind its C signature
     match._single_fns()
     out = dict(
         phase="build", seconds=time.perf_counter() - t0,
         kernels=[dict(name=i.name, library=i.library.name,
-                      nvcc_seconds=i.nvcc_seconds, cached=i.cached,
-                      ptxas=i.ptxas) for i in infos.values()],
+                      nvcc_seconds=i.nvcc_seconds, cached=i.cached, ptxas=i.ptxas)
+                 for i in infos],
     )
-    check(len(infos["match"].ptxas) == 3, "ptxas reports the three dtype instances")
-    check(len(infos["match_tasks"].ptxas) == 6,
-          "ptxas reports three dtypes x two entry points of match_tasks.cu")
-    check(all(k["spill_bytes"] == 0 for i in infos.values() for k in i.ptxas),
+    for name, i in zip(names, infos):
+        check(len(i.ptxas) == 6, f"ptxas reports 3 dtypes x 2 kernels of {name}.cu")
+    check(all(k["spill_bytes"] == 0 for i in infos for k in i.ptxas),
           "no register spills")
     emit(out)
     return out
 
 
+def _batched_case(avail, n, what: str) -> int:
+    """The batched kernel against its plain version; returns the error."""
+    got = match.match_ranks_batched(avail, n)
+    want = ref.match_ranks_batched_ref(avail, n)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    check(torch.equal(got, want), f"kernel == plain at {what}")
+    return err
+
+
 def phase_kernel(gen: torch.Generator) -> dict:
-    """The sweep, then the main-path shapes; returns the per-shape rows."""
+    """The sweep, then the main-path shapes and the narrow pick shape;
+    returns the per-shape rows."""
     cases, worst = 0, 0
-    for w in SWEEP_WIDTHS:
+    for w in BATCHED_SWEEP_WIDTHS:
         for dtype in SWEEP_DTYPES:
-            avail = (torch.rand((4, w), generator=gen) < 0.4).to(dtype).to(DEVICE)
+            avail = (torch.rand((5, w), generator=gen) < 0.4).to(dtype).to(DEVICE)
             for n in (
-                torch.tensor([0, 1, w // 2, w], dtype=torch.int32),
-                torch.randint(0, w + 1, (4,), generator=gen, dtype=torch.int32),
+                torch.tensor([0, 1, w // 2, w, w + 7], dtype=torch.int32),
+                torch.randint(0, w + 1, (5,), generator=gen, dtype=torch.int32),
             ):
-                n = n.to(DEVICE)
-                got = match.match_ranks_batched(avail, n)
-                want = ref.match_ranks_batched_ref(avail, n)
-                torch.cuda.synchronize()
-                worst = max(worst, int((got - want).abs().max()))
-                check(torch.equal(got, want), f"kernel == plain at w={w} {dtype}")
+                worst = max(worst, _batched_case(avail, n.to(DEVICE), f"w={w} {dtype}"))
                 cases += 1
             row = match.match_ranks_batched(avail[1:2].contiguous(), torch.tensor(
                 [w // 2], dtype=torch.int32, device=DEVICE))
@@ -218,42 +238,58 @@ def phase_kernel(gen: torch.Generator) -> dict:
                 avail[1:2], torch.tensor([w // 2], dtype=torch.int32, device=DEVICE))),
                 f"single row at w={w} {dtype}")
             cases += 1
+    # the narrow pick shape, every dtype, n = 1 and random n per row
+    caller, g, w = NARROW_SHAPE
+    for dtype in SWEEP_DTYPES:
+        avail = (torch.rand((g, w), generator=gen) < 0.4).to(dtype).to(DEVICE)
+        for n in (torch.ones((g,), dtype=torch.int32),
+                  torch.randint(0, w + 8, (g,), generator=gen, dtype=torch.int32)):
+            worst = max(worst, _batched_case(avail, n.to(DEVICE), f"[{g}, {w}] {dtype}"))
+            cases += 1
     emit(dict(phase="kernel", check="sweep", cases=cases, max_abs_err=worst,
-              widths=list(SWEEP_WIDTHS), dtypes=[str(d) for d in SWEEP_DTYPES]))
+              widths=list(BATCHED_SWEEP_WIDTHS), narrow_shape=[g, w],
+              dtypes=[str(d) for d in SWEEP_DTYPES],
+              n=["0", "1", "w/2", "w", "w+7", "random"]))
 
     rows = []
-    for caller, g, w in MAIN_SHAPES:
-        # bool views as the main path passes them; n = w per row, so every
-        # row is scanned to its end (no early exit) and the bound counts
-        # every byte
+    # bool views as the main path passes them; n = w per row, so every
+    # wide row is scanned to its end (no early exit) and the bound counts
+    # every byte; the narrow pick at its own n = 1 (no early exit there)
+    shapes = [(c, g, w, w) for c, g, w in MAIN_SHAPES] + [(*NARROW_SHAPE, 1)]
+    for caller, g, w, n_row in shapes:
         avail = (torch.rand((g, w), generator=gen) < 0.5).to(DEVICE)
-        n = torch.full((g,), w, dtype=torch.int32, device=DEVICE)
-        got = match.match_ranks_batched(avail, n)
-        want = ref.match_ranks_batched_ref(avail, n)
-        err = int((got - want).abs().max())
-        check(err == 0, f"kernel == plain at {caller} [{g}, {w}]")
+        n = torch.full((g,), n_row, dtype=torch.int32, device=DEVICE)
+        err = _batched_case(avail, n, f"{caller} [{g}, {w}]")
         nbytes = g * w * (avail.element_size() + 4) + 4 * g
-        ops = g * w
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
         r = dict(
-            phase="kernel", caller=caller, shape=[g, w], dtype="bool",
-            max_abs_err=err,
+            phase="kernel", caller=caller, shape=[g, w], dtype="bool", n=n_row,
+            design=match._batched_plan(w)[0], max_abs_err=err,
             ms=device_ms(lambda: match.match_ranks_batched(avail, n)),
             plain_ms=device_ms(lambda: ref.match_ranks_batched_ref(avail, n)),
-            library_ms=device_ms(
-                lambda: torch.cumsum(avail, dim=1, dtype=torch.int32)),
+            library_ms=device_ms(lambda: torch.cumsum(avail, dim=1, dtype=torch.int32)),
             host_us=host_us(lambda: match.match_ranks_batched(avail, n)),
             plain_host_us=host_us(lambda: ref.match_ranks_batched_ref(avail, n)),
-            bytes=nbytes, bound_ms=bound_ms, bound_by="bytes",
+            bytes=nbytes,
+            bound_ms=max(nbytes / HBM_BYTES_PER_S, g * w / SCALAR_OPS_PER_S) * 1e3,
+            bound_by="bytes",
         )
         emit(r)
         rows.append(r)
     return dict(sweep_cases=cases, sweep_err=worst, rows=rows)
 
 
+def _reset_peak_memory() -> None:
+    """Start a peak-memory reading from an empty cache: the allocator hands
+    out a cached block whole when splitting it would leave under 1 MB, so
+    blocks that earlier phases left cached would count in the peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def phase_megha(wl) -> dict:
     match.match_ranks_batched.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak_memory()
     t0 = time.perf_counter()
     m = run_simulation("megha", wl, num_workers=WORKERS, backend="simx", dt=DT,
                        device=DEVICE)
@@ -385,9 +421,10 @@ def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, spans, by_name = _device_busy(prof)
-    mk = [v for k, v in by_name.items() if "match_ranks_batched_kernel" in k]
+    kernel = "match_batched_wide_kernel"  # the only design megha's shapes take
+    mk = [v for k, v in by_name.items() if kernel in k]
     n_mk = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "match_ranks_batched_kernel" in e.name)
+               and kernel in e.name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(
         phase="megha_profile", match="kernel" if use_kernel else "plain",
@@ -402,6 +439,7 @@ def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
         device_ops_per_round=len(spans) / length,
         match_kernel_launches=n_mk,
         match_kernel_us_per_launch=(sum(mk) * 1e3 / n_mk) if n_mk else None,
+        match_kernel_device_share=sum(mk) * 1e3 / busy_us,
         top_device_ms=[[k[:90], v] for k, v in top],
     )
 
@@ -412,7 +450,7 @@ def phase_megha_profile(wl) -> list[dict]:
         r = _profile_window(wl, use_kernel, start=128, length=64)
         check(r["device_ops_per_round"] > 0, "the profiler saw device work")
         if use_kernel:
-            check(r["match_kernel_launches"] >= 64, "the window ran the kernel")
+            check(r["match_kernel_launches"] >= 64, "the window ran the wide kernel")
         emit(r)
         out.append(r)
     return out
@@ -605,7 +643,7 @@ def phase_serve() -> dict:
     match.match_tasks.launches = 0
     match.match_ranks.launches = 0
     match.match_ranks_batched.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak_memory()
     eng, wall, _ = _serve_engine_run(True)
     launches = dict(match_tasks=match.match_tasks.launches,
                     match_ranks=match.match_ranks.launches,
@@ -855,9 +893,14 @@ def main() -> int:
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],
         library_ms=borrow["library_ms"],
         library_call="torch.cumsum (the scan alone)",
-        by_shape=[{k: r[k] for k in ("caller", "shape", "ms", "plain_ms",
-                                     "library_ms", "bound_ms")}
-                  for r in kern["rows"]],
+        designs=[dict(
+            design=design,
+            shapes=[{k: r[k] for k in ("caller", "shape", "n", "ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
+                    for r in kern["rows"] if r["design"] == design],
+            **({"tile_lanes": match.WIDE_TILE_LANES} if design == "wide"
+               else {"max_lanes": match.NARROW_MAX_LANES}),
+        ) for design in ("wide", "narrow")],
     ), dict(
         name="match_ranks", route="cuda",
         source="src/repro_torch/kernels/csrc/match_tasks.cu",

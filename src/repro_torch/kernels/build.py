@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library under ``_build/`` (listed in
-``.gitignore``), named by a hash of its source and flags so an edited
-source is rebuilt and an unchanged one is reused.  Nothing here runs at
-import: the CPU-only test environment has no ``nvcc``.
+``.gitignore``), named by a hash of its source, the headers it may include
+(every ``csrc/*.cuh``) and its flags, so an edited source or header is
+rebuilt and an unchanged one is reused.  Nothing here runs at import: the
+CPU-only test environment has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -81,16 +82,24 @@ def parse_ptxas(log: str) -> list[dict]:
     return out
 
 
+def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` (by name and
+    content) and ``NVCC_FLAGS``: what the library built from them depends
+    on."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuildInfo:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    """Compile ``csrc/<name>.cu`` unless a library of the same sources and
     flags is already in ``_build/``; raise with ``nvcc``'s output if the
     compile fails."""
     src = CSRC_DIR / f"{name}.cu"
     nvcc = find_nvcc()
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    lib = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     log_path = lib.with_suffix(".log")
     if lib.is_file():
         log = log_path.read_text() if log_path.is_file() else ""

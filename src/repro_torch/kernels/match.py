@@ -3,7 +3,10 @@
 Ports of the two TPU kernels of ``repro/kernels/match.py``:
 
 * ``match_ranks_batched`` (body ``_match_kernel_batched``), CUDA source
-  ``csrc/match.cu``: one block per row of ``[G, W]``;
+  ``csrc/match.cu``, in two designs picked by row width
+  (``_batched_plan``): a wide row split over blocks of ``WIDE_TILE_LANES``
+  lanes joined by a decoupled look-back scan, or narrow rows scanned by
+  one warp per group of whole rows;
 * ``match_ranks`` (body ``_match_kernel``), CUDA source
   ``csrc/match_tasks.cu``: one row split over many blocks by a decoupled
   look-back scan, with a second entry point ``match_tasks`` that fuses the
@@ -26,34 +29,109 @@ from repro_torch.kernels import build, ref
 #: avail dtype -> the kernel's dtype code (bool is read as uint8)
 _DTYPE_CODES = {torch.bool: 0, torch.int8: 1, torch.int32: 2}
 
+#: lanes per block of a wide row: ``kTile`` of ``csrc/match.cu``, which the
+#: library reports at load (``_batched_fns`` checks that they agree)
+WIDE_TILE_LANES = 2048
+#: the widest row that ``csrc/match.cu`` scans within one warp (32 x 8 lanes)
+NARROW_MAX_LANES = 256
+
+#: the kernels' epochs take 30 bits of a status word; 0 is never used, so
+#: zeroed words read as "not yet published"
+_MAX_EPOCH = (1 << 30) - 1
+_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+class _LookbackScratch:
+    """The look-back status words of the kernels on one stream: one 64-bit
+    word per tile, zeroed when allocated and when the epoch wraps,
+    otherwise reused as they are (each launch tags its words with a new
+    epoch, and the kernels read words of another epoch as unwritten).
+    Launches on one stream run one after another, so they never share an
+    epoch's words, whichever kernel takes them."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.words = torch.zeros(0, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def take(self, tiles: int) -> tuple[torch.Tensor, int]:
+        if self.words.numel() < tiles:
+            self.words = torch.zeros(max(tiles, 64), dtype=torch.int64, device=self.device)
+            self.epoch = 0
+        self.epoch += 1
+        if self.epoch > _MAX_EPOCH:
+            self.words.zero_()
+            self.epoch = 1
+        return self.words, self.epoch
+
+
+#: (device index, stream handle) -> its scratch; device memory held for the
+#: life of the process, like the loaded libraries
+_SCRATCH: dict[tuple[int, int], _LookbackScratch] = {}
+
+
+def _scratch(device: torch.device, stream: int) -> _LookbackScratch:
+    key = (device.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = _LookbackScratch(device)
+    return _SCRATCH[key]
+
+
+def _batched_plan(w: int) -> tuple[str, int]:
+    """The design ``match_ranks_batched`` launches for rows of ``w`` lanes
+    and its look-back tiles per row: ``("narrow", 0)`` up to
+    ``NARROW_MAX_LANES`` lanes (a warp per ``256 // w`` whole rows, no
+    status words), else ``("wide", ceil(w / WIDE_TILE_LANES))`` (status
+    words ``[G, tiles]``)."""
+    if w <= NARROW_MAX_LANES:
+        return "narrow", 0
+    return "wide", -(-w // WIDE_TILE_LANES)
+
 
 @lru_cache(maxsize=None)
-def _launch_fn():
-    """The C entry point, with every pointer and the stream as
-    ``c_void_p`` (the ctypes default would pass them as 32-bit ints)."""
-    fn = build.load("match").match_ranks_batched_launch
-    fn.argtypes = [
+def _batched_fns():
+    """The entry points of ``csrc/match.cu``: (wide launch, narrow launch),
+    with every pointer and the stream as ``c_void_p`` (the ctypes default
+    would pass them as 32-bit ints)."""
+    lib = build.load("match")
+    lib.match_batched_tile_lanes.argtypes = []
+    lib.match_batched_tile_lanes.restype = ctypes.c_int
+    tile = lib.match_batched_tile_lanes()
+    if tile != WIDE_TILE_LANES:
+        raise RuntimeError(
+            f"csrc/match.cu tiles wide rows by {tile} lanes, "
+            f"WIDE_TILE_LANES says {WIDE_TILE_LANES}")
+    wide, narrow = lib.match_batched_wide_launch, lib.match_batched_narrow_launch
+    wide.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+    ]
+    narrow.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
-    return fn
+    wide.restype = narrow.restype = ctypes.c_int
+    return wide, narrow
 
 
-@lru_cache(maxsize=None)
-def _single_fns():
-    """The single-row library's entry points: (launch, lanes per tile)."""
-    lib = build.load("match_tasks")
-    fn = lib.match_single_launch
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    lib.match_single_tile_lanes.argtypes = []
-    lib.match_single_tile_lanes.restype = ctypes.c_int
-    return fn, lib.match_single_tile_lanes()
+def _launch_batched(avail: torch.Tensor, n_tasks: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of ``csrc/match.cu`` on the current stream."""
+    g, w = avail.shape
+    design, tiles = _batched_plan(w)
+    wide, narrow = _batched_fns()
+    code = _DTYPE_CODES[avail.dtype]
+    with torch.cuda.device(avail.device):
+        stream = torch.cuda.current_stream(avail.device).cuda_stream
+        if design == "wide":
+            words, epoch = _scratch(avail.device, stream).take(g * tiles)
+            err = wide(avail.data_ptr(), code, n_tasks.data_ptr(), out.data_ptr(),
+                       g, w, words.data_ptr(), epoch, stream)
+        else:
+            err = narrow(avail.data_ptr(), code, n_tasks.data_ptr(), out.data_ptr(),
+                         g, w, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"match_ranks_batched {design} kernel launch failed: CUDA error {err}")
 
 
 def match_ranks_batched(avail: torch.Tensor, n_tasks: torch.Tensor) -> torch.Tensor:
@@ -85,55 +163,12 @@ def match_ranks_batched(avail: torch.Tensor, n_tasks: torch.Tensor) -> torch.Ten
     out = torch.empty((g, w), dtype=torch.int32, device=avail.device)
     if out.numel() == 0:
         return out
-    launch = _launch_fn()
-    with torch.cuda.device(avail.device):
-        stream = torch.cuda.current_stream(avail.device).cuda_stream
-        err = launch(
-            avail.data_ptr(), _DTYPE_CODES[avail.dtype], n_tasks.data_ptr(),
-            out.data_ptr(), g, w, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"match_ranks_batched kernel launch failed: CUDA error {err}")
+    _launch_batched(avail, n_tasks, out)
     match_ranks_batched.launches += 1
     return out
 
 
 match_ranks_batched.launches = 0
-
-
-#: the kernel's epochs take 30 bits of a status word; 0 is never used, so
-#: zeroed words read as "not yet published"
-_MAX_EPOCH = (1 << 30) - 1
-_INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
-
-
-class _LookbackScratch:
-    """The look-back status words of the single-row kernel on one stream:
-    one 64-bit word per tile, zeroed when allocated and when the epoch
-    wraps, otherwise reused as they are (each launch tags its words with a
-    new epoch, and the kernel reads words of another epoch as unwritten).
-    Launches on one stream run one after another, so they never share an
-    epoch's words."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.device = device
-        self.words = torch.zeros(0, dtype=torch.int64, device=device)
-        self.epoch = 0
-
-    def take(self, tiles: int) -> tuple[torch.Tensor, int]:
-        if self.words.numel() < tiles:
-            self.words = torch.zeros(max(tiles, 64), dtype=torch.int64, device=self.device)
-            self.epoch = 0
-        self.epoch += 1
-        if self.epoch > _MAX_EPOCH:
-            self.words.zero_()
-            self.epoch = 1
-        return self.words, self.epoch
-
-
-#: (device index, stream handle) -> its scratch; device memory held for the
-#: life of the process, like the loaded libraries
-_SCRATCH: dict[tuple[int, int], _LookbackScratch] = {}
 
 
 def clamp_n(n: torch.Tensor | int, max_tasks: int) -> torch.Tensor | int:
@@ -162,6 +197,22 @@ def _check_row(avail: torch.Tensor, n) -> None:
         raise TypeError(f"n must be a Python int or an int32 tensor, got {type(n).__name__}")
 
 
+@lru_cache(maxsize=None)
+def _single_fns():
+    """The single-row library's entry points: (launch, lanes per tile)."""
+    lib = build.load("match_tasks")
+    fn = lib.match_single_launch
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.match_single_tile_lanes.argtypes = []
+    lib.match_single_tile_lanes.restype = ctypes.c_int
+    return fn, lib.match_single_tile_lanes()
+
+
 def _launch_single(avail: torch.Tensor, n, max_tasks: int, fused: bool,
                    out: torch.Tensor, placed: torch.Tensor | None) -> None:
     """One launch of ``csrc/match_tasks.cu`` on the current stream."""
@@ -173,11 +224,7 @@ def _launch_single(avail: torch.Tensor, n, max_tasks: int, fused: bool,
         n_ptr, n_val = None, min(max(n, _INT32_MIN), _INT32_MAX)
     with torch.cuda.device(avail.device):
         stream = torch.cuda.current_stream(avail.device).cuda_stream
-        key = (avail.device.index, stream)
-        scratch = _SCRATCH.get(key)
-        if scratch is None:
-            scratch = _SCRATCH[key] = _LookbackScratch(avail.device)
-        words, epoch = scratch.take(-(-w // tile_lanes))
+        words, epoch = _scratch(avail.device, stream).take(-(-w // tile_lanes))
         err = launch(
             avail.data_ptr(), _DTYPE_CODES[avail.dtype], w, n_ptr, n_val,
             max_tasks, int(fused), out.data_ptr(),

@@ -14,6 +14,12 @@ from repro_torch.simx import convert, simulate_workload
 from repro_torch.workload.synth import synthetic_trace
 
 WIDTHS = [1, 100, 128, 1024, 8192, 50_000]
+#: the batched kernel's widths add narrow rows that share a thread's 8
+#: lanes (7) or straddle threads (33, 100), the narrow design's edge (256,
+#: 257) and the wide tile's edges (tile - 1, tile, tile + 1, 2 tile + 1)
+_TILE = match.WIDE_TILE_LANES
+BATCHED_WIDTHS = sorted(set(WIDTHS) | {7, 33, 64, 256, 257, _TILE - 1, _TILE, _TILE + 1,
+                                       2 * _TILE + 1})
 DTYPES = [torch.int8, torch.int32, torch.bool]
 
 
@@ -22,20 +28,39 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
+def _batched_matches_plain(avail: torch.Tensor, n: list[int]) -> None:
+    nt = torch.tensor(n, dtype=torch.int32, device="cuda")
+    before = match.match_ranks_batched.launches
+    got = match.match_ranks_batched(avail, nt)
+    torch.cuda.synchronize()
+    assert match.match_ranks_batched.launches == before + 1
+    assert torch.equal(got, ref.match_ranks_batched_ref(avail, nt))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("w", BATCHED_WIDTHS)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_cuda_kernel_matches_plain_version(w, dtype):
+    """Both designs of the batched kernel (narrow up to 256 lanes, wide
+    above) over n in {0, 1, w/2, w, w+7} and random n, one row each."""
     _need_card()
     gen = torch.Generator().manual_seed(w)
-    avail = (torch.rand((4, w), generator=gen) < 0.4).to(dtype).cuda()
-    for n in ([0, 1, w // 2, w], torch.randint(0, w + 1, (4,), generator=gen).tolist()):
-        nt = torch.tensor(n, dtype=torch.int32, device="cuda")
-        before = match.match_ranks_batched.launches
-        got = match.match_ranks_batched(avail, nt)
-        torch.cuda.synchronize()
-        assert match.match_ranks_batched.launches == before + 1
-        assert torch.equal(got, ref.match_ranks_batched_ref(avail, nt))
+    avail = (torch.rand((5, w), generator=gen) < 0.4).to(dtype).cuda()
+    _batched_matches_plain(avail, [0, 1, w // 2, w, w + 7])
+    _batched_matches_plain(avail, torch.randint(0, w + 1, (5,), generator=gen).tolist())
+    _batched_matches_plain(avail[2:3].contiguous(), [w // 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_cuda_kernel_narrow_pick_shape(dtype):
+    """The sparrow/eagle head-of-queue pick at the paper's scale: 50,000
+    rows of 64 queue slots, n = 1 and random n."""
+    _need_card()
+    gen = torch.Generator().manual_seed(64)
+    avail = (torch.rand((50_000, 64), generator=gen) < 0.3).to(dtype).cuda()
+    _batched_matches_plain(avail, [1] * 50_000)
+    _batched_matches_plain(avail, torch.randint(0, 72, (50_000,), generator=gen).tolist())
 
 
 @pytest.mark.gpu
@@ -92,6 +117,64 @@ def test_single_row_kernel_survives_epoch_wrap():
         a, p = match.match_tasks(avail, 512, 512)
         assert torch.equal(a, want[0]) and torch.equal(p, want[1])
     assert match._SCRATCH[key].epoch == 3
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_wide_rows_past_one_grid():
+    """More wide rows than one launch's grid holds (65,535): the launch is
+    split into chunks of rows, each with its own status words."""
+    _need_card()
+    gen = torch.Generator().manual_seed(6)
+    avail = (torch.rand((65_538, 300), generator=gen) < 0.5).cuda()
+    _batched_matches_plain(avail, torch.randint(0, 301, (65_538,), generator=gen).tolist())
+
+
+@pytest.mark.gpu
+def test_batched_kernel_survives_epoch_wrap():
+    """The wide design shares the look-back scratch and its epochs; results
+    stay right across the wrap."""
+    _need_card()
+    avail = (torch.rand((8, 49_984), generator=torch.Generator().manual_seed(4)) < 0.5).cuda()
+    n = torch.tensor([0, 1, 100, 3000, 24_000, 25_000, 49_984, 60_000],
+                     dtype=torch.int32, device="cuda")
+    want = ref.match_ranks_batched_ref(avail, n)
+    match.match_ranks_batched(avail, n)
+    key = (avail.device.index, torch.cuda.current_stream().cuda_stream)
+    match._SCRATCH[key].epoch = match._MAX_EPOCH - 1
+    for _ in range(4):
+        assert torch.equal(match.match_ranks_batched(avail, n), want)
+    assert match._SCRATCH[key].epoch == 3
+
+
+@pytest.mark.gpu
+def test_batched_and_single_row_launches_share_one_scratch():
+    """Batched and single-row launches in turns on one stream, each taking
+    the next epoch of the same status words, with no synchronize between
+    them; every result equals its plain version."""
+    _need_card()
+    gen = torch.Generator().manual_seed(5)
+    wide = (torch.rand((8, 49_984), generator=gen) < 0.5).cuda()
+    narrow = (torch.rand((4096, 64), generator=gen) < 0.3).cuda()
+    row = (torch.rand((49_984,), generator=gen) < 0.5).cuda()
+    n_wide = torch.randint(0, 49_985, (8,), generator=gen, dtype=torch.int32).cuda()
+    n_narrow = torch.ones((4096,), dtype=torch.int32, device="cuda")
+    outs = []
+    for i in range(6):
+        outs.append(("batched", match.match_ranks_batched(wide, n_wide)))
+        outs.append(("tasks", match.match_tasks(row, 512 + i, 512)))
+        outs.append(("narrow", match.match_ranks_batched(narrow, n_narrow)))
+        outs.append(("ranks", match.match_ranks(row, 1000 * i)))
+    torch.cuda.synchronize()
+    for i, (kind, got) in enumerate(outs):
+        if kind == "batched":
+            assert torch.equal(got, ref.match_ranks_batched_ref(wide, n_wide))
+        elif kind == "narrow":
+            assert torch.equal(got, ref.match_ranks_batched_ref(narrow, n_narrow))
+        elif kind == "tasks":
+            want = ref.match_tasks_ref(row, 512, 512)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            assert torch.equal(got, ref.match_ranks_ref(row, 1000 * (i // 4)))
 
 
 @pytest.mark.gpu
