@@ -9,9 +9,11 @@ It builds every kernel of the port's paths from the sources in the
 checkout (one ``nvcc`` per source, all started together), holds each
 against its plain PyTorch version on the card, drives the paths —
 ``run_simulation(..., backend="simx")`` for megha and the oracle at 49,984
-workers and 480,000 tasks, the Megha serving engine at 49,984 slots with
-200,000 requests, and the fast path's SDPS loop — and prints one JSON line
-per phase:
+workers and 480,000 tasks, the Fig. 2 sweep (``fig2_sweep``'s grid of 3
+loads x 2 seeds as one batched program) for megha, pigeon and the oracle
+at that size, the Megha serving engine at 49,984 slots with 200,000
+requests, and the fast path's SDPS loop — and prints one JSON line per
+phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
   kernel       the batched kernel (both designs: wide rows split over blocks,
@@ -33,6 +35,14 @@ per phase:
   megha_profile  torch.profiler over a steady window: device busy/idle,
                the batched kernel's µs per launch and share of device time
   oracle       the oracle on the same trace, and megha's gap above it
+  sweep        the Fig. 2 grid (loads 0.2 / 0.5 / 0.8 x seeds 0 / 1) for
+               megha, pigeon and the oracle as one batched run each: every
+               point completes, kernel and plain final states bitwise
+               equal, launches per round, grid wall and tasks per wall
+               second at B = 6 and at B = 1 (one point, bitwise that point
+               of the grid); megha's (0.8, seed 0) point against a
+               standalone run of the same trace
+  sweep_profile  torch.profiler over megha's grid rounds 128-192 at B = 6
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
                kernel and plain engines in turns: identical stats and final
                state, every request completed, gm_round calls == kernel
@@ -43,7 +53,8 @@ per phase:
   sdps         the fast path's scheduling decisions per second at 9,984 and
                49,984 workers, kernel and plain; the event backend's megha
   cpu_parity   the port on the CPU against the port on the card, bitwise
-               (megha, the oracle and the serving engine)
+               (megha, the oracle, the serving engine, and the three rules'
+               sweep grids at bench_simx.py's default size)
   kernels      one summary line per kernel
 
 then the card's name and power limit (``nvidia-smi``) and, as the last
@@ -54,6 +65,7 @@ found.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -72,7 +84,7 @@ from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.kernels import build, match, ops, ref  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
-from repro_torch.simx import convert, runtime, simulate_workload  # noqa: E402
+from repro_torch.simx import convert, runtime, simulate_workload, sweep  # noqa: E402
 from repro_torch.simx.state import SimxConfig, export_workload  # noqa: E402
 from repro_torch.workload.synth import synthetic_trace  # noqa: E402
 
@@ -103,11 +115,26 @@ BATCHED_SWEEP_WIDTHS = tuple(sorted(set(SWEEP_WIDTHS) | {
 #: row of R = 64 queue slots per worker, n = 1
 NARROW_SHAPE = ("queue_pick", 50_000, 64)
 
-#: The main path's match shapes at the paper scale (8 GMs, 8 LMs).
+#: bench_simx.py's SWEEP_FULL: the paper-scale Fig. 2 grid (3 loads x 2
+#: seeds = 6 points per scheduler; megha's trace and run at 49,984 workers)
+SWEEP_FULL = dict(loads=(0.2, 0.5, 0.8), num_seeds=2, num_workers=WORKERS, num_jobs=480,
+                  tasks_per_job=1000, dt=DT)
+SWEEP_POINTS = 6
+#: bench_simx.py's default grid (SWEEP), for the card-against-CPU check
+SWEEP_SMALL = dict(loads=(0.4, 0.8), num_seeds=2, num_workers=1024, num_jobs=32,
+                   tasks_per_job=128, dt=DT)
+SWEEP_RULES = ("megha", "pigeon", "oracle")
+
+#: The main path's match shapes at the paper scale (8 GMs, 8 LMs), then
+#: the Fig. 2 grid's (B = 6 points; pigeon's 1,250 groups of 40 workers)
 MAIN_SHAPES = (
     ("megha_internal", 8, GRID_WORKERS // 8),
     ("megha_borrow", 8, GRID_WORKERS),
     ("oracle", 1, WORKERS),
+    ("sweep_megha_internal", SWEEP_POINTS * 8, GRID_WORKERS // 8),
+    ("sweep_megha_borrow", SWEEP_POINTS * 8, GRID_WORKERS),
+    ("sweep_oracle", SWEEP_POINTS, WORKERS),
+    ("sweep_pigeon", SWEEP_POINTS * (WORKERS // 40), 40),
 )
 
 #: The serving engine at the paper's 50k-worker fleet on the 8 x 8 grid:
@@ -400,16 +427,14 @@ def _device_busy(prof) -> tuple[float, list, dict]:
     return busy_us, spans, by_name
 
 
-def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
+def _profile_rounds(step, state, start: int, length: int) -> dict:
+    """Rounds ``start`` to ``start + length`` of ``step`` from a fresh
+    ``state``: timed once without the profiler, then again (from the same
+    state) under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = SimxConfig(num_workers=GRID_WORKERS, dt=DT)
-    tasks = export_workload(wl, DEVICE)
-    rule = runtime.get_rule("megha")
-    step = rule.build_step(cfg, tasks, torch.Generator().manual_seed(0),
-                           match_fn=runtime.default_match_fn(use_kernel))
-    state = runtime.scan_rounds(step, rule.init(cfg, tasks), start)
+    state = runtime.scan_rounds(step, state, start)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     runtime.scan_rounds(step, state, length)
@@ -427,7 +452,6 @@ def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
                and kernel in e.name)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(
-        phase="megha_profile", match="kernel" if use_kernel else "plain",
         rounds=[start, start + length],
         wall_ms_per_round=wall_ms / length,
         profiled_wall_ms_per_round=prof_wall_ms / length,
@@ -442,6 +466,16 @@ def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
         match_kernel_device_share=sum(mk) * 1e3 / busy_us,
         top_device_ms=[[k[:90], v] for k, v in top],
     )
+
+
+def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
+    cfg = SimxConfig(num_workers=GRID_WORKERS, dt=DT)
+    tasks = export_workload(wl, DEVICE)
+    rule = runtime.get_rule("megha")
+    step = rule.build_step(cfg, tasks, torch.Generator().manual_seed(0),
+                           match_fn=runtime.default_match_fn(use_kernel))
+    return dict(phase="megha_profile", match="kernel" if use_kernel else "plain",
+                **_profile_rounds(step, rule.init(cfg, tasks), start, length))
 
 
 def phase_megha_profile(wl) -> list[dict]:
@@ -479,6 +513,131 @@ def phase_oracle(wl, megha: dict) -> dict:
     return out
 
 
+def _grid_run(plan, use_kernel: bool, one_point: bool = False):
+    """One batched grid run of ``plan`` on the card (all 6 points, or only
+    load 0.8 / seed 0): (final state, point tasks, step, wall seconds,
+    kernel launches).  The wall is the host clock around the rounds and
+    the on-device summary, ending in a synchronize."""
+    sub, jsub, seeds = plan.submit_grid, plan.job_submit_grid, plan.seeds
+    if one_point:
+        sub, jsub, seeds = sub[-1:], jsub[-1:], seeds[:1]
+    match.match_ranks_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, tasks, step = sweep.grid_state(
+        plan.name, plan.cfg, plan.tasks, sub, jsub, seeds, plan.num_rounds,
+        match_fn=runtime.default_match_fn(use_kernel))
+    summary = sweep.point_summary(state, tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, tasks, step, summary, wall, match.match_ranks_batched.launches
+
+
+def _point(state, b: int):
+    return {k: v[b] for k, v in convert.state_to_numpy(state).items()}
+
+
+def _summary_list(summary: dict) -> dict:
+    return {k: v.cpu().tolist() for k, v in summary.items()}
+
+
+def phase_sweep(megha: dict) -> dict:
+    """The Fig. 2 grid for megha, pigeon and the oracle: kernel run
+    (whose launches count), plain run, and the one-point run, each on the
+    card; then megha's (0.8, seed 0) point against a standalone run."""
+    t0 = time.perf_counter()
+    plans = {"megha": sweep.fig2_plan("megha", device=DEVICE, **SWEEP_FULL)}
+    plans["oracle"] = sweep.fig2_plan("oracle", device=DEVICE, **SWEEP_FULL)
+    # pigeon runs on the oracle's 50,000-worker load grid (built once)
+    plans["pigeon"] = dataclasses.replace(plans["oracle"], name="pigeon")
+    plan_s = time.perf_counter() - t0
+    out = dict(phase="sweep", entry="fig2_plan + sweep_grid", grid=dict(
+        loads=list(SWEEP_FULL["loads"]), seeds=SWEEP_FULL["num_seeds"], points=SWEEP_POINTS,
+        jobs=SWEEP_FULL["num_jobs"], tasks_per_job=SWEEP_FULL["tasks_per_job"], dt=DT),
+        plan_build_s=plan_s, rules={})
+    per_round = {"megha": 1, "pigeon": 2, "oracle": 1}
+    finals = {}
+    for name in SWEEP_RULES:
+        plan = plans[name]
+        state, tasks, step, summ, wall, launches = _grid_run(plan, True)
+        p_state, _, _, _, p_wall, p_launches = _grid_run(plan, False)
+        o_state, _, _, _, o_wall, o_launches = _grid_run(plan, True, one_point=True)
+        rounds = plan.num_rounds
+        T = tasks.num_tasks
+        borrow = getattr(step, "borrow_rounds", 0)
+        r = dict(
+            workers=plan.cfg.num_workers, num_rounds=rounds, tasks_per_point=T,
+            kernel_launches=launches, expected_launches=per_round[name] * rounds + borrow,
+            borrow_rounds_any=borrow,
+            borrow_rounds_per_point=(step.point_borrow_rounds.tolist()
+                                     if getattr(step, "point_borrow_rounds", None) is not None
+                                     else None),
+            plain_run_launches=p_launches, one_point_launches=o_launches,
+            kernel_and_plain_bitwise=states_equal(state, p_state),
+            one_point_bitwise_grid_point=all(
+                np.array_equal(a, b) for a, b in zip(
+                    _point(o_state, 0).values(), _point(state, SWEEP_POINTS - 2).values())),
+            summary=_summary_list(summ),
+            wall_s=wall, plain_wall_s=p_wall, one_point_wall_s=o_wall,
+            tasks_per_wall_s=SWEEP_POINTS * T / wall,
+            one_point_tasks_per_wall_s=T / o_wall,
+            ms_per_round=wall / rounds * 1e3, one_point_ms_per_round=o_wall / rounds * 1e3,
+            batch_speedup=SWEEP_POINTS * o_wall / wall,
+        )
+        check(all(v == T for v in r["summary"]["tasks_done"]),
+              f"{name}: every grid point completes its {T} tasks")
+        check(launches == r["expected_launches"] > 0,
+              f"{name}: one kernel launch per match of the batch")
+        check(p_launches == 0, f"{name}: the plain grid launches no kernel")
+        check(r["kernel_and_plain_bitwise"], f"{name}: kernel and plain grids bitwise equal")
+        check(r["one_point_bitwise_grid_point"],
+              f"{name}: the one-point run is bitwise the grid's (0.8, 0) point")
+        out["rules"][name] = r
+        finals[name] = state
+    # megha's (0.8, seed 0) point against a standalone run of its trace
+    # (the grid's trace is built at the shaved 49,984 workers, as the
+    # reference's fig2_plan builds it; the megha phase's at 50,000)
+    wl = synthetic_trace(num_jobs=SWEEP_FULL["num_jobs"], load=0.8, num_workers=GRID_WORKERS,
+                         tasks_per_job=SWEEP_FULL["tasks_per_job"], seed=0)
+    alone = simulate_workload("megha", wl, GRID_WORKERS, dt=DT, seed=0, device=DEVICE)
+    b = SWEEP_POINTS - 2  # load 0.8, seed 0
+    keys = ("p50", "p95", "inconsistencies", "tasks_done", "messages")
+    grid = {k: out["rules"]["megha"]["summary"][k][b] for k in keys}
+    grid["repartitions"] = int(finals["megha"].repartitions[b])
+    standalone = {k: v for k, v in _summary_list(
+        sweep.point_summary(alone.state, alone.tasks)).items() if k in keys}
+    standalone.update(repartitions=int(alone.state.repartitions), rounds=int(alone.state.rnd))
+    same = ("p50", "p95", "inconsistencies", "repartitions", "tasks_done")
+    out["megha_point_08_seed0"] = dict(
+        grid=grid, standalone=standalone,
+        grid_equals_standalone=all(grid[k] == standalone[k] for k in same),
+        megha_phase=dict(p50=megha["p50_delay"], p95=megha["p95_delay"],
+                         inconsistencies=megha["inconsistencies"],
+                         repartitions=megha["repartitions"], trace_workers=WORKERS),
+        grid_counters_equal_megha_phase=(
+            grid["inconsistencies"] == megha["inconsistencies"]
+            and grid["repartitions"] == megha["repartitions"]),
+    )
+    check(out["megha_point_08_seed0"]["grid_equals_standalone"],
+          "megha's (0.8, 0) grid point equals its standalone run")
+    emit(out)
+    out["_plan_megha"] = plans["megha"]
+    return out
+
+
+def phase_sweep_profile(plan) -> dict:
+    """Megha's grid (B = 6) under torch.profiler, rounds 128-192."""
+    step, state, _ = sweep.build_grid(
+        plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+        plan.seeds, match_fn=runtime.default_match_fn(True))
+    r = dict(phase="sweep_profile", scheduler="megha", points=SWEEP_POINTS,
+             **_profile_rounds(step, state, start=128, length=64))
+    check(r["device_ops_per_round"] > 0, "the profiler saw the grid's device work")
+    check(r["match_kernel_launches"] >= 64, "the grid window ran the wide kernel")
+    emit(r)
+    return r
+
+
 def phase_cpu_parity() -> dict:
     wl = synthetic_trace(num_jobs=24, tasks_per_job=128, load=0.8,
                          num_workers=1024, seed=1)
@@ -513,6 +672,22 @@ def phase_cpu_parity() -> dict:
     )
     check(out["serve"]["bitwise_equal"], "serve: CPU and card engines bitwise equal")
     check(out["serve"]["summary"]["completed"] == 1500, "serve: completes")
+    # the sweep grids at bench_simx.py's default size, B = 4
+    out["sweep"] = {}
+    for name in SWEEP_RULES:
+        states = {}
+        for dev in ("cpu", DEVICE):
+            plan = sweep.fig2_plan(name, device=dev, **SWEEP_SMALL)
+            states[dev], tasks, _ = sweep.grid_state(
+                name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+                plan.seeds, plan.num_rounds)
+        out["sweep"][name] = dict(
+            bitwise_equal=states_equal(states["cpu"], states[DEVICE]),
+            rounds=plan.num_rounds,
+            tasks_done=sweep.point_summary(states[DEVICE], tasks)["tasks_done"].tolist())
+        check(out["sweep"][name]["bitwise_equal"], f"{name} grid: CPU and card bitwise equal")
+        check(all(v == tasks.num_tasks for v in out["sweep"][name]["tasks_done"]),
+              f"{name} grid: completes")
     emit(out)
     return out
 
@@ -874,6 +1049,8 @@ def main() -> int:
     emit(megha)
     phase_megha_profile(wl)
     orc = phase_oracle(wl, megha)
+    swp = phase_sweep(megha)
+    phase_sweep_profile(swp.pop("_plan_megha"))
     serve = phase_serve()
     phase_serve_profile()
     sdps = phase_sdps()
@@ -886,8 +1063,11 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/match.cu",
         replaces="src/repro/kernels/match.py:31",
         launches=megha["kernel_launches"],
-        launches_by_path=dict(megha=megha["kernel_launches"],
-                              oracle=orc["kernel_launches"]),
+        launches_by_path=dict(
+            megha=megha["kernel_launches"], oracle=orc["kernel_launches"],
+            sweep=sum(r["kernel_launches"] for r in swp["rules"].values()),
+            sweep_by_rule={k: r["kernel_launches"] for k, r in swp["rules"].items()},
+            pigeon=swp["rules"]["pigeon"]["kernel_launches"]),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],

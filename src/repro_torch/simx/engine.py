@@ -1,5 +1,5 @@
 """simx engine: the fixed-timestep simulation driven from the host (port of
-``repro/simx/engine.py`` for the megha and oracle rules).
+``repro/simx/engine.py`` for the megha, pigeon and oracle rules).
 
 The round-synchronous approximation of the event backend is the
 reference's, unchanged (see the ``repro.simx.engine`` docstring): within a
@@ -27,9 +27,10 @@ from repro_torch.core.metrics import JobRecord, RunMetrics, TaskRecord, classify
 from repro_torch.device import resolve_device
 from repro_torch.simx import runtime
 
-# importing the rule modules registers them (paper scheduler, then the
-# oracle baseline)
+# importing the rule modules registers them (the paper schedulers, then
+# the oracle baseline)
 from repro_torch.simx import megha as simx_megha  # noqa: F401
+from repro_torch.simx import pigeon as simx_pigeon  # noqa: F401
 from repro_torch.simx import oracle as simx_oracle  # noqa: F401
 from repro_torch.simx.runtime import scan_rounds
 from repro_torch.simx.state import CoreState, SimxConfig, TaskArrays, export_workload
@@ -79,15 +80,15 @@ def run_to_completion(
     return state
 
 
-def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays) -> int:
-    """Upper-bound round count: arrival span + 4 x the perfectly packed
-    drain time + the longest task + one heartbeat interval.  The duration
+def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays, slack: float = 4.0) -> int:
+    """Upper-bound round count: arrival span + ``slack`` x the perfectly
+    packed drain time + the longest task + one heartbeat interval.  The duration
     sum is taken in float32, as the reference takes it (torch and XLA sum
     in different orders, so the last bit of the sum can differ on
     non-integer durations; the round counts agree on the test traces)."""
     span = (
         float(torch.max(tasks.submit))
-        + 4.0 * float(torch.sum(tasks.duration)) / cfg.num_workers
+        + slack * float(torch.sum(tasks.duration)) / cfg.num_workers
         + float(torch.max(tasks.duration))
         + cfg.heartbeat_interval
         + 1.0
@@ -99,7 +100,7 @@ def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays) -> int:
 class SimxRun:
     """A finished simx simulation plus everything needed to report it.
     ``borrow_rounds`` counts the rounds that ran megha's borrow pass (each
-    one a second match launch); it is 0 for the oracle."""
+    one a second match launch); it is 0 for pigeon and the oracle."""
 
     scheduler: str
     workload_name: str
@@ -156,8 +157,8 @@ class SimxRun:
                     is_long=classify_long(ideal[j], LONG_JOB_THRESHOLD),
                 )
             )
-        # megha and the oracle schedule centrally: a task waits at the
-        # scheduling entity, never in a worker queue
+        # megha, pigeon and the oracle queue at the scheduling entity (a
+        # GM, a group coordinator, the oracle), never in a worker queue
         t_job = self.tasks.job.cpu().numpy().tolist()
         t_dur = self.tasks.duration.cpu().numpy().astype(np.float64)
         t_sub = self.tasks.submit.cpu().numpy().astype(np.float64)
@@ -194,6 +195,11 @@ def simulate_workload(
     num_gms: int = 8,
     num_lms: int = 8,
     heartbeat_interval: float = 5.0,
+    long_threshold: float = LONG_JOB_THRESHOLD,
+    num_distributors: int = 5,
+    group_size: int = 40,
+    reserved_per_group: int = 2,
+    weight: int = 4,
     dt: float = 0.05,
     seed: int = 0,
     chunk: int = 256,
@@ -206,8 +212,10 @@ def simulate_workload(
     """Run one (scheduler, workload) simx simulation to completion on
     ``device`` (``None`` = the CUDA card).
 
-    ``scheduler`` is ``"megha"`` or ``"oracle"``.  ``until`` caps the
-    simulated time span instead of running until all tasks finish.
+    ``scheduler`` is ``"megha"``, ``"pigeon"`` or ``"oracle"``.  ``until``
+    caps the simulated time span instead of running until all tasks
+    finish.  Pigeon's knobs carry the event backend's names and defaults
+    (``weight`` maps to ``SimxConfig.wfq_weight``).
     ``use_kernel`` selects the rank-and-select kernel (the default) or its
     plain version.  ``orders`` (int32[G, W]) are megha's per-GM priority
     orders; without them they are drawn from a ``torch.Generator`` seeded
@@ -223,6 +231,11 @@ def simulate_workload(
         num_gms=num_gms,
         num_lms=num_lms,
         heartbeat_interval=heartbeat_interval,
+        long_threshold=long_threshold,
+        num_distributors=num_distributors,
+        group_size=group_size,
+        reserved_per_group=reserved_per_group,
+        wfq_weight=weight,
         dt=dt,
     )
     generator = torch.Generator().manual_seed(seed)

@@ -21,7 +21,9 @@ One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
      fresh snapshot of every LM that rejected it (§3.4.1).
 
 The reference enters the borrow pass through ``lax.cond``; here it is a
-Python ``if`` on a device scalar, one host sync per round.
+Python ``if`` on a device scalar, one host sync per round.  The step runs
+a batch of grid points at once (see ``make_megha_step``); a single run is
+a batch of one.
 """
 
 from __future__ import annotations
@@ -75,8 +77,18 @@ def make_megha_step(
     coordinates convert through precomputed inverse permutations
     (gathers, not scatters).
 
+    The step is batched over grid points (``runtime``'s point axis):
+    ``orders`` is ``int32[G, W]`` (shared by every point) or ``[B, G, W]``
+    (one set per point), and ``tasks`` may carry per-point arrival times.
+    Under the reference's ``vmap`` its ``lax.cond`` into the borrow pass
+    is a select; here the pass runs when any point needs it (one host
+    read per round for all points) and each point keeps its results only
+    if it needed the pass itself.
+
     The returned step carries ``step.borrow_rounds``, the number of rounds
-    that entered the borrow pass."""
+    that entered the borrow pass, and ``step.point_borrow_rounds``
+    (``int32[B]``, None before the first borrow), the rounds each point
+    borrowed in."""
     if match_fn is None:
         match_fn = default_match_fn()
     cfg.validate_megha_grid()
@@ -87,17 +99,18 @@ def make_megha_step(
     T = tasks.num_tasks
     hb = cfg.heartbeat_rounds
     part_gm = cfg.partition_gms(dev)                   # int32[W]
-    g_col = torch.arange(G, dtype=torch.int32, device=dev)[:, None]
-    l_row = torch.arange(L, dtype=torch.int32, device=dev)[None, None, :]
+    g_col = torch.arange(G, dtype=torch.int32, device=dev)[None, :, None]  # [1,G,1]
+    l_row = torch.arange(L, dtype=torch.int32, device=dev)[None, None, None, :]
     w_row = torch.arange(W, dtype=torch.int64, device=dev)
     orders = orders.to(device=dev, dtype=torch.int64)
-    if tuple(orders.shape) != (G, W):
-        raise ValueError(f"orders must be [{G}, {W}], got {tuple(orders.shape)}")
-    inv_orders = torch.argsort(orders, dim=1)          # [G, W]
-    int_ord = orders[:, :wi].contiguous()              # [G, wi] own workers
+    if tuple(orders.shape[-2:]) != (G, W) or orders.dim() not in (2, 3):
+        raise ValueError(f"orders must be [{G}, {W}] or [B, {G}, {W}], got {tuple(orders.shape)}")
+    orders = orders.reshape(-1, G, W)                  # [Bo, G, W], Bo = 1 or B
+    inv_orders = torch.argsort(orders, dim=-1)         # [Bo, G, W]
+    int_ord = orders[..., :wi].contiguous()            # [Bo, G, wi] own workers
     # rows of int_ord partition [0, W): flattening gives a W-permutation
-    inv_int = torch.argsort(int_ord.reshape(-1))       # [W] -> flat (g, i)
-    lm_int = (int_ord // wpl).to(torch.int32)          # int32[G, wi]
+    inv_int = torch.argsort(int_ord.reshape(-1, G * wi), dim=-1)  # [Bo, W] -> (g, i)
+    lm_int = (int_ord // wpl).to(torch.int32)          # int32[Bo, G, wi]
 
     # compact per-GM task partition (jobs round-robin over GMs)
     task_gm = tasks.job.cpu().numpy() % G
@@ -108,20 +121,20 @@ def make_megha_step(
     for g in range(G):
         mine = np.nonzero(task_gm == g)[0]
         gm_tasks_np[g, : mine.size] = mine
-    gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)   # int32[G, Tg+C]
-    # task submit times in the padded compact layout (sentinel -> inf)
-    submit_c = torch.cat(
-        [tasks.submit, tasks.submit.new_full((1,), float("inf"))]
-    )[gm_tasks.to(torch.int64)]
+    gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
+    # task submit times in the padded compact layout (sentinel -> inf),
+    # one row per point of a grid (Bt = 1 when the arrivals are shared)
+    submit = tasks.submit.reshape(-1, T)                      # [Bt, T]
+    submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
+    submit_c = rt.take(submit_pad, gm_tasks)                  # [Bt, G, Tg+C]
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
 
-    def launch_updates(t, launch_w, task_w, gm_w, task_finish, worker_finish,
+    def launch_updates(start, launch_w, task_w, gm_w, task_finish, worker_finish,
                        worker_task, worker_gm, worker_borrowed):
-        """Apply one phase's launches ([W]-space masks): the shared launch
-        bookkeeping plus megha's owner/borrow tracking.  start = round
-        time + client->GM + GM->LM + LM->worker hops."""
+        """Apply one phase's launches ([B, W] masks): the shared launch
+        bookkeeping plus megha's owner/borrow tracking."""
         task_finish, worker_finish, worker_task = rt.apply_launch(
-            launch_w, task_w, t + 3 * cfg.hop, dur_pad,
+            launch_w, task_w, start, dur_pad,
             task_finish, worker_finish, worker_task, T,
         )
         worker_gm = torch.where(launch_w, gm_w, worker_gm)
@@ -131,118 +144,142 @@ def make_megha_step(
     def piggyback(view, truth, invalid_gl):
         """Refresh GM g's view of every LM that rejected one of its
         proposals with that LM's fresh ground truth (§3.4.1)."""
-        refresh = torch.repeat_interleave(invalid_gl, wpl, dim=1)  # bool[G,W]
-        return torch.where(refresh, truth[None, :], view)
+        refresh = torch.repeat_interleave(invalid_gl, wpl, dim=-1)  # bool[B,G,W]
+        return torch.where(refresh, truth.unsqueeze(1), view)
 
     def dispatch(s, t, task_finish0, worker_finish0, truth, comp, lost_w):
         del lost_w
         head0 = s.head
+        B = head0.shape[0]
+        t3 = t.reshape(B, 1, 1)
+        # launch start = round time + client->GM + GM->LM + LM->worker hops
+        start = t.reshape(B, 1) + 3 * cfg.hop
 
         # -- 1. completions (truth/comp = the runtime's completion stage) ---
-        regain = (s.worker_gm[None, :] == g_col) & (comp & ~s.worker_borrowed)
+        regain = (s.worker_gm.unsqueeze(1) == g_col) & (comp & ~s.worker_borrowed).unsqueeze(1)
         view = s.view | regain
-        messages = s.messages + torch.sum(comp, dtype=torch.int32)  # LM -> GM
+        messages = s.messages + torch.sum(comp, dim=-1, dtype=torch.int32)  # LM -> GM
 
         # -- 2. heartbeat ---------------------------------------------------
-        do_hb = (s.rnd % hb) == (hb - 1)
-        view = torch.where(do_hb, truth[None, :], view)
+        do_hb = (s.rnd % hb) == (hb - 1)                          # bool[B]
+        view = torch.where(do_hb.reshape(B, 1, 1), truth.unsqueeze(1), view)
         messages = messages + do_hb.to(torch.int32) * (G * L)
 
-        # -- 3. internal match (FIFO windows, [G, W/G] arrays) --------------
-        wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[G,C]
-        wsubmit = rt.slice_rows(submit_c, head0, C)               # float32[G,C]
+        # -- 3. internal match (FIFO windows, [B, G, W/G] arrays) -----------
+        wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[B,G,C]
+        wsubmit = rt.slice_rows(submit_c, head0, C)               # float32[B,G,C]
         fpad = rt.finish_pad(task_finish0)
-        launched_w = rt.window_launched(fpad, wtask, T)           # bool[G,C]
-        queued_w = ~launched_w & (wsubmit <= t)                   # bool[G,C]
-        nq = torch.sum(queued_w, dim=1, dtype=torch.int32)        # int32[G]
-        fifo = rt.sorted_fifo(queued_w, C)                        # int32[G,C]
-        avail_int = torch.gather(view, 1, int_ord)                # bool[G,wi]
-        ranks_i = match_fn(avail_int, nq)                         # int32[G,wi]
-        sel_pos = torch.gather(fifo, 1, ranks_i.clamp(0, C - 1).to(torch.int64))
+        launched_w = rt.window_launched(fpad, wtask, T)           # bool[B,G,C]
+        queued_w = ~launched_w & (wsubmit <= t3)                  # bool[B,G,C]
+        nq = torch.sum(queued_w, dim=-1, dtype=torch.int32)       # int32[B,G]
+        fifo = rt.sorted_fifo(queued_w, C)                        # int32[B,G,C]
+        avail_int = rt.take(view, int_ord)                        # bool[B,G,wi]
+        ranks_i = match_fn(avail_int.reshape(B * G, wi), nq.reshape(B * G))
+        ranks_i = ranks_i.reshape(B, G, wi)                       # int32[B,G,wi]
+        sel_pos = torch.gather(fifo, -1, ranks_i.clamp(0, C - 1).to(torch.int64))
         sel_task_i = torch.where(
             ranks_i >= 0,
-            torch.gather(wtask, 1, sel_pos.clamp(0, C - 1).to(torch.int64)),
+            torch.gather(wtask, -1, sel_pos.clamp(0, C - 1).to(torch.int64)),
             -1,
-        )                                                         # int32[G,wi]
+        )                                                         # int32[B,G,wi]
         proposed_i = sel_task_i >= 0
-        truth_int = truth[int_ord]                                # bool[G,wi]
+        truth_int = rt.take(truth, int_ord)                       # bool[B,G,wi]
         launch_i = proposed_i & truth_int
         invalid_i = proposed_i & ~truth_int
         # flat (g, i) -> worker coordinates via the static inverse perm
-        launch_w = launch_i.reshape(-1)[inv_int]                  # bool[W]
-        task_w = torch.where(launch_w, sel_task_i.reshape(-1)[inv_int], T)
+        launch_w = rt.take(launch_i.reshape(B, G * wi), inv_int)  # bool[B,W]
+        task_w = torch.where(launch_w, rt.take(sel_task_i.reshape(B, G * wi), inv_int), T)
         (task_finish, worker_finish, worker_task, worker_gm,
          worker_borrowed) = launch_updates(
-            t, launch_w, task_w, part_gm,
+            start, launch_w, task_w, part_gm,
             task_finish0, worker_finish0, s.worker_task,
             s.worker_gm, s.worker_borrowed,
         )
         truth = truth & ~launch_w
         # the proposing GM marks every proposed internal worker busy in its
         # own view (popped from the free pool when the batch was built)
-        proposed_own = proposed_i.reshape(-1)[inv_int]            # bool[W]
-        view = view & ~(proposed_own[None, :] & (part_gm[None, :] == g_col))
-        inconsistencies = s.inconsistencies + torch.sum(invalid_i, dtype=torch.int32)
-        inval_gl = (invalid_i[:, :, None] & (lm_int[:, :, None] == l_row)).any(dim=1)
+        proposed_own = rt.take(proposed_i.reshape(B, G * wi), inv_int)  # bool[B,W]
+        view = view & ~(proposed_own.unsqueeze(1) & (part_gm == g_col))
+        inconsistencies = s.inconsistencies + torch.sum(
+            invalid_i, dim=(1, 2), dtype=torch.int32)
+        inval_gl = (invalid_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
         view = piggyback(view, truth, inval_gl)
-        batch_gl = (proposed_i[:, :, None] & (lm_int[:, :, None] == l_row)).any(dim=1)
-        messages = messages + 2 * torch.sum(batch_gl, dtype=torch.int32)
+        batch_gl = (proposed_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
+        messages = messages + 2 * torch.sum(batch_gl, dim=(1, 2), dtype=torch.int32)
         repartitions = s.repartitions
 
-        # -- 4. borrow match (full [G, W] pass, only when queues outrun the
-        #       internal views): a host sync on the device flag -----------
-        placed_i = torch.sum(proposed_i, dim=1, dtype=torch.int32)
-        if bool(torch.any(nq > placed_i)):
+        # -- 4. borrow match (full [B, G, W] pass, only when queues outrun
+        #       the internal views): a host read of the any-point flag -----
+        placed_i = torch.sum(proposed_i, dim=-1, dtype=torch.int32)
+        need_b = torch.any(nq > placed_i, dim=-1)                 # bool[B]
+        if bool(torch.any(need_b)):
             step.borrow_rounds += 1
+            if step.point_borrow_rounds is None:
+                step.point_borrow_rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+            step.point_borrow_rounds += need_b
+            # kept only when points may disagree: at B = 1 holding them
+            # would keep a second task_finish alive through the pass
+            old = (task_finish, worker_finish, worker_task, worker_gm, worker_borrowed,
+                   view, inconsistencies, repartitions, messages) if B > 1 else None
             fpad2 = rt.finish_pad(task_finish)
             launched2 = rt.window_launched(fpad2, wtask, T)
-            queued2 = ~launched2 & (wsubmit <= t)
-            nq2 = torch.sum(queued2, dim=1, dtype=torch.int32)
+            queued2 = ~launched2 & (wsubmit <= t3)
+            nq2 = torch.sum(queued2, dim=-1, dtype=torch.int32)
             fifo2 = rt.sorted_fifo(queued2, C)
-            avail_ord = torch.gather(view, 1, orders)               # bool[G,W]
-            ranks = match_fn(avail_ord, nq2)                        # int32[G,W]
-            sel_pos2 = torch.gather(fifo2, 1, ranks.clamp(0, C - 1).to(torch.int64))
+            avail_ord = rt.take(view, orders)                       # bool[B,G,W]
+            ranks = match_fn(avail_ord.reshape(B * G, W), nq2.reshape(B * G))
+            ranks = ranks.reshape(B, G, W)                          # int32[B,G,W]
+            sel_pos2 = torch.gather(fifo2, -1, ranks.clamp(0, C - 1).to(torch.int64))
             sel_task = torch.where(
                 ranks >= 0,
-                torch.gather(wtask, 1, sel_pos2.clamp(0, C - 1).to(torch.int64)),
+                torch.gather(wtask, -1, sel_pos2.clamp(0, C - 1).to(torch.int64)),
                 -1,
             )
             # ordered positions -> worker coordinates (inverse gather)
-            prop = torch.gather(sel_task, 1, inv_orders)
+            prop = rt.take(sel_task, inv_orders)                    # int32[B,G,W]
             proposed = prop >= 0
             repartitions = repartitions + torch.sum(
-                proposed & (part_gm[None, :] != g_col), dtype=torch.int32
+                proposed & (part_gm != g_col), dim=(1, 2), dtype=torch.int32
             )
             # simultaneous claims: per-round rotating GM priority, one
             # min-reduction over (priority, gm) packed into a single int
-            pri = (g_col + s.rnd) % G
-            enc = torch.where(proposed, (pri * G).expand(G, W) + g_col, G * G)
-            win_enc = torch.amin(enc, dim=0)                        # int32[W]
+            pri = (g_col + s.rnd.reshape(B, 1, 1)) % G              # int32[B,G,1]
+            enc = torch.where(proposed, (pri * G).expand(B, G, W) + g_col, G * G)
+            win_enc = torch.amin(enc, dim=1)                        # int32[B,W]
             any_prop = win_enc < G * G
             win_g = torch.where(any_prop, win_enc % G, 0)
-            launch = any_prop & truth                               # bool[W]
+            launch = any_prop & truth                               # bool[B,W]
             win_task = torch.where(
-                launch, prop[win_g.to(torch.int64), w_row], T
+                launch, prop[rt.point_rows(B, 2, dev), win_g.to(torch.int64), w_row], T
             )
             (task_finish, worker_finish, worker_task, worker_gm,
              worker_borrowed) = launch_updates(
-                t, launch, win_task, win_g,
+                start, launch, win_task, win_g,
                 task_finish, worker_finish, worker_task,
                 worker_gm, worker_borrowed,
             )
             truth = truth & ~launch
             view = view & ~proposed
-            launched_by_g = launch[None, :] & (g_col == win_g[None, :])
-            invalid = proposed & ~launched_by_g                     # bool[G,W]
-            inconsistencies = inconsistencies + torch.sum(invalid, dtype=torch.int32)
-            inval2_gl = invalid.reshape(G, L, wpl).any(dim=2)
+            launched_by_g = launch.unsqueeze(1) & (g_col == win_g.unsqueeze(1))
+            invalid = proposed & ~launched_by_g                     # bool[B,G,W]
+            inconsistencies = inconsistencies + torch.sum(
+                invalid, dim=(1, 2), dtype=torch.int32)
+            inval2_gl = invalid.reshape(B, G, L, wpl).any(dim=-1)
             view = piggyback(view, truth, inval2_gl)
-            batch2 = proposed.reshape(G, L, wpl).any(dim=2)
-            messages = messages + 2 * torch.sum(batch2, dtype=torch.int32)
+            batch2 = proposed.reshape(B, G, L, wpl).any(dim=-1)
+            messages = messages + 2 * torch.sum(batch2, dim=(1, 2), dtype=torch.int32)
+            if B > 1:
+                # a point that did not need the pass still proposed in it
+                # (its inconsistent proposals count): keep its old values
+                new = (task_finish, worker_finish, worker_task, worker_gm,
+                       worker_borrowed, view, inconsistencies, repartitions, messages)
+                (task_finish, worker_finish, worker_task, worker_gm,
+                 worker_borrowed, view, inconsistencies, repartitions, messages) = (
+                    torch.where(rt.lift(need_b, a), a, b) for a, b in zip(new, old))
 
         # -- 5. advance each GM's FIFO head past its launched prefix --------
         fpad3 = rt.finish_pad(task_finish)
-        launched3 = rt.window_launched(fpad3, wtask, T)            # bool[G,C]
+        launched3 = rt.window_launched(fpad3, wtask, T)            # bool[B,G,C]
         head = torch.clamp(head0 + rt.launched_lead(launched3), max=tg)
 
         return dict(
@@ -260,6 +297,7 @@ def make_megha_step(
 
     step = rt.compose_step(cfg, tasks, dispatch)
     step.borrow_rounds = 0
+    step.point_borrow_rounds = None
     return step
 
 
@@ -279,7 +317,8 @@ def _build_step(
 RULE = rt.register_rule(
     rt.Rule(
         name="megha",
-        init=lambda cfg, tasks: init_megha_state(cfg, tasks.num_tasks, tasks.device),
+        init=lambda cfg, tasks, batch=None: init_megha_state(
+            cfg, tasks.num_tasks, tasks.device, batch),
         build_step=_build_step,
         needs_grid=True,
     )

@@ -31,7 +31,8 @@ def make_oracle_step(
     tasks by job submit time), so the queue is a head pointer over
     ``arange(T)``; the oracle matches against ground truth, so every
     proposal launches.  The window is at least W wide (capped at T), so a
-    single round can fill the entire datacenter."""
+    single round can fill the entire datacenter.  The step is batched over
+    grid points: one ``[B, W]`` match per round."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -42,28 +43,29 @@ def make_oracle_step(
     fifo = torch.cat([
         torch.arange(T, dtype=torch.int32, device=dev),
         torch.full((C,), T, dtype=torch.int32, device=dev),
-    ])[None, :]
-    submit_pad = torch.cat([tasks.submit, tasks.submit.new_full((1,), float("inf"))])
+    ])
+    # one row of submit times per grid point (or one shared row)
+    submit = tasks.submit.reshape(-1, T)
+    submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
 
     def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
         del comp, lost_w
-        head0 = s.head
+        head0 = s.head                                             # int32[B]
 
         # -- 1. queued window ----------------------------------------------
-        wtask = rt.slice_rows(fifo, head0[None], C)[0]             # int32[C]
+        wtask = rt.slice_rows(fifo, head0, C)                      # int32[B,C]
         wsub = torch.where(
-            wtask >= T, float("inf"),
-            submit_pad[torch.clamp(wtask, max=T).to(torch.int64)],
+            wtask >= T, float("inf"), rt.take(submit_pad, torch.clamp(wtask, max=T)),
         )
         fpad = rt.finish_pad(task_finish0)
-        launched = rt.window_launched(fpad, wtask, T)              # bool[C]
-        queued = ~launched & (wsub <= t)
-        nq = torch.sum(queued, dtype=torch.int32)
+        launched = rt.window_launched(fpad, wtask, T)              # bool[B,C]
+        queued = ~launched & (wsub <= t[:, None])
+        nq = torch.sum(queued, dim=-1, dtype=torch.int32)          # int32[B]
         fifo_pos = rt.sorted_fifo(queued, C)
 
         # -- 2. perfect match: FIFO ranks onto actually-free workers --------
-        ranks = match_fn(free[None, :], nq[None])[0]               # int32[W]
+        ranks = match_fn(free, nq)                                 # int32[B,W]
         sel_task = rt.select_from_window(ranks, fifo_pos, wtask, T)
         launch = sel_task < T
 
@@ -72,7 +74,7 @@ def make_oracle_step(
             launch, sel_task, t + 3 * cfg.hop, dur_pad,
             task_finish0, worker_finish0, s.worker_task, T,
         )
-        messages = s.messages + torch.sum(launch, dtype=torch.int32)
+        messages = s.messages + torch.sum(launch, dim=-1, dtype=torch.int32)
 
         # -- 4. advance the head past the launched prefix -------------------
         fpad2 = rt.finish_pad(task_finish)
@@ -105,7 +107,8 @@ def _build_step(
 RULE = rt.register_rule(
     rt.Rule(
         name="oracle",
-        init=lambda cfg, tasks: init_oracle_state(cfg, tasks.num_tasks, tasks.device),
+        init=lambda cfg, tasks, batch=None: init_oracle_state(
+            cfg, tasks.num_tasks, tasks.device, batch),
         build_step=_build_step,
     )
 )

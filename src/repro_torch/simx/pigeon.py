@@ -1,0 +1,237 @@
+"""Pigeon transition rule for the simx round-stepped backend (port of
+``repro/simx/pigeon.py``, without faults, telemetry, provenance or the
+streaming layout).
+
+Federated two-layer scheduling (paper §2.2.4) over dense per-group arrays:
+
+  * **Static distribution** — the event backend's distributors spread each
+    job's tasks round-robin (task by task, persistent per-distributor
+    counters, jobs round-robin over distributors).  That mapping depends
+    only on the trace, so the task -> group assignment is precomputed
+    exactly, in numpy, at step-build time (``task_groups``).
+  * **Per-group FIFOs** — each group holds a high-priority (short job) and
+    a low-priority (long job) FIFO.  Tasks arrive in submit order, groups
+    launch strictly from the FIFO head, so each queue is a windowed head
+    pointer over a compact per-group task layout; coordinators know their
+    own group, so every proposal launches.
+  * **Reserved workers** — the first ``reserved_per_group`` workers of each
+    group serve high-priority tasks only; high tasks prefer unreserved
+    workers, low tasks never touch reserved ones.
+  * **WFQ** — unreserved capacity is split between the two queues by the
+    reference's closed-form weighted-fair-queuing allocation: per
+    ``wfq_weight`` high-priority launches, one low-priority launch, with
+    the carried ``since_low`` counter preserving the pattern phase across
+    rounds.
+
+A task assigned to a group never migrates, so it queues even when other
+groups have idle workers (the pathology Megha fixes).  Pigeon draws no
+random numbers, so the port's runs are bitwise the reference's.  Both
+matches of a round (unreserved and reserved workers) go through the
+rank-and-select primitive over ``[B * NG, S]`` rows: at the paper's 50,000
+workers, 1,250 groups of 40.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.simx import runtime as rt
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.state import PigeonState, SimxConfig, TaskArrays, init_pigeon_state
+
+
+def task_groups(cfg: SimxConfig, tasks: TaskArrays) -> np.ndarray:
+    """int[T] — the group each task is distributed to, replicating the
+    event backend's persistent per-distributor round-robin exactly (a
+    copy of ``repro.simx.pigeon.task_groups``)."""
+    NG, D = cfg.num_groups, cfg.num_distributors
+    ntasks = tasks.job_ntasks.cpu().numpy()
+    rr = np.arange(D, dtype=np.int64)  # each distributor decorrelates its start
+    out = np.empty(tasks.num_tasks, np.int32)
+    k = 0
+    for p in range(tasks.num_jobs):
+        d = p % D
+        c = int(ntasks[p])
+        out[k : k + c] = (rr[d] + np.arange(c)) % NG
+        rr[d] += c
+        k += c
+    return out
+
+
+def make_pigeon_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    match_fn: MatchFn | None = None,
+) -> Callable[[PigeonState], PigeonState]:
+    """Build the one-round transition function on ``tasks``' device.
+
+    Round order: completions (implicit via ``worker_finish``) -> WFQ split
+    of each group's free unreserved workers between its high/low queue
+    heads -> high overflow onto reserved workers -> launch + head advance.
+    The step is batched over grid points (``runtime``'s point axis)."""
+    if match_fn is None:
+        match_fn = default_match_fn()
+    dev = tasks.device
+    W = cfg.num_workers
+    T = tasks.num_tasks
+    NG = cfg.num_groups
+    weight = cfg.wfq_weight
+    # -- worker grid [NG, S]: contiguous ranges, last group absorbs the
+    #    remainder, pad slots get the W sentinel (they read busy)
+    sizes = np.full(NG, cfg.group_size, np.int64)
+    sizes[-1] = W - (NG - 1) * cfg.group_size
+    S = int(sizes.max())
+    wg_np = np.full((NG, S), W, np.int64)
+    rsv_np = np.zeros((NG, S), bool)
+    for g in range(NG):
+        base = g * cfg.group_size
+        wg_np[g, : sizes[g]] = base + np.arange(sizes[g])
+        rsv_np[g, : min(cfg.reserved_per_group, sizes[g])] = True
+    wg = torch.from_numpy(wg_np).to(dev)[None]                # int64[1, NG, S]
+    reserved = torch.from_numpy(rsv_np).to(dev)               # bool[NG, S]
+    C = max(S, 1)  # window width: a group launches at most S tasks per round
+    # -- exact static task -> group distribution, split by priority class
+    gt = task_groups(cfg, tasks)
+    high_task = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
+                 < cfg.long_threshold)
+
+    def class_layout(mask: np.ndarray) -> torch.Tensor:
+        length = int(np.max(np.bincount(gt[mask], minlength=NG))) if mask.any() else 0
+        rows = np.full((NG, length + C), T, np.int32)
+        for g in range(NG):
+            mine = np.nonzero(mask & (gt == g))[0]
+            rows[g, : mine.size] = mine
+        return torch.from_numpy(rows).to(dev)[None]
+
+    high_fifo = class_layout(high_task)  # int32[1, NG, Lh+C], ascending = FIFO
+    low_fifo = class_layout(~high_task)  # int32[1, NG, Ll+C]
+    len_h = high_fifo.shape[-1] - C
+    len_l = low_fifo.shape[-1] - C
+    # one row of submit times per grid point (or one shared row)
+    submit = tasks.submit.reshape(-1, T)                       # [Bt, T]
+    submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
+    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+
+    def window(fifo, heads, t):
+        """Window task ids + queued counts.  Launches are strictly FIFO and
+        the head fully advances every round, so the window never contains a
+        launched task and 'queued' is just the submitted prefix."""
+        wtask = rt.slice_rows(fifo, heads, C)                  # int32[B,NG,C]
+        wsub = torch.where(
+            wtask >= T, float("inf"), rt.take(submit_pad, torch.clamp(wtask, max=T)))
+        return wtask, torch.sum(wsub <= t[:, None, None], dim=-1, dtype=torch.int32)
+
+    def dispatch(s, t, task_finish0, worker_finish0, free_w, comp, lost_w):
+        del comp, lost_w  # completions stay implicit in the group capacity
+        B = t.shape[0]
+
+        # -- 1. free capacity per group (the runtime's completion stage,
+        #       gathered into the [NG, S] group grid; pads read busy) -------
+        free_pad = torch.cat([free_w, free_w.new_zeros((B, 1))], -1)
+        free = rt.take(free_pad, wg)                             # bool[B,NG,S]
+        free_u = free & ~reserved
+        free_r = free & reserved
+        nfu = torch.sum(free_u, dim=-1, dtype=torch.int32)       # int32[B,NG]
+        nfr = torch.sum(free_r, dim=-1, dtype=torch.int32)
+
+        # -- 2. queued counts + WFQ split of unreserved capacity ------------
+        wh, qh = window(high_fifo, s.high_head, t)
+        wl, ql = window(low_fifo, s.low_head, t)
+        total_u = torch.minimum(nfu, qh + ql)
+        lead = torch.clamp(weight - s.since_low, min=0)  # highs before first low
+        low_wfq = torch.where(
+            total_u > lead, 1 + torch.div(total_u - lead - 1, weight + 1, rounding_mode="floor"), 0
+        )
+        n_low = torch.minimum(
+            torch.maximum(low_wfq, torch.clamp(total_u - qh, min=0)),
+            torch.minimum(ql, total_u),
+        )
+        n_high_u = total_u - n_low
+        n_high_r = torch.minimum(qh - n_high_u, nfr)  # overflow onto reserved
+        since_low = torch.clamp(s.since_low + n_high_u - weight * n_low, min=0)
+
+        # -- 3. rank-and-select free workers, map ranks to FIFO positions ---
+        S_ = free.shape[-1]
+        ranks_u = match_fn(free_u.reshape(B * NG, S_), (n_high_u + n_low).reshape(B * NG))
+        ranks_r = match_fn(free_r.reshape(B * NG, S_), n_high_r.reshape(B * NG))
+        ranks_u = ranks_u.reshape(B, NG, S_)                     # int32[B,NG,S]
+        ranks_r = ranks_r.reshape(B, NG, S_)
+        # no holes: the r-th queued task sits at window position r
+        nhu = n_high_u[..., None]
+        task_u = torch.where(
+            ranks_u < 0,
+            T,
+            torch.where(
+                ranks_u < nhu,
+                torch.gather(wh, -1, ranks_u.clamp(0, C - 1).to(torch.int64)),
+                torch.gather(wl, -1, (ranks_u - nhu).clamp(0, C - 1).to(torch.int64)),
+            ),
+        )
+        task_r = torch.where(
+            ranks_r < 0,
+            T,
+            torch.gather(wh, -1, (nhu + ranks_r).clamp(0, C - 1).to(torch.int64)),
+        )
+        task_g = torch.minimum(task_u, task_r)  # disjoint slots: one is T
+        launch = task_g < T                                         # [B,NG,S]
+
+        # -- 4. launch: client->distributor->coordinator->worker = 3 hops;
+        #       lanes that launch nothing write the pad slot, cut off -------
+        start = t + 3 * cfg.hop
+        fin = (start[:, None, None] + dur_pad[torch.clamp(task_g, max=T).to(torch.int64)])
+        fin = fin.reshape(B, -1)
+        lt = torch.where(launch, task_g, T).reshape(B, -1).to(torch.int64)
+        lw = torch.where(launch, wg, W).reshape(B, -1)
+        task_finish = torch.cat(
+            [task_finish0, task_finish0.new_zeros((B, 1))], -1).scatter(-1, lt, fin)[:, :T]
+        worker_finish = torch.cat(
+            [worker_finish0, worker_finish0.new_zeros((B, 1))], -1).scatter(-1, lw, fin)[:, :W]
+        worker_task = torch.cat(
+            [s.worker_task, s.worker_task.new_zeros((B, 1))], -1
+        ).scatter(-1, lw, task_g.reshape(B, -1))[:, :W]
+        # messages: one distributor->coordinator per arriving task, one
+        # coordinator->worker per launch
+        tt = t[:, None]
+        arrived = torch.sum((submit > tt - cfg.dt) & (submit <= tt), dim=-1, dtype=torch.int32)
+        messages = s.messages + arrived + torch.sum(launch, dim=(1, 2), dtype=torch.int32)
+
+        # -- 5. head advance: strict FIFO launches advance by the counts ----
+        high_head = torch.clamp(s.high_head + n_high_u + n_high_r, max=len_h)
+        low_head = torch.clamp(s.low_head + n_low, max=len_l)
+
+        return dict(
+            task_finish=task_finish,
+            worker_finish=worker_finish,
+            worker_task=worker_task,
+            high_head=high_head,
+            low_head=low_head,
+            since_low=since_low,
+            messages=messages,
+        )
+
+    return rt.compose_step(cfg, tasks, dispatch)
+
+
+def _build_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    generator: torch.Generator,
+    *,
+    match_fn: MatchFn | None = None,
+    orders: torch.Tensor | None = None,
+) -> Callable[[PigeonState], PigeonState]:
+    del generator, orders  # static round-robin distribution, no GM orders
+    return make_pigeon_step(cfg, tasks, match_fn)
+
+
+RULE = rt.register_rule(
+    rt.Rule(
+        name="pigeon",
+        init=lambda cfg, tasks, batch=None: init_pigeon_state(
+            cfg, tasks.num_tasks, tasks.device, batch),
+        build_step=_build_step,
+    )
+)

@@ -19,11 +19,22 @@ of the port; ``compose_step`` refuses them for now.
 reference's ``mode="drop"`` scatters become scatters into a padded slot
 that is sliced off again: torch has no drop mode, and clamping the index
 would overwrite a real slot.
+
+**The point axis.**  The reference runs a sweep grid as ``vmap`` over
+``simulate_fixed``; PyTorch has no ``vmap`` over a step with a host
+branch and a kernel launch, so the batch is written out: every state
+field of a *batched* state carries a leading axis of B grid points, and
+the helpers and steps work on it.  A single run is B = 1:
+``scan_rounds`` (and a step called directly) lifts an unbatched state to
+B = 1 and drops the axis again, so single runs keep their shapes.  The
+helpers work on any leading axes, unbatched inputs included.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Any, Callable
 
 import torch
@@ -47,22 +58,95 @@ def default_match_fn(use_kernel: bool = True) -> MatchFn:
 
 
 # ---------------------------------------------------------------------------
+# the point axis
+# ---------------------------------------------------------------------------
+
+
+def lift(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (one value per point, ``[B]`` or ``[]``) with trailing unit
+    axes, so it broadcasts against ``like`` (``[B, ...]`` or unbatched)."""
+    if x.dim() == like.dim():
+        return x
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
+def _broadcast(a: tuple, b: tuple) -> tuple:
+    """Two leading shapes broadcast together, in plain Python: this runs
+    several times a round, where ``torch.broadcast_shapes``' host cost
+    shows in the host-bound round."""
+    n = max(len(a), len(b))
+    a = (1,) * (n - len(a)) + tuple(a)
+    b = (1,) * (n - len(b)) + tuple(b)
+    return tuple(y if x == 1 else x for x, y in zip(a, b))
+
+
+@lru_cache(maxsize=None)
+def point_rows(n: int, ndim: int, device: torch.device) -> torch.Tensor:
+    """``arange(n)`` shaped ``[n, 1, ...]`` (``ndim`` axes): the point index
+    of an advanced-indexing gather, made once per shape and device (every
+    op of a round costs host time, and the round is host-bound)."""
+    return torch.arange(n, device=device).reshape((n,) + (1,) * (ndim - 1))
+
+
+def take(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``src[..., idx]`` along the last axis, per point: ``src [*P, N]``
+    and ``idx [*P, *K]`` (``P`` the point axes, each of size 1 or B on
+    either side) give ``[*P, *K]``.  A 1-D ``src`` is plain indexing, a
+    2-D one one advanced index; wider ``src`` need ``idx`` of its rank."""
+    if idx.dtype != torch.int64:
+        idx = idx.to(torch.int64)
+    if src.dim() == 1:
+        return src[idx]
+    if src.dim() == 2:
+        return src[point_rows(src.shape[0], idx.dim(), src.device), idx]
+    lead = src.shape[:-1]
+    if idx.shape[:-1] != lead:
+        lead = _broadcast(lead, idx.shape[:-1])
+        src, idx = src.expand(*lead, src.shape[-1]), idx.expand(*lead, idx.shape[-1])
+    return torch.gather(src, -1, idx)
+
+
+def batch_state(state):
+    """An unbatched state as a batch of one point (a view of each field)."""
+    return state.replace(**{
+        f.name: getattr(state, f.name)[None] for f in dataclasses.fields(state)
+    })
+
+
+def unbatch_state(state):
+    """A batch of one point as an unbatched state."""
+    return state.replace(**{
+        f.name: getattr(state, f.name)[0] for f in dataclasses.fields(state)
+    })
+
+
+def is_batched(state) -> bool:
+    """A batched state's round clock ``t`` is ``float32[B]``."""
+    return state.t.dim() == 1
+
+
+# ---------------------------------------------------------------------------
 # stage helpers: windowed FIFOs, launch bookkeeping, completion masks
 # ---------------------------------------------------------------------------
 
 
 def slice_rows(mat: torch.Tensor, starts: torch.Tensor, width: int) -> torch.Tensor:
     """Per-row windows: row i of the result is ``mat[i, starts[i] :
-    starts[i] + width]``.  The reference's ``dynamic_slice`` clamps a start
-    that would leave the row; callers pad their rows by ``width`` so that
-    never applies, and here an index past the row is an error of ``gather``
+    starts[i] + width]``, over any leading axes (``mat``'s broadcast
+    against ``starts``', so rows shared by every point are sliced per
+    point).  The reference's ``dynamic_slice`` clamps a start that would
+    leave the row; callers pad their rows by ``width`` so that never
+    applies, and here an index past the row is an error of ``gather``
     rather than a silent clamp."""
     if mat.shape[-1] < width:
         raise ValueError(f"rows of width {mat.shape[-1]} cannot hold a {width}-wide window")
-    idx = starts.to(torch.int64)[:, None] + torch.arange(
+    idx = starts.to(torch.int64)[..., None] + torch.arange(
         width, dtype=torch.int64, device=mat.device
     )
-    return torch.gather(mat, 1, idx)
+    if mat.shape[:-1] != starts.shape:
+        lead = _broadcast(mat.shape[:-1], starts.shape)
+        mat, idx = mat.expand(*lead, mat.shape[-1]), idx.expand(*lead, width)
+    return torch.gather(mat, -1, idx)
 
 
 def sorted_fifo(queued: torch.Tensor, width: int) -> torch.Tensor:
@@ -77,13 +161,14 @@ def sorted_fifo(queued: torch.Tensor, width: int) -> torch.Tensor:
 def finish_pad(task_finish: torch.Tensor) -> torch.Tensor:
     """``task_finish`` with a ``-inf`` pad slot so windowed gathers of the
     out-of-bounds sentinel task read as launched."""
-    return torch.cat([task_finish, task_finish.new_full((1,), float("-inf"))])
+    pad = task_finish.new_full(task_finish.shape[:-1] + (1,), float("-inf"))
+    return torch.cat([task_finish, pad], dim=-1)
 
 
 def window_launched(fpad: torch.Tensor, wtask: torch.Tensor, num_tasks: int) -> torch.Tensor:
     """bool — which window entries are already launched (pad sentinels
     count as launched, so head advance can run through them)."""
-    return ~torch.isinf(fpad[wtask.to(torch.int64)]) | (wtask >= num_tasks)
+    return ~torch.isinf(take(fpad, wtask)) | (wtask >= num_tasks)
 
 
 def launched_lead(launched: torch.Tensor) -> torch.Tensor:
@@ -116,15 +201,16 @@ def apply_launch(
     worker_task: torch.Tensor,
     num_tasks: int,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Apply one phase's launches ([W]-space masks) to the task/worker
-    state: the completion time is known at launch, so ``task_finish`` and
-    ``worker_finish`` are both recorded as ``start + duration``.  Lanes
-    that launch nothing write the pad slot ``num_tasks``, which is cut off
-    (the reference's ``mode="drop"``)."""
+    """Apply one phase's launches ([W]-space masks, or [B, W] with
+    ``start`` one per point) to the task/worker state: the completion time
+    is known at launch, so ``task_finish`` and ``worker_finish`` are both
+    recorded as ``start + duration``.  Lanes that launch nothing write the
+    pad slot ``num_tasks``, which is cut off (the reference's
+    ``mode="drop"``)."""
     lt = torch.where(launch, task_pick, num_tasks).to(torch.int64)
-    fin = start + dur_pad[torch.clamp(task_pick, max=num_tasks).to(torch.int64)]
-    padded = torch.cat([task_finish, task_finish.new_zeros(1)])
-    task_finish = padded.scatter(0, lt, fin)[:num_tasks]
+    fin = lift(start, task_pick) + dur_pad[torch.clamp(task_pick, max=num_tasks).to(torch.int64)]
+    padded = torch.cat([task_finish, task_finish.new_zeros(task_finish.shape[:-1] + (1,))], -1)
+    task_finish = padded.scatter(-1, lt, fin)[..., :num_tasks]
     worker_finish = torch.where(launch, fin, worker_finish)
     worker_task = torch.where(launch, task_pick, worker_task)
     return task_finish, worker_finish, worker_task
@@ -136,6 +222,7 @@ def completion_masks(
     """(free bool[W], completed-now bool[W]) ground truth at round start:
     free iff the recorded finish time has passed, completed-now iff it
     fell inside the round window just ended."""
+    t = lift(t, worker_finish)
     free = worker_finish <= t
     return free, free & (worker_finish > t - dt)
 
@@ -173,7 +260,8 @@ def compose_step(
     telemetry: bool = False,
     provenance: bool = False,
 ) -> Callable:
-    """Assemble one rule's round step: ``complete -> dispatch -> advance``.
+    """Assemble one rule's round step: ``complete -> dispatch -> advance``,
+    on a batched state (an unbatched one is lifted to one point and back).
     The fault, telemetry and provenance stages of the reference are not
     ported yet and raise ``NotImplementedError``."""
     if faults is not None or telemetry or provenance:
@@ -184,6 +272,8 @@ def compose_step(
     del tasks
 
     def step(s):
+        if not is_batched(s):
+            return unbatch_state(step(batch_state(s)))
         t = s.t
         free, comp = completion_masks(s.worker_finish, t, cfg.dt)
         updates = dispatch(s, t, s.task_finish, s.worker_finish, free, comp, None)
@@ -193,8 +283,11 @@ def compose_step(
 
 
 def scan_rounds(step: Callable, state, num_rounds: int):
-    """Advance ``state`` by ``num_rounds`` rounds (``lax.scan`` as a loop)."""
+    """Advance ``state`` by ``num_rounds`` rounds (``lax.scan`` as a loop).
+    An unbatched state is lifted to one point once, not every round."""
     check_round_budget(num_rounds)
+    if not is_batched(state):
+        return unbatch_state(scan_rounds(step, batch_state(state), num_rounds))
     for _ in range(num_rounds):
         state = step(state)
     return state
@@ -210,7 +303,8 @@ class Rule:
     """One scheduler of the simx matrix.
 
     ``build_step(cfg, tasks, generator, *, match_fn, orders)`` returns the
-    round step; ``init(cfg, tasks)`` the fresh state on ``tasks``' device.
+    round step; ``init(cfg, tasks, batch)`` the fresh state on ``tasks``'
+    device, unbatched for ``batch=None`` and with ``batch`` points else.
     ``generator`` is a ``torch.Generator`` for the rule's own random draws
     (megha's GM orders when ``orders`` is not given); ``needs_grid`` marks
     rules whose worker count must divide into the GM x LM grid."""
@@ -242,6 +336,36 @@ def get_rule(name: str) -> Rule:
         ) from None
 
 
+def simulate_fixed(
+    name: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    orders_or_generator: torch.Tensor | torch.Generator | int,
+    num_rounds: int,
+    match_fn: MatchFn | None = None,
+):
+    """Run any registered rule exactly ``num_rounds`` rounds from a fresh
+    DC, with no done probe (the reference's ``simulate_fixed``).
+
+    ``orders_or_generator`` is megha's GM orders (``int32[G, W]``, or
+    ``[B, G, W]`` one set per point), a ``torch.Generator`` to draw them
+    from, or an int seeding one (the other rules draw nothing).  The run
+    is batched when ``tasks`` carries per-point arrival times or the
+    orders a point axis, and returns a state with that leading axis;
+    otherwise the state is unbatched."""
+    rule = get_rule(name)
+    orders, generator = None, orders_or_generator
+    if isinstance(orders_or_generator, torch.Tensor):
+        orders, generator = orders_or_generator, None
+    elif isinstance(orders_or_generator, int):
+        generator = torch.Generator().manual_seed(orders_or_generator)
+    step = rule.build_step(cfg, tasks, generator, match_fn=match_fn, orders=orders)
+    batch = tasks.batch
+    if batch is None and orders is not None and orders.dim() == 3:
+        batch = orders.shape[0]
+    return scan_rounds(step, rule.init(cfg, tasks, batch), num_rounds)
+
+
 # ---------------------------------------------------------------------------
 # the shared job-delay reduction (Eq. 2)
 # ---------------------------------------------------------------------------
@@ -255,14 +379,18 @@ def job_delays_from_state(
     A task is done iff its recorded finish time has passed ``t``; a job
     finishes at its last task's finish.  Returns ``(delays float32[J],
     job_finish float32[J])`` with ``delays = finish - submit - ideal``,
-    nan for unfinished jobs (``job_finish`` reads ``+/-inf`` there)."""
-    fin = torch.where(task_finish <= t, task_finish, float("inf"))
+    nan for unfinished jobs (``job_finish`` reads ``+/-inf`` there); a
+    batched ``task_finish [B, T]`` with ``t [B]`` gives ``[B, J]``."""
+    fin = torch.where(task_finish <= lift(t, task_finish), task_finish, float("inf"))
     j = tasks.num_jobs
+    lead = fin.shape[:-1]
     # the max-scatter gets a pad slot, as the reference's scatter drops
     # out-of-range rows (there are none: every task belongs to a job)
     job_finish = torch.full(
-        (j + 1,), float("-inf"), dtype=torch.float32, device=fin.device
-    ).scatter_reduce(0, tasks.job.to(torch.int64), fin, "amax", include_self=True)[:j]
+        lead + (j + 1,), float("-inf"), dtype=torch.float32, device=fin.device
+    ).scatter_reduce(
+        -1, tasks.job.to(torch.int64).expand(fin.shape), fin, "amax", include_self=True
+    )[..., :j]
     delays = job_finish - tasks.job_submit - tasks.job_ideal
     delays = torch.where(torch.isfinite(job_finish), delays, float("nan"))
     return delays, job_finish

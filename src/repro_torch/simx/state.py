@@ -1,5 +1,5 @@
 """Dense-tensor datacenter state for the simx backend (port of
-``repro/simx/state.py``, the megha and oracle parts).
+``repro/simx/state.py``, the megha, pigeon and oracle parts).
 
   * ``TaskArrays``  — the workload exported to flat per-task/per-job
                       tensors (tasks sorted by job submission time, so task
@@ -8,8 +8,14 @@
   * ``CoreState``   — the round-carry base every rule shares: simulated
                       time, per-task lifecycle, per-worker run state and
                       the metric counters.
-  * ``MeghaState`` / ``OracleState`` — ``CoreState`` plus each rule's own
-                      fields.
+  * ``MeghaState`` / ``PigeonState`` / ``OracleState`` — ``CoreState``
+                      plus each rule's own fields.
+
+A sweep grid runs B points at once (``repro_torch.simx.sweep``): its
+state carries a leading axis of B points on every field (the specs below
+name one point's shapes), and its ``TaskArrays`` carry one ``submit`` /
+``job_submit`` row per point (``float32[B, T]`` / ``[B, J]``) while the
+structural arrays stay shared.
 
 States are frozen dataclasses of tensors; a round builds a new state with
 ``replace`` and never writes into the old one's tensors.  Counters and
@@ -51,7 +57,8 @@ class TaskArrays:
     job: torch.Tensor = spec("int32[T]")          # job position in submit order
     duration: torch.Tensor = spec("float32[T]")
     submit: torch.Tensor = spec("float32[T]")     # the job's submission time
-    job_submit: torch.Tensor = spec("float32[J]")
+                                                  # ([B, T] in a grid)
+    job_submit: torch.Tensor = spec("float32[J]")  # ([B, J] in a grid)
     job_ideal: torch.Tensor = spec("float32[J]")  # IdealJCT = max task duration
     job_ntasks: torch.Tensor = spec("int32[J]")
     job_est: torch.Tensor = spec("float32[J]")    # estimated runtime
@@ -62,11 +69,19 @@ class TaskArrays:
 
     @property
     def num_jobs(self) -> int:
-        return self.job_submit.shape[0]
+        return self.job_ideal.shape[0]
 
     @property
     def device(self) -> torch.device:
         return self.job.device
+
+    @property
+    def batch(self) -> int | None:
+        """Points of a grid's per-point arrival times; None when shared."""
+        return self.submit.shape[0] if self.submit.dim() == 2 else None
+
+    def replace(self, **kw) -> "TaskArrays":
+        return dataclasses.replace(self, **kw)
 
 
 def export_workload(wl: Workload, device: str | torch.device) -> TaskArrays:
@@ -105,9 +120,9 @@ def export_workload(wl: Workload, device: str | torch.device) -> TaskArrays:
 
 @dataclass(frozen=True)
 class SimxConfig:
-    """Static simulation parameters of the megha and oracle rules (the
-    reference's fields for the other rules come with their slices; its
-    ``match_window`` override, which no caller sets, is not carried)."""
+    """Static simulation parameters of the megha, pigeon and oracle rules
+    (the reference's fields for sparrow and eagle come with their slice;
+    its ``match_window`` override, which no caller sets, is not carried)."""
 
     num_workers: int
     num_gms: int = 8
@@ -115,6 +130,12 @@ class SimxConfig:
     dt: float = 0.05                 # round length (seconds of simulated time)
     heartbeat_interval: float = 5.0  # §4.1
     hop: float = 0.0005              # §4.1 constant network delay
+    long_threshold: float = 10.0     # core.base.LONG_JOB_THRESHOLD
+    # pigeon (§2.2.4): fixed worker groups + weighted fair queuing
+    num_distributors: int = 5
+    group_size: int = 40
+    reserved_per_group: int = 2      # high-priority-only workers per group
+    wfq_weight: int = 4              # one low-priority task per `weight` high
 
     def validate_megha_grid(self) -> None:
         """Megha needs the GM x LM partition grid to divide evenly."""
@@ -133,6 +154,12 @@ class SimxConfig:
     def heartbeat_rounds(self) -> int:
         return max(1, int(round(self.heartbeat_interval / self.dt)))
 
+    @property
+    def num_groups(self) -> int:
+        """Pigeon's fixed worker groups; the last group absorbs the
+        remainder."""
+        return max(1, self.num_workers // self.group_size)
+
     def partition_gms(self, device: str | torch.device) -> torch.Tensor:
         """int32[W] — which GM owns each worker's partition."""
         w = np.arange(self.num_workers)
@@ -141,23 +168,28 @@ class SimxConfig:
         ).to(device)
 
 
-def _common_fields(cfg: SimxConfig, num_tasks: int, device) -> dict:
-    w = cfg.num_workers
+def _lead(batch: int | None) -> tuple:
+    """The leading shape of a state's fields: () unbatched, (B,) else."""
+    return () if batch is None else (batch,)
+
+
+def _common_fields(cfg: SimxConfig, num_tasks: int, device, batch: int | None) -> dict:
+    w, b = cfg.num_workers, _lead(batch)
     i32 = dict(dtype=torch.int32, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     return dict(
-        t=torch.zeros((), **f32),
-        rnd=torch.zeros((), **i32),
-        task_finish=torch.full((num_tasks,), float("inf"), **f32),
+        t=torch.zeros(b, **f32),
+        rnd=torch.zeros(b, **i32),
+        task_finish=torch.full(b + (num_tasks,), float("inf"), **f32),
         # a worker is free iff worker_finish <= t; -inf = never ran anything
-        worker_finish=torch.full((w,), float("-inf"), **f32),
+        worker_finish=torch.full(b + (w,), float("-inf"), **f32),
         # last task launched here (T = none)
-        worker_task=torch.full((w,), num_tasks, **i32),
-        inconsistencies=torch.zeros((), **i32),
-        repartitions=torch.zeros((), **i32),
-        messages=torch.zeros((), **i32),
-        probes=torch.zeros((), **i32),
-        lost=torch.zeros((), **i32),  # in-flight tasks lost to worker crashes
+        worker_task=torch.full(b + (w,), num_tasks, **i32),
+        inconsistencies=torch.zeros(b, **i32),
+        repartitions=torch.zeros(b, **i32),
+        messages=torch.zeros(b, **i32),
+        probes=torch.zeros(b, **i32),
+        lost=torch.zeros(b, **i32),  # in-flight tasks lost to worker crashes
     )
 
 
@@ -192,14 +224,37 @@ class MeghaState(CoreState):
     view: torch.Tensor = spec("bool[G, W]")  # per-GM stale availability view
 
 
-def init_megha_state(cfg: SimxConfig, num_tasks: int, device) -> MeghaState:
-    w = cfg.num_workers
+def init_megha_state(
+    cfg: SimxConfig, num_tasks: int, device, batch: int | None = None
+) -> MeghaState:
+    w, g, b = cfg.num_workers, cfg.num_gms, _lead(batch)
     return MeghaState(
-        head=torch.zeros(cfg.num_gms, dtype=torch.int32, device=device),
-        worker_gm=torch.zeros(w, dtype=torch.int32, device=device),
-        worker_borrowed=torch.zeros(w, dtype=torch.bool, device=device),
-        view=torch.ones((cfg.num_gms, w), dtype=torch.bool, device=device),
-        **_common_fields(cfg, num_tasks, device),
+        head=torch.zeros(b + (g,), dtype=torch.int32, device=device),
+        worker_gm=torch.zeros(b + (w,), dtype=torch.int32, device=device),
+        worker_borrowed=torch.zeros(b + (w,), dtype=torch.bool, device=device),
+        view=torch.ones(b + (g, w), dtype=torch.bool, device=device),
+        **_common_fields(cfg, num_tasks, device, batch),
+    )
+
+
+@dataclass(frozen=True)
+class PigeonState(CoreState):
+    """Round carry of the pigeon rule."""
+
+    high_head: torch.Tensor = spec("int32[NG]")  # launched prefix of each
+    low_head: torch.Tensor = spec("int32[NG]")   # group's high/low FIFO
+    since_low: torch.Tensor = spec("int32[NG]")  # WFQ: highs since the last low
+
+
+def init_pigeon_state(
+    cfg: SimxConfig, num_tasks: int, device, batch: int | None = None
+) -> PigeonState:
+    shape = _lead(batch) + (cfg.num_groups,)
+    return PigeonState(
+        high_head=torch.zeros(shape, dtype=torch.int32, device=device),
+        low_head=torch.zeros(shape, dtype=torch.int32, device=device),
+        since_low=torch.zeros(shape, dtype=torch.int32, device=device),
+        **_common_fields(cfg, num_tasks, device, batch),
     )
 
 
@@ -210,8 +265,10 @@ class OracleState(CoreState):
     head: torch.Tensor = spec("int32[]")  # launched global-FIFO prefix
 
 
-def init_oracle_state(cfg: SimxConfig, num_tasks: int, device) -> OracleState:
+def init_oracle_state(
+    cfg: SimxConfig, num_tasks: int, device, batch: int | None = None
+) -> OracleState:
     return OracleState(
-        head=torch.zeros((), dtype=torch.int32, device=device),
-        **_common_fields(cfg, num_tasks, device),
+        head=torch.zeros(_lead(batch), dtype=torch.int32, device=device),
+        **_common_fields(cfg, num_tasks, device, batch),
     )

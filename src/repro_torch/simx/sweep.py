@@ -1,0 +1,338 @@
+"""The Fig. 2 sweep: a whole (load x seed) grid as one batched program
+(port of the Fig. 2 half of ``repro/simx/sweep.py``).
+
+The paper's headline comparison sweeps scheduler x load at a fixed DC size
+and reports p50/p95 job delay per point.  For the synthetic trace, load
+only rescales inter-arrival times (same jobs, same tasks, same durations),
+so every grid point shares one ``TaskArrays`` *structure* and differs only
+in the ``submit`` / ``job_submit`` arrays (and, for megha, in the GM
+orders its seed draws):
+
+    grid = sweep_grid("megha", cfg, tasks, submit_g, job_submit_g, seeds, R)
+    grid["p50"]   # float32[L, S] — one percentile per (load, seed) point
+
+The reference runs the grid as ``jax.jit(vmap(vmap(point)))``.  PyTorch
+has no ``vmap`` over a step with a host branch and a kernel launch, so the
+batch is written out: the L x S points run as one batched state of B = L S
+points (point ``b`` is load ``b // S``, seed ``b % S``), one round of
+launches per round for all of them, and every match is one kernel launch
+over the B points' rows.  Percentiles are reduced on the device
+(``point_summary``), so a 50k-worker grid never builds per-task records on
+the host.
+
+Left out, with their slices: Fig. 4 (``fig4_sweep``, ROADMAP item 7), the
+probe-memory guard of sparrow and eagle (item 9), provenance columns
+(item 10) and the sharded executor (item 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.base import grid_workers
+from repro_torch.device import resolve_device
+from repro_torch.simx import engine, runtime
+from repro_torch.simx.megha import gm_orders
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.state import SimxConfig, TaskArrays, export_workload
+from repro_torch.workload.synth import synthetic_trace
+
+#: the reference's rules that the port has not brought over yet
+_NOT_PORTED = ("sparrow", "eagle")
+
+
+def _check_ported(name: str) -> None:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name} on simx is not ported yet (ROADMAP.md queue 1, item 9)"
+        )
+
+
+def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
+    """Reduce a finished state to the Fig. 2 observables, on its device
+    (the reference's ``point_summary``, same keys): p50/p95/mean job delay
+    (Eq. 2, nan-excluding unfinished jobs, through the runtime's shared
+    job-delay reduction), completion counts, the crash-loss counter, mean
+    worker utilisation, control messages and probes, the inconsistency
+    count and its per-task rate, and the reservation-queue counters
+    (literal zeros: no ported rule has queues).
+
+    A batched state gives one value per point (``[B]``).  ``mean_util`` is
+    exact in closed form: each launched task occupied its worker for
+    ``clip(min(finish, t) - start, 0, duration)`` seconds.
+    ``torch.nanquantile`` stands in for ``jnp.nanpercentile``; both
+    interpolate linearly."""
+    t = runtime.lift(state.t, state.task_finish)
+    done = state.task_finish <= t
+    delays, job_finish = runtime.job_delays_from_state(state.task_finish, state.t, tasks)
+    # min() before the subtraction: an unlaunched task has finish == inf,
+    # and min(inf, t) - (inf - d) = -inf clips to 0 without an inf - inf nan
+    busy = torch.minimum(
+        torch.clamp(
+            torch.minimum(state.task_finish, t) - (state.task_finish - tasks.duration),
+            min=0.0,
+        ),
+        tasks.duration,
+    )
+    W = state.worker_finish.shape[-1]
+    zero = torch.zeros_like(state.lost)
+    return {
+        "p50": torch.nanquantile(delays, 0.5, dim=-1),
+        "p95": torch.nanquantile(delays, 0.95, dim=-1),
+        "mean": torch.nanmean(delays, dim=-1),
+        "jobs_done": torch.sum(torch.isfinite(job_finish), dim=-1, dtype=torch.int32),
+        "tasks_done": torch.sum(done, dim=-1, dtype=torch.int32),
+        "lost": state.lost,
+        "mean_util": torch.sum(busy, dim=-1) / (W * torch.clamp(state.t, min=1e-9)),
+        "messages": state.messages,
+        "probes": state.probes,
+        "inconsistencies": state.inconsistencies,
+        "inconsistency_rate": state.inconsistencies.to(torch.float32)
+        / torch.tensor(float(max(tasks.num_tasks, 1)), dtype=torch.float32,
+                       device=state.lost.device),
+        "res_overflow": zero,
+        "probe_lag": zero,
+    }
+
+
+def make_load_grid(
+    loads: Sequence[float],
+    *,
+    num_jobs: int,
+    tasks_per_job: int,
+    num_workers: int,
+    task_duration: float = 1.0,
+    seed: int = 0,
+    arrivals: str = "poisson",
+    device=None,
+) -> tuple[TaskArrays, torch.Tensor, torch.Tensor]:
+    """One synthetic trace per load, stacked along a leading load axis.
+
+    Returns ``(template, submit[L, T], job_submit[L, J])`` — the template
+    carries the load-invariant structure (same trace seed => identical
+    durations/shapes across loads; only arrival times move)."""
+    dev = resolve_device(device)
+    template = None
+    submit, job_submit = [], []
+    for load in loads:
+        tasks = export_workload(
+            synthetic_trace(
+                num_jobs=num_jobs,
+                tasks_per_job=tasks_per_job,
+                task_duration=task_duration,
+                load=load,
+                num_workers=num_workers,
+                seed=seed,
+                arrivals=arrivals,
+            ),
+            dev,
+        )
+        if template is None:
+            template = tasks
+        submit.append(tasks.submit)
+        job_submit.append(tasks.job_submit)
+    return template, torch.stack(submit), torch.stack(job_submit)
+
+
+def build_grid(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    submit_grid: torch.Tensor,       # float32[L, T]
+    job_submit_grid: torch.Tensor,   # float32[L, J]
+    seeds: Sequence[int],
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+):
+    """The grid as one batched run, not yet advanced: ``(step, state,
+    tasks)`` with B = L x S points, point ``b`` = (load ``b // S``, seed
+    ``b % S``), and ``tasks`` carrying each point's arrival times.
+
+    Megha's seed ``s`` uses ``orders[s]`` (``int32[S, G, W]``) when given,
+    else ``gm_orders(torch.Generator().manual_seed(s), cfg)``, the orders
+    ``simulate_workload(seed=s)`` draws.  The other rules draw nothing;
+    their seed copies of a load are identical, as in the reference."""
+    name = scheduler.lower()
+    _check_ported(name)
+    rule = runtime.get_rule(name)
+    seeds = [int(s) for s in seeds]
+    L, S = submit_grid.shape[0], len(seeds)
+    B = L * S
+    point_tasks = tasks.replace(
+        submit=submit_grid.repeat_interleave(S, dim=0),
+        job_submit=job_submit_grid.repeat_interleave(S, dim=0),
+    )
+    if rule.needs_grid:
+        if orders is None:
+            orders = torch.stack([
+                gm_orders(torch.Generator().manual_seed(s), cfg) for s in seeds
+            ])
+        if orders.dim() != 3 or orders.shape[0] != S:
+            raise ValueError(f"orders must be [{S}, G, W], got {tuple(orders.shape)}")
+        orders = orders.to(tasks.device).repeat(L, 1, 1)           # [B, G, W]
+    elif orders is not None:
+        raise ValueError(f"{name} takes no GM orders")
+    step = rule.build_step(
+        cfg, point_tasks, None, match_fn=match_fn, orders=orders,
+    )
+    return step, rule.init(cfg, point_tasks, B), point_tasks
+
+
+def grid_state(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    submit_grid: torch.Tensor,
+    job_submit_grid: torch.Tensor,
+    seeds: Sequence[int],
+    num_rounds: int,
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+):
+    """Run the grid exactly ``num_rounds`` rounds from a fresh DC (each
+    point is ``runtime.simulate_fixed`` of that point); returns ``(final
+    batched state, point tasks, step)``."""
+    step, state, point_tasks = build_grid(
+        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, match_fn, orders)
+    return runtime.scan_rounds(step, state, num_rounds), point_tasks, step
+
+
+def sweep_grid(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    submit_grid: torch.Tensor,       # float32[L, T]
+    job_submit_grid: torch.Tensor,   # float32[L, J]
+    seeds: Sequence[int],
+    num_rounds: int,
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+) -> dict[str, torch.Tensor]:
+    """Run the whole (load x seed) grid as one batched program; returns the
+    ``point_summary`` fields as ``[L, S]`` tensors on the grid's device."""
+    state, point_tasks, _ = grid_state(
+        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, num_rounds,
+        match_fn, orders)
+    L, S = submit_grid.shape[0], len(seeds)
+    return {k: v.reshape(L, S) for k, v in point_summary(state, point_tasks).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Everything a Fig. 2 grid run needs, built once (the reference's
+    ``SweepPlan``, with megha's ``orders`` in place of its PRNG seeds)."""
+
+    name: str
+    cfg: SimxConfig
+    tasks: TaskArrays
+    submit_grid: torch.Tensor        # float32[L, T]
+    job_submit_grid: torch.Tensor    # float32[L, J]
+    seeds: tuple[int, ...]           # [S]
+    num_rounds: int
+    match_fn: MatchFn
+    orders: Optional[torch.Tensor]   # int32[S, G, W] (megha) or None
+    annotate: dict                   # numpy extras merged into the result
+
+
+def fig2_plan(
+    scheduler: str,
+    *,
+    loads: Sequence[float] = (0.2, 0.5, 0.8),
+    num_seeds: int = 3,
+    num_workers: int = 10_000,
+    num_jobs: int = 200,
+    tasks_per_job: int = 1000,
+    dt: float = 0.05,
+    slack: float = 4.0,
+    trace_seed: int = 0,
+    use_kernel: bool = True,
+    orders: Optional[torch.Tensor] = None,
+    device=None,
+    **cfg_kwargs,
+) -> SweepPlan:
+    """Build the Fig. 2 grid inputs without running them: the load grid,
+    the shared config, and the round budget sized off the slowest point.
+    Megha's worker count is shaved to its GM x LM grid first
+    (``grid_workers``) and the trace is built at that count, as the
+    reference does."""
+    name = scheduler.lower()
+    _check_ported(name)
+    if runtime.get_rule(name).needs_grid:
+        num_workers = grid_workers(
+            num_workers, cfg_kwargs.get("num_gms", 8), cfg_kwargs.get("num_lms", 8)
+        )
+    cfg = SimxConfig(num_workers=num_workers, dt=dt, **cfg_kwargs)
+    tasks, submit_g, job_submit_g = make_load_grid(
+        loads,
+        num_jobs=num_jobs,
+        tasks_per_job=tasks_per_job,
+        num_workers=num_workers,
+        seed=trace_seed,
+        device=device,
+    )
+    num_rounds = max(
+        engine.estimate_rounds(
+            cfg, tasks.replace(submit=submit_g[i], job_submit=job_submit_g[i]), slack=slack,
+        )
+        for i in range(len(loads))
+    )
+    return SweepPlan(
+        name=name,
+        cfg=cfg,
+        tasks=tasks,
+        submit_grid=submit_g,
+        job_submit_grid=job_submit_g,
+        seeds=tuple(range(num_seeds)),
+        num_rounds=num_rounds,
+        match_fn=default_match_fn(use_kernel),
+        orders=orders,
+        annotate={
+            "loads": np.asarray(loads),
+            "num_rounds": np.asarray(num_rounds),
+            "num_tasks": np.asarray(tasks.num_tasks),
+        },
+    )
+
+
+def fig2_sweep(
+    scheduler: str,
+    *,
+    loads: Sequence[float] = (0.2, 0.5, 0.8),
+    num_seeds: int = 3,
+    num_workers: int = 10_000,
+    num_jobs: int = 200,
+    tasks_per_job: int = 1000,
+    dt: float = 0.05,
+    slack: float = 4.0,
+    trace_seed: int = 0,
+    use_kernel: bool = True,
+    orders: Optional[torch.Tensor] = None,
+    device=None,
+    **cfg_kwargs,
+) -> dict[str, np.ndarray]:
+    """Build the load grid, size the round budget off the slowest point,
+    run the grid as one batched program on ``device`` (``None`` = the CUDA
+    card), return numpy arrays.
+
+    The defaults mirror the paper's synthetic trace (jobs of 1000
+    one-second tasks).  ``use_kernel`` selects the rank-and-select kernel
+    (the default) or its plain version; ``orders`` (``int32[S, G, W]``,
+    megha only) feeds in GM orders, e.g. the reference's draws."""
+    plan = fig2_plan(
+        scheduler,
+        loads=loads, num_seeds=num_seeds, num_workers=num_workers,
+        num_jobs=num_jobs, tasks_per_job=tasks_per_job, dt=dt, slack=slack,
+        trace_seed=trace_seed, use_kernel=use_kernel, orders=orders,
+        device=device, **cfg_kwargs,
+    )
+    out = sweep_grid(
+        plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+        plan.seeds, plan.num_rounds, match_fn=plan.match_fn, orders=plan.orders,
+    )
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    res.update(plan.annotate)
+    return res

@@ -1,6 +1,6 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions, and small megha / oracle / serving-engine runs on the card
-against the same runs on the CPU.  Every test here carries the ``gpu`` marker and skips itself
+versions, and small megha / pigeon / oracle runs, Fig. 2 grids and
+serving-engine runs on the card against the same runs on the CPU.  Every test here carries the ``gpu`` marker and skips itself
 without a card.  This file imports no ``jax`` (the card's machine has
 none); run it there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 
@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.kernels import match, ref
 from repro_torch.serve.engine import MeghaServeEngine, Request
-from repro_torch.simx import convert, simulate_workload
+from repro_torch.simx import SimxConfig, convert, runtime, simulate_workload, sweep
 from repro_torch.workload.synth import synthetic_trace
 
 WIDTHS = [1, 100, 128, 1024, 8192, 50_000]
@@ -193,3 +193,78 @@ def test_card_engine_is_bitwise_the_cpu_engine():
     assert cpu.stats == card.stats
     assert torch.equal(cpu.truth, card.truth.cpu())
     assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu.views, card.views))
+
+
+#: the sweep tests' small grid: 2 loads x 2 seeds on 64 workers
+SMALL_GRID = dict(loads=(0.5, 0.8), num_jobs=8, tasks_per_job=16, num_workers=64, seed=11)
+SMALL_CFG = dict(num_workers=64, num_gms=4, num_lms=4, dt=0.02, heartbeat_interval=1.0)
+
+
+#: the small grid's round budget (``estimate_rounds`` at load 0.5)
+GRID_ROUNDS = 711
+
+
+def _grid(name: str, device: str, use_kernel: bool = True):
+    """The small grid on ``device``; returns (state, step, launches)."""
+    loads = SMALL_GRID["loads"]
+    kw = {k: v for k, v in SMALL_GRID.items() if k != "loads"}
+    tasks, sub, jsub = sweep.make_load_grid(loads, device=device, **kw)
+    before = match.match_ranks_batched.launches
+    state, _, step = sweep.grid_state(
+        name, SimxConfig(**SMALL_CFG), tasks, sub, jsub, (0, 1), GRID_ROUNDS,
+        match_fn=runtime.default_match_fn(use_kernel))
+    return state, step, match.match_ranks_batched.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "pigeon", "oracle"])
+def test_grid_on_the_card_is_bitwise_plain_and_cpu(name):
+    """The batched grid: kernel path, plain path on the card and the CPU
+    run, final states bitwise equal; one launch per match (megha's borrow
+    pass once for the whole batch, pigeon's two matches a round)."""
+    _need_card()
+    card, step, launches = _grid(name, "cuda")
+    plain, _, plain_launches = _grid(name, "cuda", use_kernel=False)
+    cpu, _, _ = _grid(name, "cpu")
+    per_round = {"megha": 1, "pigeon": 2, "oracle": 1}[name]
+    assert launches == per_round * GRID_ROUNDS + getattr(step, "borrow_rounds", 0)
+    assert plain_launches == 0
+    want = convert.state_to_numpy(cpu)
+    for other in (card, plain):
+        got = convert.state_to_numpy(other)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert (card.task_finish <= card.t[:, None]).all()
+
+
+@pytest.mark.gpu
+def test_pigeon_card_run_is_bitwise_the_cpu_run():
+    """Pigeon alone, with a ragged last group (100 workers in groups of
+    40: the narrow design on rows of 60 lanes, the first row padded)."""
+    _need_card()
+    wl = synthetic_trace(num_jobs=12, tasks_per_job=32, load=0.9, num_workers=100, seed=4)
+    before = match.match_ranks_batched.launches
+    card = simulate_workload("pigeon", wl, 100, dt=0.02, device="cuda")
+    launches = match.match_ranks_batched.launches - before
+    cpu = simulate_workload("pigeon", wl, 100, dt=0.02, device="cpu")
+    assert launches == 2 * int(card.state.rnd)
+    a, b = convert.state_to_numpy(card.state), convert.state_to_numpy(cpu.state)
+    for k in b:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    assert card.tasks_completed == wl.num_tasks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,lanes,real", [(7500, 40, 40), (2500, 60, 40), (6, 60, 60)])
+def test_narrow_design_at_pigeon_shapes(rows, lanes, real):
+    """Pigeon's batched match at the paper's grid ([6 x 1250, 40]) and
+    rows of a ragged last group: groups of 40 padded to 60 lanes that read
+    busy, and full 60-lane rows; n up to the row width and beyond."""
+    _need_card()
+    gen = torch.Generator().manual_seed(rows + lanes)
+    avail = torch.rand((rows, lanes), generator=gen) < 0.5
+    avail[:, real:] = False
+    avail = avail.cuda()
+    assert match._batched_plan(lanes)[0] == "narrow"
+    _batched_matches_plain(avail, torch.randint(0, lanes + 3, (rows,), generator=gen).tolist())
+    _batched_matches_plain(avail, [lanes] * rows)

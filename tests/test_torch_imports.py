@@ -71,3 +71,10 @@ def test_source_has_no_jax_or_repro_import(path):
                 if isinstance(a, ast.Constant) and _forbidden(str(a.value))
             ]
     assert bad == []
+
+
+def test_walk_covers_the_sweep_and_pigeon_modules():
+    """The two checks above walk every module of the port; the batched
+    sweep and the pigeon rule are among them."""
+    assert {"repro_torch.simx.sweep", "repro_torch.simx.pigeon"} <= set(MODULES)
+    assert {PORT / "simx" / "sweep.py", PORT / "simx" / "pigeon.py"} <= set(SOURCES)
