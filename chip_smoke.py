@@ -10,18 +10,22 @@ checkout (one ``nvcc`` per source, all started together), holds each
 against its plain PyTorch version on the card, drives the paths —
 ``run_simulation(..., backend="simx")`` for megha and the oracle at 49,984
 workers and 480,000 tasks, the Fig. 2 sweep (``fig2_sweep``'s grid of 3
-loads x 2 seeds as one batched program) for megha, pigeon and the oracle
-at that size, the Megha serving engine at 49,984 slots with 200,000
-requests, and the fast path's SDPS loop — and prints one JSON line per
-phase:
+loads x 2 seeds as one batched program) for megha, pigeon, the oracle,
+sparrow and eagle at that size, eagle's long-job path on the google-like
+trace at 13,000 workers, the Megha serving engine at 49,984 slots with
+200,000 requests, and the fast path's SDPS loop — and prints one JSON line
+per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
   kernel       the batched kernel (both designs: wide rows split over blocks,
                narrow rows one warp each) against its plain version over a
                sweep of widths (tile and narrow-threshold edges among them),
                dtypes and n, and at [50000, 64]; then at the main path's
-               shapes and the narrow [50000, 64]: error, time, plain time,
-               torch.cumsum time, bytes and the byte bound
+               shapes, the narrow [50000, 64], the sparrow/eagle
+               head-of-queue picks (n = 1: [300000, 40], [50000, 40],
+               [13000, 64]) and eagle's central matches ([1, 13000],
+               [6, 50000]): error, time, plain time, torch.cumsum time,
+               bytes and the byte bound
   kernel_single  the single-row kernel (both entry points, match_ranks and
                the fused match_tasks) likewise, at the serving and SDPS
                shapes
@@ -36,13 +40,19 @@ phase:
                the batched kernel's µs per launch and share of device time
   oracle       the oracle on the same trace, and megha's gap above it
   sweep        the Fig. 2 grid (loads 0.2 / 0.5 / 0.8 x seeds 0 / 1) for
-               megha, pigeon and the oracle as one batched run each: every
-               point completes, kernel and plain final states bitwise
-               equal, launches per round, grid wall and tasks per wall
-               second at B = 6 and at B = 1 (one point, bitwise that point
-               of the grid); megha's (0.8, seed 0) point against a
-               standalone run of the same trace
-  sweep_profile  torch.profiler over megha's grid rounds 128-192 at B = 6
+               megha, pigeon, the oracle, sparrow and eagle as one batched
+               run each: every point completes, kernel and plain final
+               states bitwise equal, launches per round, grid wall and
+               tasks per wall second at B = 6 and at B = 1 (one point,
+               bitwise that point of the grid), sparrow's and eagle's queue
+               counters; megha's (0.8, seed 0) point against a standalone
+               run of the same trace
+  sweep_profile  torch.profiler over megha's and sparrow's grids, rounds
+               128-192 at B = 6
+  eagle_long   eagle on google_like_trace() (10,000 jobs, 312,558 tasks)
+               at 13,000 workers until 200 s through run_simulation: SSS
+               rejections and central long launches, kernel and plain
+               final states bitwise equal, two launches a round
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
                kernel and plain engines in turns: identical stats and final
                state, every request completed, gm_round calls == kernel
@@ -53,8 +63,9 @@ phase:
   sdps         the fast path's scheduling decisions per second at 9,984 and
                49,984 workers, kernel and plain; the event backend's megha
   cpu_parity   the port on the CPU against the port on the card, bitwise
-               (megha, the oracle, the serving engine, and the three rules'
-               sweep grids at bench_simx.py's default size)
+               (megha, the oracle, the serving engine, the five rules'
+               sweep grids at bench_simx.py's default size, and eagle with
+               long jobs at 200 workers)
   kernels      one summary line per kernel
 
 then the card's name and power limit (``nvidia-smi``) and, as the last
@@ -86,7 +97,7 @@ from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
 from repro_torch.simx import convert, runtime, simulate_workload, sweep  # noqa: E402
 from repro_torch.simx.state import SimxConfig, export_workload  # noqa: E402
-from repro_torch.workload.synth import synthetic_trace  # noqa: E402
+from repro_torch.workload.synth import google_like_trace, synthetic_trace  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor FP32
 #: operations/s, at the full 700 W power limit.
@@ -111,9 +122,9 @@ _TILE = match.WIDE_TILE_LANES
 BATCHED_SWEEP_WIDTHS = tuple(sorted(set(SWEEP_WIDTHS) | {
     7, 33, 64, match.NARROW_MAX_LANES, match.NARROW_MAX_LANES + 1,
     _TILE - 1, _TILE, _TILE + 1, 2 * _TILE + 1}))
-#: the sparrow/eagle head-of-queue pick at the paper's scale: one narrow
-#: row of R = 64 queue slots per worker, n = 1
-NARROW_SHAPE = ("queue_pick", 50_000, 64)
+#: a narrow row of R = 64 queue slots per worker (the queue cap) over
+#: 50,000 workers, for the dtype sweep
+NARROW_SHAPE = ("queue_pick_r64", 50_000, 64)
 
 #: bench_simx.py's SWEEP_FULL: the paper-scale Fig. 2 grid (3 loads x 2
 #: seeds = 6 points per scheduler; megha's trace and run at 49,984 workers)
@@ -123,7 +134,17 @@ SWEEP_POINTS = 6
 #: bench_simx.py's default grid (SWEEP), for the card-against-CPU check
 SWEEP_SMALL = dict(loads=(0.4, 0.8), num_seeds=2, num_workers=1024, num_jobs=32,
                    tasks_per_job=128, dt=DT)
-SWEEP_RULES = ("megha", "pigeon", "oracle")
+SWEEP_RULES = ("megha", "pigeon", "oracle", "sparrow", "eagle")
+#: the rules' kernel launches a round on the synthetic grid: megha's borrow
+#: rounds add one each; sparrow's and eagle's one match is the head-of-queue
+#: pick (no job is long there, so eagle's central match is left out)
+SWEEP_PER_ROUND = {"megha": 1, "pigeon": 2, "oracle": 1, "sparrow": 1, "eagle": 1}
+
+#: eagle's long path: google_like_trace() at its Table 1 size (10,000 jobs,
+#: 312,558 tasks, 13,000 workers) until 200 simulated seconds (4,000
+#: rounds; its last job arrives at 146.9 s, its longest task runs 2,250 s)
+EAGLE_LONG_WORKERS = 13_000
+EAGLE_LONG_UNTIL = 200.0
 
 #: The main path's match shapes at the paper scale (8 GMs, 8 LMs), then
 #: the Fig. 2 grid's (B = 6 points; pigeon's 1,250 groups of 40 workers)
@@ -135,6 +156,19 @@ MAIN_SHAPES = (
     ("sweep_megha_borrow", SWEEP_POINTS * 8, GRID_WORKERS),
     ("sweep_oracle", SWEEP_POINTS, WORKERS),
     ("sweep_pigeon", SWEEP_POINTS * (WORKERS // 40), 40),
+)
+#: sparrow's and eagle's head-of-queue pick, n = 1 per row: the Fig. 2 grid
+#: at B = 6 and B = 1 (R = 40 queue slots at 50,000 workers) and eagle on
+#: the google-like trace (R = 64 at 13,000 workers); then eagle's central
+#: long match (n = W): on that trace, and a grid of 6 points at 50,000
+PICK_SHAPES = (
+    ("sweep_queue_pick", SWEEP_POINTS * WORKERS, 40),
+    ("queue_pick", WORKERS, 40),
+    ("eagle_long_pick", EAGLE_LONG_WORKERS, 64),
+)
+CENTRAL_SHAPES = (
+    ("eagle_long_central", 1, EAGLE_LONG_WORKERS),
+    ("eagle_central_grid", SWEEP_POINTS, WORKERS),
 )
 
 #: The serving engine at the paper's 50k-worker fleet on the 8 x 8 grid:
@@ -281,8 +315,9 @@ def phase_kernel(gen: torch.Generator) -> dict:
     rows = []
     # bool views as the main path passes them; n = w per row, so every
     # wide row is scanned to its end (no early exit) and the bound counts
-    # every byte; the narrow pick at its own n = 1 (no early exit there)
-    shapes = [(c, g, w, w) for c, g, w in MAIN_SHAPES] + [(*NARROW_SHAPE, 1)]
+    # every byte; the narrow picks at their own n = 1 (no early exit there)
+    shapes = ([(c, g, w, w) for c, g, w in MAIN_SHAPES + CENTRAL_SHAPES]
+              + [(*NARROW_SHAPE, 1)] + [(c, g, w, 1) for c, g, w in PICK_SHAPES])
     for caller, g, w, n_row in shapes:
         avail = (torch.rand((g, w), generator=gen) < 0.5).to(DEVICE)
         n = torch.full((g,), n_row, dtype=torch.int32, device=DEVICE)
@@ -427,10 +462,12 @@ def _device_busy(prof) -> tuple[float, list, dict]:
     return busy_us, spans, by_name
 
 
-def _profile_rounds(step, state, start: int, length: int) -> dict:
+def _profile_rounds(step, state, start: int, length: int,
+                    kernel: str = "match_batched_wide_kernel") -> dict:
     """Rounds ``start`` to ``start + length`` of ``step`` from a fresh
     ``state``: timed once without the profiler, then again (from the same
-    state) under torch.profiler."""
+    state) under torch.profiler; ``kernel`` names the match kernel's
+    design the rounds launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -446,7 +483,6 @@ def _profile_rounds(step, state, start: int, length: int) -> dict:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, spans, by_name = _device_busy(prof)
-    kernel = "match_batched_wide_kernel"  # the only design megha's shapes take
     mk = [v for k, v in by_name.items() if kernel in k]
     n_mk = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                and kernel in e.name)
@@ -472,7 +508,7 @@ def _profile_window(wl, use_kernel: bool, start: int, length: int) -> dict:
     cfg = SimxConfig(num_workers=GRID_WORKERS, dt=DT)
     tasks = export_workload(wl, DEVICE)
     rule = runtime.get_rule("megha")
-    step = rule.build_step(cfg, tasks, torch.Generator().manual_seed(0),
+    step = rule.build_step(cfg, tasks, runtime.rule_draws(rule, cfg, tasks, 0),
                            match_fn=runtime.default_match_fn(use_kernel))
     return dict(phase="megha_profile", match="kernel" if use_kernel else "plain",
                 **_profile_rounds(step, rule.init(cfg, tasks), start, length))
@@ -513,20 +549,22 @@ def phase_oracle(wl, megha: dict) -> dict:
     return out
 
 
-def _grid_run(plan, use_kernel: bool, one_point: bool = False):
-    """One batched grid run of ``plan`` on the card (all 6 points, or only
-    load 0.8 / seed 0): (final state, point tasks, step, wall seconds,
-    kernel launches).  The wall is the host clock around the rounds and
-    the on-device summary, ending in a synchronize."""
+def _grid_run(plan, draws: dict, use_kernel: bool, one_point: bool = False):
+    """One batched grid run of ``plan`` with the seeds' ``draws`` on the
+    card (all 6 points, or only load 0.8 / seed 0): (final state, point
+    tasks, step, wall seconds, kernel launches).  The wall is the host
+    clock around the step's build, the rounds and the on-device summary,
+    ending in a synchronize (the draws are made once, before)."""
     sub, jsub, seeds = plan.submit_grid, plan.job_submit_grid, plan.seeds
     if one_point:
         sub, jsub, seeds = sub[-1:], jsub[-1:], seeds[:1]
+        draws = {k: v[:1] for k, v in draws.items()}
     match.match_ranks_batched.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, tasks, step = sweep.grid_state(
         plan.name, plan.cfg, plan.tasks, sub, jsub, seeds, plan.num_rounds,
-        match_fn=runtime.default_match_fn(use_kernel))
+        match_fn=runtime.default_match_fn(use_kernel), draws=draws)
     summary = sweep.point_summary(state, tasks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -542,32 +580,39 @@ def _summary_list(summary: dict) -> dict:
 
 
 def phase_sweep(megha: dict) -> dict:
-    """The Fig. 2 grid for megha, pigeon and the oracle: kernel run
-    (whose launches count), plain run, and the one-point run, each on the
-    card; then megha's (0.8, seed 0) point against a standalone run."""
+    """The Fig. 2 grid for megha, pigeon, the oracle, sparrow and eagle:
+    kernel run (whose launches count), plain run, and the one-point run,
+    each on the card; then megha's (0.8, seed 0) point against a
+    standalone run."""
     t0 = time.perf_counter()
     plans = {"megha": sweep.fig2_plan("megha", device=DEVICE, **SWEEP_FULL)}
     plans["oracle"] = sweep.fig2_plan("oracle", device=DEVICE, **SWEEP_FULL)
     # pigeon runs on the oracle's 50,000-worker load grid (built once)
     plans["pigeon"] = dataclasses.replace(plans["oracle"], name="pigeon")
+    for name in ("sparrow", "eagle"):
+        plans[name] = sweep.fig2_plan(name, device=DEVICE, **SWEEP_FULL)
     plan_s = time.perf_counter() - t0
     out = dict(phase="sweep", entry="fig2_plan + sweep_grid", grid=dict(
         loads=list(SWEEP_FULL["loads"]), seeds=SWEEP_FULL["num_seeds"], points=SWEEP_POINTS,
         jobs=SWEEP_FULL["num_jobs"], tasks_per_job=SWEEP_FULL["tasks_per_job"], dt=DT),
         plan_build_s=plan_s, rules={})
-    per_round = {"megha": 1, "pigeon": 2, "oracle": 1}
     finals = {}
     for name in SWEEP_RULES:
         plan = plans[name]
-        state, tasks, step, summ, wall, launches = _grid_run(plan, True)
-        p_state, _, _, _, p_wall, p_launches = _grid_run(plan, False)
-        o_state, _, _, _, o_wall, o_launches = _grid_run(plan, True, one_point=True)
+        t0 = time.perf_counter()
+        draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
+        draw_s = time.perf_counter() - t0
+        state, tasks, step, summ, wall, launches = _grid_run(plan, draws, True)
+        p_state, _, _, _, p_wall, p_launches = _grid_run(plan, draws, False)
+        o_state, _, _, _, o_wall, o_launches = _grid_run(plan, draws, True, one_point=True)
         rounds = plan.num_rounds
         T = tasks.num_tasks
         borrow = getattr(step, "borrow_rounds", 0)
         r = dict(
             workers=plan.cfg.num_workers, num_rounds=rounds, tasks_per_point=T,
-            kernel_launches=launches, expected_launches=per_round[name] * rounds + borrow,
+            draws=sorted(draws), draw_s=draw_s,
+            kernel_launches=launches,
+            expected_launches=SWEEP_PER_ROUND[name] * rounds + borrow,
             borrow_rounds_any=borrow,
             borrow_rounds_per_point=(step.point_borrow_rounds.tolist()
                                      if getattr(step, "point_borrow_rounds", None) is not None
@@ -584,6 +629,14 @@ def phase_sweep(megha: dict) -> dict:
             ms_per_round=wall / rounds * 1e3, one_point_ms_per_round=o_wall / rounds * 1e3,
             batch_speedup=SWEEP_POINTS * o_wall / wall,
         )
+        if name in ("sparrow", "eagle"):
+            # the queue shapes and counters: the pick runs at [B x W, R]
+            R = int(state.resq.shape[-1])
+            r.update(queue_slots=R, pick_shape=[SWEEP_POINTS * plan.cfg.num_workers, R],
+                     one_point_pick_shape=[plan.cfg.num_workers, R],
+                     res_overflow=r["summary"]["res_overflow"],
+                     probe_lag=r["summary"]["probe_lag"], probes=r["summary"]["probes"],
+                     long_head=(state.long_head.tolist() if name == "eagle" else None))
         check(all(v == T for v in r["summary"]["tasks_done"]),
               f"{name}: every grid point completes its {T} tasks")
         check(launches == r["expected_launches"] > 0,
@@ -621,21 +674,87 @@ def phase_sweep(megha: dict) -> dict:
     check(out["megha_point_08_seed0"]["grid_equals_standalone"],
           "megha's (0.8, 0) grid point equals its standalone run")
     emit(out)
-    out["_plan_megha"] = plans["megha"]
+    out["_plans"] = plans
     return out
 
 
-def phase_sweep_profile(plan) -> dict:
-    """Megha's grid (B = 6) under torch.profiler, rounds 128-192."""
-    step, state, _ = sweep.build_grid(
-        plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
-        plan.seeds, match_fn=runtime.default_match_fn(True))
-    r = dict(phase="sweep_profile", scheduler="megha", points=SWEEP_POINTS,
-             **_profile_rounds(step, state, start=128, length=64))
-    check(r["device_ops_per_round"] > 0, "the profiler saw the grid's device work")
-    check(r["match_kernel_launches"] >= 64, "the grid window ran the wide kernel")
-    emit(r)
-    return r
+def phase_sweep_profile(plans: dict) -> list[dict]:
+    """Megha's and sparrow's grids (B = 6) under torch.profiler, rounds
+    128-192 (megha's matches take the wide design, sparrow's pick the
+    narrow one)."""
+    out = []
+    for name, kernel in (("megha", "match_batched_wide_kernel"),
+                         ("sparrow", "match_batched_narrow_kernel")):
+        plan = plans[name]
+        step, state, _ = sweep.build_grid(
+            plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+            plan.seeds, match_fn=runtime.default_match_fn(True))
+        r = dict(phase="sweep_profile", scheduler=name, points=SWEEP_POINTS,
+                 **_profile_rounds(step, state, start=128, length=64, kernel=kernel))
+        check(r["device_ops_per_round"] > 0, f"the profiler saw {name}'s grid device work")
+        check(r["match_kernel_launches"] >= 64, f"{name}'s grid window ran its kernel")
+        emit(r)
+        out.append(r)
+    return out
+
+
+def phase_eagle_long() -> dict:
+    """Eagle's SSS and central long match, which the synthetic trace never
+    reaches: ``google_like_trace()`` at 13,000 workers until 200 s, first
+    through ``run_simulation`` (whose launches count), then kernel and
+    plain runs of ``simulate_workload`` whose final states must agree."""
+    wl = google_like_trace()
+    kw = dict(until=EAGLE_LONG_UNTIL, dt=DT, device=DEVICE)
+    match.match_ranks_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = run_simulation("eagle", wl, EAGLE_LONG_WORKERS, backend="simx", **kw)
+    entry_wall = time.perf_counter() - t0
+    launches = match.match_ranks_batched.launches
+    runs, walls, run_launches = {}, {}, {}
+    for use_kernel in (True, False):
+        before = match.match_ranks_batched.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[use_kernel] = simulate_workload("eagle", wl, EAGLE_LONG_WORKERS,
+                                             use_kernel=use_kernel, **kw)
+        torch.cuda.synchronize()
+        walls[use_kernel] = time.perf_counter() - t0
+        run_launches[use_kernel] = match.match_ranks_batched.launches - before
+    run = runs[True]
+    s, tasks = run.state, run.tasks
+    rounds = int(s.rnd)
+    long_task = (tasks.job_est >= run.cfg.long_threshold)[tasks.job.long()]
+    summary = m.summary()
+    out = dict(
+        phase="eagle_long", entry="run_simulation", workers=EAGLE_LONG_WORKERS,
+        jobs=len(wl.jobs), tasks=wl.num_tasks,
+        long_jobs=int((tasks.job_est >= run.cfg.long_threshold).sum()),
+        long_tasks=int(long_task.sum()), until=EAGLE_LONG_UNTIL, rounds=rounds,
+        last_arrival_s=float(tasks.job_submit.max()), longest_task_s=float(tasks.duration.max()),
+        pick_shape=list(s.resq.shape), central_shape=[1, EAGLE_LONG_WORKERS],
+        queue_slots=int(s.resq.shape[-1]),
+        completed=completed(m), long_tasks_launched=int(
+            (~torch.isinf(s.task_finish) & long_task).sum()),
+        long_head=int(s.long_head), sss_rejections=int(s.probes) - int(s.probe_head),
+        probes=int(s.probes), probe_head=int(s.probe_head),
+        res_overflow=int(s.res_overflow), probe_lag=int(s.probe_lag),
+        p50_delay=summary["all_median_delay"], p95_delay=summary["all_p95_delay"],
+        kernel_launches=launches, run_launches=run_launches[True],
+        plain_run_launches=run_launches[False],
+        kernel_and_plain_bitwise=states_equal(runs[True].state, runs[False].state),
+        entry_wall_s=entry_wall, wall_s=walls[True], plain_wall_s=walls[False],
+        ms_per_round=walls[True] / rounds * 1e3,
+    )
+    check(rounds == int(round(EAGLE_LONG_UNTIL / DT)), "eagle_long runs to its time cap")
+    check(launches == 2 * rounds == run_launches[True],
+          "eagle_long: the pick and the central match launch once a round each")
+    check(run_launches[False] == 0, "eagle_long: the plain run launches no kernel")
+    check(out["kernel_and_plain_bitwise"], "eagle_long: kernel and plain states bitwise equal")
+    check(out["long_tasks_launched"] > 0, "eagle_long: the central FIFO launched long tasks")
+    check(out["sss_rejections"] > 0, "eagle_long: SSS rejected probes")
+    emit(out)
+    return out
 
 
 def phase_cpu_parity() -> dict:
@@ -672,6 +791,17 @@ def phase_cpu_parity() -> dict:
     )
     check(out["serve"]["bitwise_equal"], "serve: CPU and card engines bitwise equal")
     check(out["serve"]["summary"]["completed"] == 1500, "serve: completes")
+    # eagle with long jobs (SSS and the central match) at 200 workers
+    wl = google_like_trace(num_jobs=60, total_tasks=1500, num_workers=200, seed=2)
+    runs = {dev: simulate_workload("eagle", wl, 200, until=20.0, device=dev)
+            for dev in ("cpu", DEVICE)}
+    st = runs[DEVICE].state
+    out["eagle_long"] = dict(
+        bitwise_equal=states_equal(runs["cpu"].state, st), rounds=int(st.rnd),
+        sss_rejections=int(st.probes) - int(st.probe_head), long_head=int(st.long_head))
+    check(out["eagle_long"]["bitwise_equal"], "eagle with long jobs: CPU and card bitwise equal")
+    check(out["eagle_long"]["sss_rejections"] > 0 and out["eagle_long"]["long_head"] > 0,
+          "eagle with long jobs: SSS and the central match ran")
     # the sweep grids at bench_simx.py's default size, B = 4
     out["sweep"] = {}
     for name in SWEEP_RULES:
@@ -1050,7 +1180,8 @@ def main() -> int:
     phase_megha_profile(wl)
     orc = phase_oracle(wl, megha)
     swp = phase_sweep(megha)
-    phase_sweep_profile(swp.pop("_plan_megha"))
+    phase_sweep_profile(swp.pop("_plans"))
+    elong = phase_eagle_long()
     serve = phase_serve()
     phase_serve_profile()
     sdps = phase_sdps()
@@ -1067,7 +1198,10 @@ def main() -> int:
             megha=megha["kernel_launches"], oracle=orc["kernel_launches"],
             sweep=sum(r["kernel_launches"] for r in swp["rules"].values()),
             sweep_by_rule={k: r["kernel_launches"] for k, r in swp["rules"].items()},
-            pigeon=swp["rules"]["pigeon"]["kernel_launches"]),
+            pigeon=swp["rules"]["pigeon"]["kernel_launches"],
+            sparrow=swp["rules"]["sparrow"]["kernel_launches"],
+            eagle=swp["rules"]["eagle"]["kernel_launches"],
+            eagle_long=elong["kernel_launches"]),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],

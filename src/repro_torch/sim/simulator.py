@@ -4,9 +4,11 @@ Port of ``repro/sim/simulator.py``'s ``make_scheduler`` and
 ``run_simulation``, with the same signature and defaults.  Two backends:
 
   * ``backend="events"`` (the default): the discrete-event simulation of
-    ``repro_torch.core``, pure Python on the host; megha so far.
-  * ``backend="simx"``: the vectorized backend (megha and the oracle, on
-    the CUDA card unless ``device="cpu"``).
+    ``repro_torch.core``, pure Python on the host: megha, sparrow, eagle
+    and pigeon (``repro_torch.core.megha`` and ``core.baselines``).
+  * ``backend="simx"``: the vectorized backend, on the CUDA card unless
+    ``device="cpu"``: the same four schedulers plus the omniscient-oracle
+    lower bound (``repro_torch.simx``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,14 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 from repro_torch.core.base import Scheduler, grid_workers
+from repro_torch.core.baselines import (
+    Eagle,
+    EagleConfig,
+    Pigeon,
+    PigeonConfig,
+    Sparrow,
+    SparrowConfig,
+)
 from repro_torch.core.events import EventLoop
 from repro_torch.core.megha import Megha, MeghaConfig
 from repro_torch.core.metrics import RunMetrics
@@ -39,11 +49,12 @@ def make_scheduler(
             **kwargs,
         )
         return Megha(loop, metrics, cfg)
-    if name in ("sparrow", "eagle", "pigeon"):
-        raise NotImplementedError(
-            f"the event backend's {name} is not ported yet (ROADMAP.md "
-            "queue 1, items 8-9)"
-        )
+    if name == "sparrow":
+        return Sparrow(loop, metrics, SparrowConfig(num_workers=num_workers, **kwargs))
+    if name == "eagle":
+        return Eagle(loop, metrics, EagleConfig(num_workers=num_workers, **kwargs))
+    if name == "pigeon":
+        return Pigeon(loop, metrics, PigeonConfig(num_workers=num_workers, **kwargs))
     raise ValueError(f"unknown scheduler {name!r}")
 
 
@@ -60,15 +71,23 @@ def run_simulation(
 ) -> RunMetrics:
     """Run one (scheduler, workload) simulation to completion.
 
-    ``backend="events"`` drives ``make_scheduler(scheduler, ...)`` (megha;
-    kwargs ``num_gms``, ``num_lms``, ``heartbeat_interval``,
-    ``batch_limit``, ``seed``) on an ``EventLoop``; ``hooks(sched, loop)``
-    may inject imperative events before the loop drains.
+    ``backend="events"`` drives ``make_scheduler(scheduler, ...)`` on an
+    ``EventLoop``, with each scheduler's config fields as kwargs (megha:
+    ``num_gms``, ``num_lms``, ``heartbeat_interval``, ``batch_limit``,
+    ``seed``; sparrow, eagle and pigeon: the fields of ``SparrowConfig``,
+    ``EagleConfig`` and ``PigeonConfig``); ``hooks(sched, loop)`` may
+    inject imperative events before the loop drains.
 
-    ``backend="simx"`` runs ``repro_torch.simx.simulate_workload`` with the
-    scheduler kwargs (``num_gms``, ``num_lms``, ``heartbeat_interval``,
-    ``dt``, ``seed``, ``chunk``, ``use_kernel``, ``orders``, ``device``)
-    and returns its ``RunMetrics``."""
+    ``backend="simx"`` runs ``repro_torch.simx.simulate_workload`` for any
+    of its five rules (megha, sparrow, eagle, pigeon, oracle) with its
+    kwargs: megha's ``num_gms``, ``num_lms``, ``heartbeat_interval``;
+    sparrow's and eagle's ``probe_ratio``, ``reserve_cap``,
+    ``probe_window``; eagle's ``long_threshold``,
+    ``short_partition_fraction``; pigeon's ``num_distributors``,
+    ``group_size``, ``reserved_per_group``, ``weight``; and ``dt``,
+    ``seed``, ``chunk``, ``max_rounds``, ``use_kernel``, the rule's
+    ``draws`` (megha's ``orders``) and ``device``; it returns the run's
+    ``RunMetrics``."""
     if backend not in ("events", "simx"):
         raise ValueError(f"unknown backend {backend!r}")
     if faults is not None:

@@ -1,9 +1,9 @@
 """simx: the round-synchronous simulation backend, in PyTorch.
 
-Port of ``repro.simx`` for the megha, pigeon and oracle rules:
-fixed-timestep rounds over dense tensors, driven by a host loop, with
-every rule's match going through the rank-and-select kernel
-(``repro_torch.kernels``).  Select it via
+Port of ``repro.simx`` for all five rules (megha, sparrow, eagle, pigeon
+and the oracle): fixed-timestep rounds over dense tensors, driven by a
+host loop, with every rule's match going through the rank-and-select
+kernel (``repro_torch.kernels``).  Select it via
 ``repro_torch.sim.simulator.run_simulation(..., backend="simx")``; run a
 whole Fig. 2 (load x seed) grid as one batched program with
 ``fig2_sweep``.
@@ -15,61 +15,83 @@ from repro_torch.simx.engine import (
     run_to_completion,
     simulate_workload,
 )
+from repro_torch.simx.faults import jobs_with_reservation
 from repro_torch.simx.runtime import (
     RULES,
+    Draws,
     Rule,
     compose_step,
     default_match_fn,
     job_delays_from_state,
     register_rule,
+    rule_draws,
     scan_rounds,
     simulate_fixed,
 )
 from repro_torch.simx.state import (
     CoreState,
+    EagleState,
     MeghaState,
     OracleState,
     PigeonState,
+    QueueState,
     SimxConfig,
+    SparrowState,
     TaskArrays,
     export_workload,
+    init_eagle_state,
     init_megha_state,
     init_oracle_state,
     init_pigeon_state,
+    init_sparrow_state,
+    probe_edge_layout,
 )
 from repro_torch.simx.sweep import (
     SweepPlan,
+    check_probe_memory,
     fig2_plan,
     fig2_sweep,
     make_load_grid,
     point_summary,
+    probe_memory_bytes,
     sweep_grid,
 )
 
 __all__ = [
     "RULES",
+    "Draws",
     "Rule",
     "SimxRun",
     "SimxConfig",
     "TaskArrays",
     "CoreState",
+    "QueueState",
     "MeghaState",
+    "SparrowState",
+    "EagleState",
     "OracleState",
     "PigeonState",
     "SweepPlan",
+    "check_probe_memory",
     "compose_step",
     "default_match_fn",
     "estimate_rounds",
     "export_workload",
     "fig2_plan",
     "fig2_sweep",
+    "init_eagle_state",
     "init_megha_state",
     "init_oracle_state",
     "init_pigeon_state",
+    "init_sparrow_state",
     "job_delays_from_state",
+    "jobs_with_reservation",
     "make_load_grid",
     "point_summary",
+    "probe_edge_layout",
+    "probe_memory_bytes",
     "register_rule",
+    "rule_draws",
     "run_to_completion",
     "scan_rounds",
     "simulate_fixed",

@@ -1,0 +1,262 @@
+"""Eagle transition rule for the simx round-stepped backend (port of
+``repro/simx/eagle.py``, fault-free, without telemetry, provenance or the
+streaming ``EagleLayout``).
+
+Hybrid scheduling with Succinct State Sharing (SSS) and sticky batch
+probing (paper §2.2.3), over dense tensors:
+
+  * **Long path** — jobs with ``estimated >= long_threshold`` feed one
+    central FIFO over the *long partition* (workers ``[R, W)``, ``R =
+    cfg.short_reserved``).  Each round the central scheduler matches its
+    queued window onto the free long-partition workers, lowest index
+    first, with the rank-and-select primitive: one ``[B, W]`` match, the
+    kernel wrapper's wide design.
+  * **Short path** — sparrow's batch sampling with late binding over ALL
+    workers, refined by SSS at probe time: a probe landing on a worker
+    running a long task is re-routed once to a per-job rotation of its
+    target, and, if rejected again, into the short partition, which never
+    runs long tasks.
+  * **Sticky batch draining** — a worker finishing a task of job ``j``
+    pulls ``j``'s next pending task at once (no probe, no hop).
+
+Short-job reservations live in sparrow's capped per-worker queues
+(``repro_torch.simx.sparrow``); SSS is evaluated per edge at insertion.
+Whether the SSS and central stages exist is decided when the step is
+built, as in the reference: a trace with no long job (the synthetic Fig. 2
+trace, every estimate 1 s) compiles both out, and the round's only match
+is the head-of-queue pick.
+
+The reference draws the probe targets and the two re-route rotations
+(``off1``, ``off2``) with ``jax.random`` when it builds the step; here
+they are the rule's draws, an argument, drawn from a ``torch.Generator``
+(``draw``) when not fed in.  Every step is batched over grid points.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.simx import runtime as rt
+from repro_torch.simx.faults import jobs_with_reservation
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.sparrow import (
+    build_probe_edges,
+    compact_queues,
+    insert_probes,
+    job_starts,
+    late_bind,
+    probe_mask,
+    probe_targets,
+    probe_window_slice,
+    queue_head_pick,
+)
+from repro_torch.simx.state import (
+    EagleState,
+    SimxConfig,
+    TaskArrays,
+    init_eagle_state,
+    probe_edge_layout,
+)
+
+_I32, _I64 = torch.int32, torch.int64
+
+
+def eagle_probe_mask(targets: torch.Tensor, cfg: SimxConfig, tasks: TaskArrays) -> torch.Tensor:
+    """bool[J, W] — each *short* job's initial probe targets (the dense
+    ``sparrow.probe_mask`` of a target table); long-job rows are empty.
+    A dense view for tests: the rule works per edge."""
+    short = tasks.job_est < cfg.long_threshold
+    return probe_mask(targets, cfg, tasks) & short[:, None]
+
+
+def make_eagle_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    draws: dict,
+    match_fn: MatchFn | None = None,
+) -> Callable[[EagleState], EagleState]:
+    """Build the one-round transition function on ``tasks``' device.
+
+    ``draws`` holds the short jobs' probe-target table ``targets``
+    (``int32[J, kmax]``, kmax of the short jobs' edges) and the per-job
+    re-route rotations ``off1`` (in ``[0, W)``) and ``off2`` (in ``[0,
+    R)``), each with an optional leading point axis.
+
+    Round order: completions (implicit) -> queue recycling/compaction ->
+    windowed probe insertion with per-edge SSS re-routing -> sticky serve
+    (completed workers continue their previous job) -> late binding (idle
+    workers serve their queue heads, orphans rescued) -> central long
+    match -> advance the central FIFO head.  ``match_fn`` drives both the
+    narrow ``[B * W, R_q]`` pick and the wide ``[B, W]`` central match."""
+    if match_fn is None:
+        match_fn = default_match_fn()
+    dev = tasks.device
+    W, T, J = cfg.num_workers, tasks.num_tasks, tasks.num_jobs
+    R = cfg.short_reserved
+    edge_job, edge_worker, edge_end, _, C = build_probe_edges(
+        draws["targets"], cfg, tasks, short_only=True)
+    off1 = draws["off1"].to(device=dev, dtype=_I32)
+    off2 = draws["off2"].to(device=dev, dtype=_I32)
+    short_job = tasks.job_est < cfg.long_threshold                     # bool[J]
+    long_task = torch.cat([~short_job[tasks.job.to(_I64)],
+                           torch.zeros(1, dtype=torch.bool, device=dev)])   # bool[T+1]
+    job_pad = torch.cat([tasks.job, torch.full((1,), J, dtype=_I32, device=dev)])
+    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    submit = tasks.submit.reshape(-1, T)
+    submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
+    job_submit = tasks.job_submit.reshape(-1, J)
+    job_submit_pad = torch.cat([job_submit, job_submit.new_full((job_submit.shape[0], 1),
+                                                                float("inf"))], -1)
+    w_row = torch.arange(W, dtype=_I32, device=dev)
+    j_idx = torch.arange(J, dtype=_I32, device=dev)
+    job_start = job_starts(tasks)
+    job64 = tasks.job.to(_I64)
+    # central FIFO: long task ids in submit (== task id) order, + CL sentinels
+    long_ids = np.nonzero(
+        tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()] >= cfg.long_threshold)[0]
+    NL = int(long_ids.size)
+    CL = min(max(NL, 1), max(W - R, 64))
+    long_fifo = torch.from_numpy(
+        np.concatenate([long_ids, np.full(CL, T)]).astype(np.int32)).to(dev)
+    # structural, as in the reference: a trace with no long job has no SSS
+    # rejections and no central queue, so both stages are left out
+    use_sss = use_central = bool(NL)
+    long_partition = w_row >= R
+
+    def apply_launch(launch, task_pick, start, task_finish, worker_finish, worker_task):
+        return rt.apply_launch(launch, task_pick, start, dur_pad,
+                               task_finish, worker_finish, worker_task, T)
+
+    def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
+        del free, lost_w  # idleness is re-derived after the sticky launches
+        B = t.shape[0]
+        tt = t[:, None]
+        long_head = s.long_head
+        long_here = (worker_finish0 > tt) & long_task[s.worker_task.to(_I64)]   # [B,W]
+
+        # -- 0. recycle completed jobs' slots, compact the queues -----------
+        resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
+
+        # -- 1. windowed probe insertion with per-edge SSS re-routing -------
+        win_j, win_w, lead, ins, lagged = probe_window_slice(
+            edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
+        if use_sss:
+            wj = torch.clamp(win_j, 0, max(J - 1, 0))
+            rej0 = ins & rt.take(long_here, torch.clamp(win_w, 0, W - 1))
+            w1 = torch.where(rej0, (win_w + rt.take(off1, wj)) % W, win_w)
+            rej1 = rej0 & rt.take(long_here, w1)
+            wfin = torch.where(rej1, (w1 + rt.take(off2, wj)) % R, w1)
+            n_rej = (torch.sum(rej0, dim=-1, dtype=_I32)
+                     + torch.sum(rej1, dim=-1, dtype=_I32))
+        else:
+            wfin = win_w
+            n_rej = 0
+        resq, n_over = insert_probes(resq, fill, wfin, win_j, ins)
+        head = s.probe_head + lead
+        probes = s.probes + lead + n_rej
+        messages = s.messages + lead + 2 * n_rej                  # reject + resend
+
+        # -- 2. sticky batch draining: completed workers keep their job -----
+        pend_task = torch.isinf(task_finish0) & (submit <= tt)
+        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
+            -1, job64.expand(B, T), pend_task.to(_I32))
+        prev_job = job_pad[s.worker_task.to(_I64)]                # int32[B,W], J = none
+        sticky_pick = torch.where(comp & (rt.take(pending, prev_job) > 0), prev_job, J)
+        launch1, task1 = late_bind(sticky_pick, pend_task, tasks.job, job_start)
+        # the worker already holds the job's spec: no extra hops
+        task_finish, worker_finish, worker_task = apply_launch(
+            launch1, task1, t, task_finish0, worker_finish0, s.worker_task)
+
+        # -- 3. late binding: idle workers serve their queue heads ----------
+        pend_task = torch.isinf(task_finish) & (submit <= tt)
+        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
+            -1, job64.expand(B, T), pend_task.to(_I32))
+        idle = worker_finish <= tt
+        active = ((resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
+                  & idle[..., None])
+        job_pick = queue_head_pick(resq, active, match_fn, J)    # int32[B,W]
+        # orphan rescue: a pending short job with no reservation anywhere
+        orphan = (short_job & (edge_end <= head[:, None]) & (pending[:, :-1] > 0)
+                  & ~jobs_with_reservation(resq, J))
+        rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
+        job_pick = torch.where(idle, torch.minimum(job_pick, rescue[:, None]), J)
+        launch2, task2 = late_bind(job_pick, pend_task, tasks.job, job_start)
+        start = t + 3 * cfg.hop  # get-task RPC round trip + launch
+        task_finish, worker_finish, worker_task = apply_launch(
+            launch2, task2, start, task_finish, worker_finish, worker_task)
+        messages = messages + 2 * torch.sum(launch2, dim=-1, dtype=_I32)
+
+        # -- 4. central scheduler: queued long window -> free long partition
+        if use_central:
+            wtask = rt.slice_rows(long_fifo, long_head, CL)        # int32[B,CL]
+            wsub = rt.take(submit_pad, torch.clamp(wtask, max=T))
+            wsub = torch.where(wtask >= T, float("inf"), wsub)
+            launched = rt.window_launched(rt.finish_pad(task_finish), wtask, T)
+            queued = ~launched & (wsub <= tt)
+            nq = torch.sum(queued, dim=-1, dtype=_I32)             # int32[B]
+            # sticky launches punch holes mid-window: sort queued positions
+            # ahead of the CL sentinels to recover FIFO order
+            fifo = rt.sorted_fifo(queued, CL)
+            avail = (worker_finish <= tt) & long_partition          # bool[B,W]
+            ranks = match_fn(avail, nq)                              # int32[B,W]
+            sel_task = rt.select_from_window(ranks, fifo, wtask, T)
+            launch3 = sel_task < T
+            task_finish, worker_finish, worker_task = apply_launch(
+                launch3, sel_task, start, task_finish, worker_finish, worker_task)
+            messages = messages + torch.sum(launch3, dim=-1, dtype=_I32)
+            # advance the head past the launched prefix
+            launched2 = rt.window_launched(rt.finish_pad(task_finish), wtask, T)
+            long_head = torch.clamp(long_head + rt.launched_lead(launched2), max=NL)
+
+        return dict(
+            task_finish=task_finish,
+            worker_finish=worker_finish,
+            worker_task=worker_task,
+            resq=resq,
+            probe_head=head,
+            res_overflow=s.res_overflow + n_over,
+            probe_lag=s.probe_lag + lagged.to(_I32),
+            long_head=long_head,
+            messages=messages,
+            probes=probes,
+        )
+
+    return rt.compose_step(cfg, tasks, dispatch)
+
+
+def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
+    """Eagle's draws: the short jobs' probe-target table, then the per-job
+    re-route rotations, one anywhere (``off1`` in ``[0, W)``) and one into
+    the short partition (``off2`` in ``[0, R)``)."""
+    *_, kmax = probe_edge_layout(cfg, tasks, short_only=True)
+    J = tasks.num_jobs
+    return {
+        "targets": probe_targets(generator, cfg, tasks, kmax),
+        "off1": torch.randint(0, cfg.num_workers, (J,), generator=generator, dtype=_I32),
+        "off2": torch.randint(0, cfg.short_reserved, (J,), generator=generator, dtype=_I32),
+    }
+
+
+def _build_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    draws: dict,
+    *,
+    match_fn: MatchFn | None = None,
+) -> Callable[[EagleState], EagleState]:
+    return make_eagle_step(cfg, tasks, draws, match_fn)
+
+
+RULE = rt.register_rule(
+    rt.Rule(
+        name="eagle",
+        init=lambda cfg, tasks, batch=None: init_eagle_state(cfg, tasks, batch),
+        build_step=_build_step,
+        has_queues=True,
+        draw=draw,
+        draw_dims={"targets": 2, "off1": 1, "off2": 1},
+    )
+)

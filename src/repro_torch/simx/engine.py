@@ -1,5 +1,6 @@
 """simx engine: the fixed-timestep simulation driven from the host (port of
-``repro/simx/engine.py`` for the megha, pigeon and oracle rules).
+``repro/simx/engine.py``, for all five rules: megha, sparrow, eagle, pigeon
+and the oracle).
 
 The round-synchronous approximation of the event backend is the
 reference's, unchanged (see the ``repro.simx.engine`` docstring): within a
@@ -28,8 +29,10 @@ from repro_torch.device import resolve_device
 from repro_torch.simx import runtime
 
 # importing the rule modules registers them (the paper schedulers, then
-# the oracle baseline)
+# the oracle baseline), in the reference's order
 from repro_torch.simx import megha as simx_megha  # noqa: F401
+from repro_torch.simx import sparrow as simx_sparrow  # noqa: F401
+from repro_torch.simx import eagle as simx_eagle  # noqa: F401
 from repro_torch.simx import pigeon as simx_pigeon  # noqa: F401
 from repro_torch.simx import oracle as simx_oracle  # noqa: F401
 from repro_torch.simx.runtime import scan_rounds
@@ -100,7 +103,7 @@ def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays, slack: float = 4.0) -> i
 class SimxRun:
     """A finished simx simulation plus everything needed to report it.
     ``borrow_rounds`` counts the rounds that ran megha's borrow pass (each
-    one a second match launch); it is 0 for pigeon and the oracle."""
+    one a second match launch); it is 0 for the other rules."""
 
     scheduler: str
     workload_name: str
@@ -157,9 +160,19 @@ class SimxRun:
                     is_long=classify_long(ideal[j], LONG_JOB_THRESHOLD),
                 )
             )
-        # megha, pigeon and the oracle queue at the scheduling entity (a
-        # GM, a group coordinator, the oracle), never in a worker queue
-        t_job = self.tasks.job.cpu().numpy().tolist()
+        # late-binding paths queue at the worker, centrally scheduled ones
+        # at the scheduling entity; eagle splits per task: short jobs ride
+        # the probe path, long jobs the central FIFO (the event backend's
+        # d_queue_* bookkeeping)
+        t_job_np = self.tasks.job.cpu().numpy()
+        if self.scheduler == "sparrow":
+            worker_queue = np.ones(self.tasks.num_tasks, bool)
+        elif self.scheduler == "eagle":
+            worker_queue = self.tasks.job_est.cpu().numpy()[t_job_np] < self.cfg.long_threshold
+        else:
+            worker_queue = np.zeros(self.tasks.num_tasks, bool)
+        worker_queue = worker_queue.tolist()
+        t_job = t_job_np.tolist()
         t_dur = self.tasks.duration.cpu().numpy().astype(np.float64)
         t_sub = self.tasks.submit.cpu().numpy().astype(np.float64)
         t_fin_raw = self.state.task_finish.cpu().numpy().astype(np.float64)
@@ -182,7 +195,10 @@ class SimxRun:
             if started:
                 pre = max(0.0, t_start[i] - t_sub[i])
                 tr.d_comm = min(pre, hops)
-                tr.d_queue_scheduler = pre - tr.d_comm
+                if worker_queue[i]:
+                    tr.d_queue_worker = pre - tr.d_comm
+                else:
+                    tr.d_queue_scheduler = pre - tr.d_comm
             m.tasks.append(tr)
         return m
 
@@ -195,11 +211,15 @@ def simulate_workload(
     num_gms: int = 8,
     num_lms: int = 8,
     heartbeat_interval: float = 5.0,
+    probe_ratio: int = 2,
     long_threshold: float = LONG_JOB_THRESHOLD,
+    short_partition_fraction: float = 0.10,
     num_distributors: int = 5,
     group_size: int = 40,
     reserved_per_group: int = 2,
     weight: int = 4,
+    reserve_cap: int = 0,
+    probe_window: int = 0,
     dt: float = 0.05,
     seed: int = 0,
     chunk: int = 256,
@@ -207,19 +227,22 @@ def simulate_workload(
     until: Optional[float] = None,
     use_kernel: bool = True,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
     device=None,
 ) -> SimxRun:
     """Run one (scheduler, workload) simx simulation to completion on
     ``device`` (``None`` = the CUDA card).
 
-    ``scheduler`` is ``"megha"``, ``"pigeon"`` or ``"oracle"``.  ``until``
-    caps the simulated time span instead of running until all tasks
-    finish.  Pigeon's knobs carry the event backend's names and defaults
-    (``weight`` maps to ``SimxConfig.wfq_weight``).
+    ``scheduler`` is any registered rule: ``"megha"``, ``"sparrow"``,
+    ``"eagle"``, ``"pigeon"`` or ``"oracle"``.  ``until`` caps the
+    simulated time span instead of running until all tasks finish.  The
+    knobs carry the event backend's names and the reference's defaults
+    (``weight`` maps to ``SimxConfig.wfq_weight``; ``reserve_cap`` /
+    ``probe_window`` size the sparrow/eagle reservation queues, 0 = auto).
     ``use_kernel`` selects the rank-and-select kernel (the default) or its
-    plain version.  ``orders`` (int32[G, W]) are megha's per-GM priority
-    orders; without them they are drawn from a ``torch.Generator`` seeded
-    with ``seed``."""
+    plain version.  The rule's random draws are ``draws`` (a dict, e.g.
+    sparrow's ``targets``) or, for megha, ``orders`` (int32[G, W]); without
+    them they are drawn from a ``torch.Generator`` seeded with ``seed``."""
     dev = resolve_device(device)
     name = scheduler.lower()
     rule = runtime.get_rule(name)
@@ -231,17 +254,21 @@ def simulate_workload(
         num_gms=num_gms,
         num_lms=num_lms,
         heartbeat_interval=heartbeat_interval,
+        probe_ratio=probe_ratio,
         long_threshold=long_threshold,
+        short_partition_fraction=short_partition_fraction,
         num_distributors=num_distributors,
         group_size=group_size,
         reserved_per_group=reserved_per_group,
         wfq_weight=weight,
+        reserve_cap=reserve_cap,
+        probe_window=probe_window,
         dt=dt,
     )
-    generator = torch.Generator().manual_seed(seed)
+    draws = runtime.orders_as_draws(orders, draws)
     step = rule.build_step(
-        cfg, tasks, generator,
-        match_fn=runtime.default_match_fn(use_kernel), orders=orders,
+        cfg, tasks, runtime.rule_draws(rule, cfg, tasks, seed if draws is None else draws),
+        match_fn=runtime.default_match_fn(use_kernel),
     )
     state = rule.init(cfg, tasks)
     cap = max_rounds if max_rounds is not None else estimate_rounds(cfg, tasks)

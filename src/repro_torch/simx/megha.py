@@ -304,14 +304,11 @@ def make_megha_step(
 def _build_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
-    generator: torch.Generator,
+    draws: dict,
     *,
     match_fn: MatchFn | None = None,
-    orders: torch.Tensor | None = None,
 ) -> Callable[[MeghaState], MeghaState]:
-    if orders is None:
-        orders = gm_orders(generator, cfg)
-    return make_megha_step(cfg, tasks, orders, match_fn)
+    return make_megha_step(cfg, tasks, draws["orders"], match_fn)
 
 
 RULE = rt.register_rule(
@@ -321,5 +318,7 @@ RULE = rt.register_rule(
             cfg, tasks.num_tasks, tasks.device, batch),
         build_step=_build_step,
         needs_grid=True,
+        draw=lambda cfg, tasks, generator: {"orders": gm_orders(generator, cfg)},
+        draw_dims={"orders": 2},
     )
 )

@@ -95,12 +95,11 @@ def make_oracle_step(
 def _build_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
-    generator: torch.Generator,
+    draws: dict,
     *,
     match_fn: MatchFn | None = None,
-    orders: torch.Tensor | None = None,
-) -> Callable[[OracleState], OracleState]:
-    del generator, orders  # deterministic, no per-GM orders
+) -> Callable:
+    del draws  # draws nothing
     return make_oracle_step(cfg, tasks, match_fn)
 
 

@@ -218,12 +218,11 @@ def make_pigeon_step(
 def _build_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
-    generator: torch.Generator,
+    draws: dict,
     *,
     match_fn: MatchFn | None = None,
-    orders: torch.Tensor | None = None,
-) -> Callable[[PigeonState], PigeonState]:
-    del generator, orders  # static round-robin distribution, no GM orders
+) -> Callable:
+    del draws  # draws nothing
     return make_pigeon_step(cfg, tasks, match_fn)
 
 

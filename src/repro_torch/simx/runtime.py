@@ -298,21 +298,37 @@ def scan_rounds(step: Callable, state, num_rounds: int):
 # ---------------------------------------------------------------------------
 
 
+#: A rule's random draws, by name (megha's ``orders``, sparrow's probe
+#: ``targets``, eagle's ``targets``/``off1``/``off2``); each may carry a
+#: leading point axis.
+Draws = dict[str, torch.Tensor]
+
+
 @dataclass(frozen=True)
 class Rule:
     """One scheduler of the simx matrix.
 
-    ``build_step(cfg, tasks, generator, *, match_fn, orders)`` returns the
-    round step; ``init(cfg, tasks, batch)`` the fresh state on ``tasks``'
-    device, unbatched for ``batch=None`` and with ``batch`` points else.
-    ``generator`` is a ``torch.Generator`` for the rule's own random draws
-    (megha's GM orders when ``orders`` is not given); ``needs_grid`` marks
-    rules whose worker count must divide into the GM x LM grid."""
+    ``build_step(cfg, tasks, draws, *, match_fn)`` returns the round step;
+    ``init(cfg, tasks, batch)`` the fresh state on ``tasks``' device,
+    unbatched for ``batch=None`` and with ``batch`` points else.
+
+    ``draws`` holds the rule's random draws (the reference draws them with
+    ``jax.random`` when it builds the step; the port takes them as an
+    argument, so the reference's can be fed in).  ``draw(cfg, tasks,
+    generator)`` draws them from a ``torch.Generator`` (on the CPU, so a
+    run on the card and on the CPU draw alike); ``draw_dims`` names each
+    draw with its rank for one point, so a draw one rank higher carries a
+    point axis.  A rule that draws nothing has neither.  ``needs_grid``
+    marks rules whose worker count must divide into the GM x LM grid;
+    ``has_queues`` rules carry ``[W, R]`` reservation queues."""
 
     name: str
-    init: Callable[[SimxConfig, TaskArrays], Any]
+    init: Callable[..., Any]
     build_step: Callable[..., Callable]
     needs_grid: bool = False
+    has_queues: bool = False
+    draw: Callable[[SimxConfig, TaskArrays, torch.Generator], Draws] | None = None
+    draw_dims: dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 #: name -> Rule, in registration order.
@@ -336,33 +352,74 @@ def get_rule(name: str) -> Rule:
         ) from None
 
 
+def rule_draws(
+    rule: Rule,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    source: Draws | torch.Tensor | torch.Generator | int | None,
+) -> Draws:
+    """The draws a rule's step is built with, from ``source``: a dict of
+    the rule's draws as they are (fed in, e.g. the reference's), a tensor
+    for a rule with one draw (megha's orders), a ``torch.Generator`` to
+    draw them from, or an int seeding one (None: seed 0).  A rule that
+    draws nothing gets ``{}`` whatever the source."""
+    if not rule.draw_dims:
+        return {}
+    if isinstance(source, torch.Tensor):
+        if len(rule.draw_dims) != 1:
+            raise ValueError(f"{rule.name} draws {tuple(rule.draw_dims)}: pass them as a dict")
+        source = {next(iter(rule.draw_dims)): source}
+    if isinstance(source, dict):
+        if set(source) != set(rule.draw_dims):
+            raise ValueError(
+                f"{rule.name} draws {tuple(rule.draw_dims)}, got {tuple(source)}")
+        return source
+    if source is None or isinstance(source, int):
+        source = torch.Generator().manual_seed(0 if source is None else source)
+    return rule.draw(cfg, tasks, source)
+
+
+def orders_as_draws(orders: torch.Tensor | None, draws: Draws | None) -> Draws | None:
+    """Megha's ``orders=`` argument as the ``draws`` it stands for."""
+    if orders is None:
+        return draws
+    if draws is not None:
+        raise ValueError("pass megha's orders or draws, not both")
+    return {"orders": orders}
+
+
+def draws_batch(rule: Rule, draws: Draws) -> int | None:
+    """The point axis of ``draws`` (None when they are one point's)."""
+    for name, dims in rule.draw_dims.items():
+        if draws[name].dim() == dims + 1:
+            return draws[name].shape[0]
+    return None
+
+
 def simulate_fixed(
     name: str,
     cfg: SimxConfig,
     tasks: TaskArrays,
-    orders_or_generator: torch.Tensor | torch.Generator | int,
+    draws: Draws | torch.Tensor | torch.Generator | int,
     num_rounds: int,
     match_fn: MatchFn | None = None,
 ):
     """Run any registered rule exactly ``num_rounds`` rounds from a fresh
     DC, with no done probe (the reference's ``simulate_fixed``).
 
-    ``orders_or_generator`` is megha's GM orders (``int32[G, W]``, or
-    ``[B, G, W]`` one set per point), a ``torch.Generator`` to draw them
-    from, or an int seeding one (the other rules draw nothing).  The run
-    is batched when ``tasks`` carries per-point arrival times or the
-    orders a point axis, and returns a state with that leading axis;
-    otherwise the state is unbatched."""
+    ``draws`` is the rule's draws or where to draw them from
+    (``rule_draws``): megha's GM orders as a tensor (``int32[G, W]``, or
+    ``[B, G, W]`` one set per point), a dict of any rule's draws, a
+    ``torch.Generator`` or an int seeding one.  The run is batched when
+    ``tasks`` carries per-point arrival times or the draws a point axis,
+    and returns a state with that leading axis; otherwise the state is
+    unbatched."""
     rule = get_rule(name)
-    orders, generator = None, orders_or_generator
-    if isinstance(orders_or_generator, torch.Tensor):
-        orders, generator = orders_or_generator, None
-    elif isinstance(orders_or_generator, int):
-        generator = torch.Generator().manual_seed(orders_or_generator)
-    step = rule.build_step(cfg, tasks, generator, match_fn=match_fn, orders=orders)
+    draws = rule_draws(rule, cfg, tasks, draws)
+    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn)
     batch = tasks.batch
-    if batch is None and orders is not None and orders.dim() == 3:
-        batch = orders.shape[0]
+    if batch is None:
+        batch = draws_batch(rule, draws)
     return scan_rounds(step, rule.init(cfg, tasks, batch), num_rounds)
 
 

@@ -1,0 +1,428 @@
+"""Sparrow transition rule for the simx round-stepped backend (port of
+``repro/simx/sparrow.py``, without faults, telemetry, provenance or the
+streaming ``ProbeLayout``).
+
+Batch sampling + late binding (§2.2.2).  When a job of n tasks arrives it
+probes ``min(d * n, W)`` DISTINCT random workers, leaving a *reservation*
+at each.  Each round every idle worker serves the earliest-submitted job
+holding a reservation on it that still has pending tasks, and late
+binding hands it that job's next pending task.
+
+**Reservation encoding**, as in the reference: capped per-worker queues
+``resq int32[W, R]`` of job ids (J = empty), fed from a static probe edge
+list (sorted by job id == submit order) through a ``C``-wide window at
+the insertion head each round, recycled when their job completes and
+re-compacted every round, so each queue stays ascending in job id.  The
+head-of-queue pick (the earliest live reservation) is then rank-and-select
+with ``n = 1`` per worker row, through the same ``match_fn`` as every
+other rule's match: the batched kernel's narrow design at ``[B * W, R]``.
+
+The reference draws the probe targets with ``jax.random`` when it builds
+the step; here they are an argument (``targets``, the rule's draws), drawn
+from a ``torch.Generator`` by ``probe_targets`` when not fed in, so a run
+agrees with the reference's bitwise when given the reference's table and
+in distribution otherwise.  Every step is batched over grid points
+(``runtime``'s point axis); a single run is B = 1.
+
+The reference's ``mode="drop"`` scatters become scatters into a pad slot
+that is cut off; only the pad slot ever receives repeated indices, so
+every scatter is deterministic on the card.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Callable
+
+import torch
+
+from repro_torch.simx import runtime as rt
+from repro_torch.simx.faults import jobs_with_reservation
+from repro_torch.simx.runtime import MatchFn, default_match_fn
+from repro_torch.simx.state import (
+    SimxConfig,
+    SparrowState,
+    TaskArrays,
+    init_sparrow_state,
+    probe_edge_layout,
+)
+
+_I32, _I64 = torch.int32, torch.int64
+
+
+@lru_cache(maxsize=None)
+def _ones(n: int, device: torch.device) -> torch.Tensor:
+    """int32[n] of ones, the pick's per-row ``n``, made once per size."""
+    return torch.ones(n, dtype=_I32, device=device)
+
+
+def _rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of a matrix, per point: ``mat [*P, W, R]`` with ``idx
+    [*P, K]`` gives ``[*P, K, R]`` (an unbatched ``[W, R]`` takes ``[K]``)."""
+    idx = idx.to(_I64)
+    if mat.dim() == 2:
+        return mat[idx]
+    return mat[rt.point_rows(mat.shape[0], idx.dim(), mat.device), idx]
+
+
+def _scan_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive int32 prefix sums of ``x`` (bool or int32) along its last
+    axis: one scan over the flattened tensor, less each row's preceding
+    total.  Integer sums are exact, so this equals ``torch.cumsum(x, -1)``
+    while the whole tensor's sum fits in int32.  On the card PyTorch scans
+    a last axis row by row, which is slow for many short rows (the ``[B, W,
+    R]`` queues) and for a few long ones (the ``[B, T]`` pending mask); a
+    flat scan is one device-wide pass."""
+    x = x.to(_I32)
+    if x.numel() >= 1 << 31:
+        return torch.cumsum(x, dim=-1, dtype=_I32)
+    flat = torch.cumsum(x.reshape(-1), dim=0, dtype=_I32).reshape(x.shape)
+    return flat - (flat[..., :1] - x[..., :1])
+
+
+def _rank_within_groups(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(order, rank)``: the stable ascending order of ``keys`` along the
+    last axis, and each entry's rank among the entries of equal key that
+    come before it (the reference's stable ``argsort`` plus a
+    first-occurrence ``searchsorted``)."""
+    n = keys.shape[-1]
+    order = torch.sort(keys, dim=-1, stable=True).indices
+    sk = torch.gather(keys, -1, order)
+    first = torch.searchsorted(sk, sk, side="left").to(_I32)
+    row = torch.arange(n, dtype=_I32, device=keys.device)
+    return order, torch.zeros_like(keys).scatter(-1, order, row - first)
+
+
+def late_bind(
+    job_pick: torch.Tensor, pend_task: torch.Tensor, job: torch.Tensor, job_start: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Late-binding core shared by the sparrow and eagle rules: worker
+    ``w`` serves job ``job_pick[w]`` (J = no claim); the k-th serving
+    worker of job j (worker-index order, capped at j's pending count) gets
+    j's k-th pending task.  Tasks are contiguous per job (``job_start``
+    the first task of each job), so one cumsum over ``pend_task`` gives
+    the within-job pending ranks.  ``job_pick int32[..., W]`` and
+    ``pend_task bool[..., T]`` share their leading (point) axes.  Returns
+    ``(launch bool[..., W], task int32[..., W])`` with T meaning none."""
+    T, W, J = job.shape[0], job_pick.shape[-1], job_start.shape[0]
+    dev = job_pick.device
+    lead = pend_task.shape[:-1]
+    job64 = job.to(_I64)
+    pend_i = pend_task.to(_I32)
+    pending = torch.zeros(lead + (J,), dtype=_I32, device=dev).scatter_add(
+        -1, job64.expand(lead + (T,)), pend_i)
+    c = _scan_rows(pend_i)
+    base = torch.where(job_start > 0, c[..., torch.clamp(job_start - 1, min=0).to(_I64)], 0)
+    prank = c - 1 - base[..., job64]                                   # int32[..., T]
+    # (job, rank) -> task: job j's r-th pending task at job_start[j] + r;
+    # tasks that are not pending write the pad slot T, cut off
+    dest = torch.where(pend_task, job_start[job64] + prank, T).to(_I64)
+    t_row = torch.arange(T, dtype=_I32, device=dev).expand(lead + (T,))
+    slot = torch.full(lead + (T + 1,), T, dtype=_I32, device=dev).scatter(
+        -1, dest, t_row)[..., :T]
+    _, rank = _rank_within_groups(job_pick)
+    jp = torch.clamp(job_pick, 0, J - 1)
+    serve = (job_pick < J) & (rank < rt.take(pending, jp))
+    pos = job_start[jp.to(_I64)] + rank
+    task_pick = torch.where(serve, rt.take(slot, torch.clamp(pos, 0, T - 1)), T)
+    return serve, task_pick
+
+
+def probe_targets(
+    generator: torch.Generator, cfg: SimxConfig, tasks: TaskArrays, kmax: int
+) -> torch.Tensor:
+    """int32[J, kmax] (on the CPU) — per-job probe targets: row j's first
+    k_j entries are a uniform ordered sample of k_j DISTINCT workers (the
+    kmax largest of W uniform scores, in descending order of score).
+
+    The reference draws the scores with ``jax.random``; here they come
+    from ``generator`` in the same chunks of ``(1 << 21) // W`` rows (a
+    transient ``[chunk, W]`` score buffer of a few MB), so the two agree
+    in distribution only.  Parity runs feed the reference's table in."""
+    J, W = tasks.num_jobs, cfg.num_workers
+    if kmax <= 0 or J == 0:
+        return torch.zeros((J, max(kmax, 0)), dtype=_I32)
+    chunk = int(max(1, min(J, (1 << 21) // max(W, 1))))
+    rows = []
+    for _ in range(-(-J // chunk)):
+        scores = torch.rand((chunk, W), generator=generator)
+        rows.append(torch.topk(scores, kmax, dim=1).indices.to(_I32))
+    return torch.cat(rows)[:J]
+
+
+def probe_mask(targets: torch.Tensor, cfg: SimxConfig, tasks: TaskArrays) -> torch.Tensor:
+    """bool[J, W] — the min(d * n_tasks, W) DISTINCT workers each job
+    probes: the dense view of a target table ``targets int32[J, kmax]``
+    (one scatter), kept for tests; the rules never build it."""
+    J, W = tasks.num_jobs, cfg.num_workers
+    targets = targets.to(tasks.device)
+    kvec = torch.clamp(cfg.probe_ratio * tasks.job_ntasks, max=W)
+    kmax = targets.shape[-1]
+    keep = torch.arange(kmax, device=tasks.device)[None, :] < kvec[:, None]
+    idx = torch.where(keep, targets, W).to(_I64)
+    mask = torch.zeros((J, W + 1), dtype=torch.bool, device=tasks.device)
+    return mask.scatter(1, idx, True)[:, :W]
+
+
+def build_probe_edges(
+    targets: torch.Tensor, cfg: SimxConfig, tasks: TaskArrays, short_only: bool = False
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int, int]:
+    """The flat probe edge list the windowed insertion walks, on
+    ``tasks``' device: the target table (``int32[J, kmax]``, or ``[B, J,
+    kmax]`` one per point) gathered through ``probe_edge_layout``, the job
+    and worker lists padded by the window width C so the head window never
+    leaves them at head == P (pad edges carry job J and never arrive).
+    Returns ``(edge_job int32[P+C], edge_worker int32[..., P+C],
+    edge_end int32[J], P, C)``."""
+    J, dev = tasks.num_jobs, tasks.device
+    edge_job_np, edge_rank_np, edge_end_np, kmax = probe_edge_layout(
+        cfg, tasks, short_only=short_only)
+    if tuple(targets.shape[-2:]) != (J, kmax):
+        raise ValueError(
+            f"probe targets must be [{J}, {kmax}] (or with a point axis), "
+            f"got {tuple(targets.shape)}")
+    P = int(edge_job_np.size)
+    C = cfg.insert_window(P, kmax)
+    targets = targets.to(device=dev, dtype=_I32)
+    lead = targets.shape[:-2]
+    workers = targets[..., torch.from_numpy(edge_job_np).to(dev, _I64),
+                      torch.from_numpy(edge_rank_np).to(dev, _I64)]       # [..., P]
+    edge_worker = torch.cat([workers, workers.new_zeros(lead + (C,))], -1)
+    edge_job = torch.cat([
+        torch.from_numpy(edge_job_np).to(dev),
+        torch.full((C,), J, dtype=_I32, device=dev),
+    ])
+    return edge_job, edge_worker, torch.from_numpy(edge_end_np).to(dev), P, C
+
+
+def probe_window_slice(
+    edge_job: torch.Tensor,
+    edge_worker: torch.Tensor,
+    head: torch.Tensor,
+    window: int,
+    job_submit_pad: torch.Tensor,
+    t: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One round's view of the edge list: the ``window`` edges at ``head``
+    and their ready prefix.  Submit times are sorted by job id, so
+    readiness is a prefix: ``lead`` edges insert this round and the head
+    advances by it.  Returns ``(win_job, win_worker, lead, ins mask,
+    lagged)``, where ``lagged`` means a ready edge was left beyond the
+    full window (an exact fit is not lag).  ``head`` and ``t`` are one per
+    point (``[B]``, or scalars), ``job_submit_pad`` ``[J + 1]`` or one row
+    per point, the edge lists shared or one row per point."""
+    J = job_submit_pad.shape[-1] - 1
+    win_j = rt.slice_rows(edge_job, head, window)
+    win_w = rt.slice_rows(edge_worker, head, window)
+    ready = rt.take(job_submit_pad, torch.clamp(win_j, max=J)) <= rt.lift(t, win_j)
+    lead = torch.sum(torch.cumprod(ready.to(_I32), dim=-1, dtype=_I32), dim=-1, dtype=_I32)
+    ins = torch.arange(window, dtype=_I32, device=win_j.device) < lead[..., None]
+    # the first edge past the window: pad edges read as never ready, so a
+    # clamped gather is safe at the tail of the list
+    nxt = edge_job[torch.clamp(head + window, max=edge_job.shape[-1] - 1).to(_I64)]
+    lagged = (lead == window) & (rt.take(job_submit_pad, torch.clamp(nxt, max=J)) <= t)
+    return win_j, win_w, lead, ins, lagged
+
+
+def insert_probes(
+    resq: torch.Tensor,
+    fill: torch.Tensor,
+    targets: torch.Tensor,
+    jobs: torch.Tensor,
+    ins: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter this round's probe edges into the per-worker queues.
+
+    ``targets``/``jobs`` are the window's edge targets and job ids
+    (``[..., C]``), ``ins`` masks the ready prefix, ``fill [..., W]`` the
+    live entries of each queue ``resq [..., W, R]``.  A probe landing
+    where the same job already holds (or this round gains) a reservation
+    merges into one entry; kept edges are appended after each queue's
+    live entries, same-round edges aimed at one worker in window order (a
+    stable sort by target), and edges whose slot lands past R are dropped
+    and counted.  Returns ``(resq, n_overflow)``.  One sentinel catches
+    both drops of the reference's scatter (target W, slot >= R): a flat
+    index into ``W * R + 1`` slots, the last cut off."""
+    W, R = resq.shape[-2:]
+    C = targets.shape[-1]
+    lead = targets.shape[:-1]
+    tw0 = torch.where(ins, targets, W)
+    # same-round duplicates: the stable target sort keeps ascending job
+    # order within each target group, so (job, target) repeats are adjacent
+    o0 = torch.sort(tw0, dim=-1, stable=True).indices
+    st0, sj0 = torch.gather(tw0, -1, o0), torch.gather(jobs, -1, o0)
+    dup_s = (st0 == torch.roll(st0, 1, -1)) & (sj0 == torch.roll(sj0, 1, -1))
+    dup_s[..., 0] = False
+    dup = torch.zeros(lead + (C,), dtype=torch.bool, device=resq.device).scatter(-1, o0, dup_s)
+    # earlier-round duplicates: the job already queued on this worker
+    held = torch.any(_rows(resq, torch.clamp(tw0, 0, W - 1)) == jobs[..., None], dim=-1)
+    keep = ins & ~dup & ~held
+    tw = torch.where(keep, targets, W)
+    _, rank = _rank_within_groups(tw)
+    slot = rt.take(fill, torch.clamp(tw, 0, W - 1)) + rank
+    flat_idx = torch.where((tw < W) & (slot < R), tw * R + slot, W * R).to(_I64)
+    flat = torch.cat([resq.reshape(lead + (W * R,)), resq.new_zeros(lead + (1,))], -1)
+    resq = flat.scatter(-1, flat_idx, jobs)[..., : W * R].reshape(resq.shape)
+    return resq, torch.sum(keep & (slot >= R), dim=-1, dtype=_I32)
+
+
+def compact_queues(
+    resq: torch.Tensor,
+    task_finish: torch.Tensor,
+    job: torch.Tensor,
+    t: torch.Tensor,
+    num_jobs: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Recycle the queue slots of completed jobs and re-compact each queue.
+
+    An entry lives while its job still has an unfinished task (launched
+    but running included); live entries slide to the front in order, dead
+    ones go to the pad column R, cut off.  Returns ``(resq, fill
+    int32[..., W])``."""
+    R = resq.shape[-1]
+    lead = task_finish.shape[:-1]
+    T = job.shape[0]
+    unfinished = torch.zeros(lead + (num_jobs + 1,), dtype=_I32, device=resq.device)
+    unfinished = unfinished.scatter_add(
+        -1, job.to(_I64).expand(lead + (T,)),
+        (task_finish > rt.lift(t, task_finish)).to(_I32))
+    live = (resq < num_jobs) & (rt.take(unfinished, torch.clamp(resq, max=num_jobs)) > 0)
+    pos = _scan_rows(live) - 1
+    out = torch.full(resq.shape[:-1] + (R + 1,), num_jobs, dtype=_I32, device=resq.device)
+    out = out.scatter(-1, torch.where(live, pos, R).to(_I64), resq)[..., :R]
+    return out, torch.sum(live, dim=-1, dtype=_I32)
+
+
+def queue_head_pick(
+    resq: torch.Tensor, active: torch.Tensor, match_fn: MatchFn, num_jobs: int
+) -> torch.Tensor:
+    """int32[..., W] — each worker's head-of-queue job (J = none): the
+    first active entry of its compacted, job-id-ordered queue.
+
+    Rank-and-select with ``n = 1`` per worker row, through ``match_fn``
+    over the queues flattened to ``[B * W, R]`` rows (the kernel
+    wrapper's narrow design: a warp per ``256 // R`` whole rows).  The
+    reference's ``argmax`` over bool becomes one over uint8 (the card has
+    no bool ``argmax``); its first-maximum rule is the same."""
+    R = resq.shape[-1]
+    rows = active.reshape(-1, R)
+    ranks = match_fn(rows, _ones(rows.shape[0], rows.device)).reshape(resq.shape)
+    picked = ranks == 0
+    slot = torch.argmax(picked.to(torch.uint8), dim=-1, keepdim=True)
+    head = torch.gather(resq, -1, slot)[..., 0]
+    return torch.where(torch.any(picked, dim=-1), head, num_jobs)
+
+
+def job_starts(tasks: TaskArrays) -> torch.Tensor:
+    """int32[J] — each job's first task (tasks are exported contiguously
+    per job)."""
+    csum = torch.cumsum(tasks.job_ntasks, dim=0, dtype=_I32)
+    return torch.cat([csum.new_zeros(1), csum[:-1]])
+
+
+def make_sparrow_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    targets: torch.Tensor,
+    match_fn: MatchFn | None = None,
+) -> Callable[[SparrowState], SparrowState]:
+    """Build the one-round transition function on ``tasks``' device.
+
+    ``targets`` is the probe-target table (``int32[J, kmax]``, or ``[B,
+    J, kmax]`` one per point).  Round order: queue recycling/compaction ->
+    windowed probe insertion -> late binding (idle workers serve their
+    queue heads; an inserted pending job with no reservation anywhere, all
+    its probes dropped on full queues, is served by any idle worker: the
+    orphan rescue).  The step is batched over grid points."""
+    if match_fn is None:
+        match_fn = default_match_fn()
+    dev = tasks.device
+    T, J = tasks.num_tasks, tasks.num_jobs
+    edge_job, edge_worker, edge_end, _, C = build_probe_edges(targets, cfg, tasks)
+    # one row of arrival times per grid point (or one shared row)
+    submit = tasks.submit.reshape(-1, T)
+    job_submit = tasks.job_submit.reshape(-1, J)
+    job_submit_pad = torch.cat([job_submit, job_submit.new_full((job_submit.shape[0], 1),
+                                                                float("inf"))], -1)
+    j_idx = torch.arange(J, dtype=_I32, device=dev)
+    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    job_start = job_starts(tasks)
+    job64 = tasks.job.to(_I64)
+
+    def dispatch(s, t, task_finish0, worker_finish0, idle, comp, lost_w):
+        # completions are implicit (a worker is idle iff worker_finish <=
+        # t) and task_finish was recorded at launch
+        del comp, lost_w
+        B = t.shape[0]
+
+        # -- 0. recycle completed jobs' slots, compact the queues -----------
+        resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
+
+        # -- 1. windowed probe insertion (edge list is in arrival order) ----
+        win_j, win_w, lead, ins, lagged = probe_window_slice(
+            edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
+        resq, n_over = insert_probes(resq, fill, win_w, win_j, ins)
+        head = s.probe_head + lead
+        # every probe RPC counts (and costs a message), kept or dropped
+        messages = s.messages + lead
+
+        # -- 2. late binding: idle workers serve their queue heads ----------
+        pend_task = torch.isinf(task_finish0) & (submit <= t[:, None])     # bool[B,T]
+        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
+            -1, job64.expand(B, T), pend_task.to(_I32))
+        active = (resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
+        job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
+        # orphan rescue: an inserted pending job with no reservation left
+        orphan = ((edge_end <= head[:, None]) & (pending[:, :-1] > 0)
+                  & ~jobs_with_reservation(resq, J))
+        rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
+        job_pick = torch.minimum(job_pick, rescue[:, None])
+        launch, task_pick = late_bind(
+            torch.where(idle, job_pick, J), pend_task, tasks.job, job_start)
+        # client->scheduler hop + worker->scheduler get-task RPC round trip
+        task_finish, worker_finish, worker_task = rt.apply_launch(
+            launch, task_pick, t + 3 * cfg.hop, dur_pad,
+            task_finish0, worker_finish0, s.worker_task, T)
+        messages = messages + 2 * torch.sum(launch, dim=-1, dtype=_I32)  # RPC + reply
+
+        return dict(
+            task_finish=task_finish,
+            worker_finish=worker_finish,
+            worker_task=worker_task,
+            resq=resq,
+            probe_head=head,
+            res_overflow=s.res_overflow + n_over,
+            probe_lag=s.probe_lag + lagged.to(_I32),
+            probes=s.probes + lead,
+            messages=messages,
+        )
+
+    return rt.compose_step(cfg, tasks, dispatch)
+
+
+def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
+    """Sparrow's draws: the probe-target table (``probe_targets``)."""
+    *_, kmax = probe_edge_layout(cfg, tasks)
+    return {"targets": probe_targets(generator, cfg, tasks, kmax)}
+
+
+def _build_step(
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    draws: dict,
+    *,
+    match_fn: MatchFn | None = None,
+) -> Callable[[SparrowState], SparrowState]:
+    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn)
+
+
+RULE = rt.register_rule(
+    rt.Rule(
+        name="sparrow",
+        init=lambda cfg, tasks, batch=None: init_sparrow_state(cfg, tasks, batch),
+        build_step=_build_step,
+        has_queues=True,
+        draw=draw,
+        draw_dims={"targets": 2},
+    )
+)

@@ -1,15 +1,17 @@
 """Dense-tensor datacenter state for the simx backend (port of
-``repro/simx/state.py``, the megha, pigeon and oracle parts).
+``repro/simx/state.py``).
 
   * ``TaskArrays``  — the workload exported to flat per-task/per-job
                       tensors (tasks sorted by job submission time, so task
                       index order == FIFO arrival order).
-  * ``SimxConfig``  — static simulation parameters.
+  * ``SimxConfig``  — static simulation parameters, with the reference's
+                      auto rules for the sparrow/eagle queue sizes.
   * ``CoreState``   — the round-carry base every rule shares: simulated
                       time, per-task lifecycle, per-worker run state and
-                      the metric counters.
-  * ``MeghaState`` / ``PigeonState`` / ``OracleState`` — ``CoreState``
-                      plus each rule's own fields.
+                      the metric counters.  ``QueueState`` extends it with
+                      the sparrow/eagle reservation-queue fields.
+  * ``MeghaState`` / ``SparrowState`` / ``EagleState`` / ``PigeonState`` /
+    ``OracleState`` — ``CoreState`` plus each rule's own fields.
 
 A sweep grid runs B points at once (``repro_torch.simx.sweep``): its
 state carries a leading axis of B points on every field (the specs below
@@ -33,6 +35,7 @@ duration`` is recorded at launch, so
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -120,9 +123,9 @@ def export_workload(wl: Workload, device: str | torch.device) -> TaskArrays:
 
 @dataclass(frozen=True)
 class SimxConfig:
-    """Static simulation parameters of the megha, pigeon and oracle rules
-    (the reference's fields for sparrow and eagle come with their slice;
-    its ``match_window`` override, which no caller sets, is not carried)."""
+    """Static simulation parameters (the reference's, without its
+    ``match_window`` override, which no caller sets, and its ``seed``: the
+    port's rules take their draws as an argument)."""
 
     num_workers: int
     num_gms: int = 8
@@ -130,12 +133,20 @@ class SimxConfig:
     dt: float = 0.05                 # round length (seconds of simulated time)
     heartbeat_interval: float = 5.0  # §4.1
     hop: float = 0.0005              # §4.1 constant network delay
+    probe_ratio: int = 2             # sparrow/eagle's d
+    # eagle (§2.2.3): estimate-based short/long split + reserved short slice
     long_threshold: float = 10.0     # core.base.LONG_JOB_THRESHOLD
+    short_partition_fraction: float = 0.10
     # pigeon (§2.2.4): fixed worker groups + weighted fair queuing
     num_distributors: int = 5
     group_size: int = 40
     reserved_per_group: int = 2      # high-priority-only workers per group
     wfq_weight: int = 4              # one low-priority task per `weight` high
+    # sparrow/eagle capped per-worker reservation queues: queue slots per
+    # worker and probe-insertion window width; 0 = auto (queue_cap and
+    # insert_window)
+    reserve_cap: int = 0
+    probe_window: int = 0
 
     def validate_megha_grid(self) -> None:
         """Megha needs the GM x LM partition grid to divide evenly."""
@@ -160,12 +171,64 @@ class SimxConfig:
         remainder."""
         return max(1, self.num_workers // self.group_size)
 
+    @property
+    def short_reserved(self) -> int:
+        """Workers [0, short_reserved) only ever run short tasks (Eagle's
+        short partition)."""
+        return max(1, int(self.num_workers * self.short_partition_fraction))
+
+    def queue_cap(self, num_edges: int) -> int:
+        """R — reservation-queue slots per worker.  Auto (``reserve_cap ==
+        0``): twice the average number of probes a worker receives over
+        the whole trace, floored at 8 and capped at 64; a full queue drops
+        the probe into ``res_overflow`` and orphan rescue keeps the job
+        schedulable."""
+        if self.reserve_cap:
+            return int(self.reserve_cap)
+        avg = math.ceil(num_edges / max(self.num_workers, 1))
+        return int(min(max(8, 2 * avg), 64))
+
+    def insert_window(self, num_edges: int, kmax: int) -> int:
+        """C — probe edges examined per round by the windowed insertion.
+        Auto (``probe_window == 0``): at least four max-size jobs' worth of
+        probes plus 1/32nd of the edge list, so a whole-trace burst drains
+        in about 32 rounds; a saturated round counts in ``probe_lag``."""
+        if num_edges <= 0:
+            return 1
+        if self.probe_window:
+            return int(min(self.probe_window, num_edges))
+        return int(min(num_edges, max(256, 4 * kmax, math.ceil(num_edges / 32))))
+
     def partition_gms(self, device: str | torch.device) -> torch.Tensor:
         """int32[W] — which GM owns each worker's partition."""
         w = np.arange(self.num_workers)
         return torch.from_numpy(
             ((w % self.workers_per_lm) // self.partition_size).astype(np.int32)
         ).to(device)
+
+
+def probe_edge_layout(
+    cfg: SimxConfig, tasks: TaskArrays, short_only: bool = False
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The probe *edge list*, in numpy and structural only: every (job,
+    probe) pair the trace will ever send, sorted by job id (== submit
+    order, so arrival readiness is a prefix of the list).
+
+    Job j contributes ``k_j = min(probe_ratio * n_tasks_j, W)`` edges
+    (``short_only`` zeroes the long jobs, for eagle).  Returns
+    ``(edge_job int32[P], edge_rank int32[P], edge_end int32[J], kmax)``:
+    ``edge_rank`` is the probe's column in the job's target table and
+    ``edge_end[j]`` the exclusive end of j's edges."""
+    n = tasks.job_ntasks.cpu().numpy().astype(np.int64)
+    k = np.minimum(cfg.probe_ratio * n, cfg.num_workers)
+    if short_only:
+        k = np.where(tasks.job_est.cpu().numpy() < cfg.long_threshold, k, 0)
+    edge_job = np.repeat(np.arange(n.size, dtype=np.int32), k)
+    edge_end = np.cumsum(k)
+    starts = (edge_end - k)[edge_job]
+    edge_rank = (np.arange(edge_job.size) - starts).astype(np.int32)
+    kmax = int(k.max()) if k.size else 0
+    return edge_job, edge_rank, edge_end.astype(np.int32), kmax
 
 
 def _lead(batch: int | None) -> tuple:
@@ -215,6 +278,19 @@ class CoreState:
 
 
 @dataclass(frozen=True)
+class QueueState(CoreState):
+    """``CoreState`` plus the capped per-worker reservation-queue fields
+    shared by the sparrow and eagle rules."""
+
+    resq: torch.Tensor = spec("int32[W, R]")   # reservation queues (J = empty),
+                              # compacted each round, ascending job id
+    probe_head: torch.Tensor = spec("int32[]")  # inserted edge-list prefix
+    res_overflow: torch.Tensor = spec("int32[]")  # probes dropped on full queues
+    probe_lag: torch.Tensor = spec("int32[]")  # rounds the insertion window
+                              # saturated (arrival burst outran it)
+
+
+@dataclass(frozen=True)
 class MeghaState(CoreState):
     """Round carry of the megha rule."""
 
@@ -234,6 +310,53 @@ def init_megha_state(
         worker_borrowed=torch.zeros(b + (w,), dtype=torch.bool, device=device),
         view=torch.ones(b + (g, w), dtype=torch.bool, device=device),
         **_common_fields(cfg, num_tasks, device, batch),
+    )
+
+
+@dataclass(frozen=True)
+class SparrowState(QueueState):
+    """Round carry of the sparrow rule: the capped queues ``resq``
+    (``int32[W, R]`` of job ids, J = empty, O(W) whatever the trace's
+    length) and the insertion head into the static probe edge list."""
+
+
+@dataclass(frozen=True)
+class EagleState(QueueState):
+    """Round carry of the eagle rule: the sparrow queue fields (``resq``
+    holds the short-job reservations, after SSS re-routing) plus the
+    central long-FIFO head."""
+
+    long_head: torch.Tensor = spec("int32[]")  # launched central-FIFO prefix
+
+
+def _queue_fields(cfg: SimxConfig, tasks: TaskArrays, short_only: bool, batch) -> dict:
+    """The ``QueueState`` fields of a fresh DC: empty queues of
+    ``queue_cap`` slots, sized off the trace's edge count."""
+    *_, edge_end, _kmax = probe_edge_layout(cfg, tasks, short_only=short_only)
+    cap = cfg.queue_cap(int(edge_end[-1]) if tasks.num_jobs else 0)
+    b = _lead(batch)
+    i32 = dict(dtype=torch.int32, device=tasks.device)
+    return dict(
+        resq=torch.full(b + (cfg.num_workers, cap), tasks.num_jobs, **i32),
+        probe_head=torch.zeros(b, **i32),
+        res_overflow=torch.zeros(b, **i32),
+        probe_lag=torch.zeros(b, **i32),
+        **_common_fields(cfg, tasks.num_tasks, tasks.device, batch),
+    )
+
+
+def init_sparrow_state(
+    cfg: SimxConfig, tasks: TaskArrays, batch: int | None = None
+) -> SparrowState:
+    return SparrowState(**_queue_fields(cfg, tasks, False, batch))
+
+
+def init_eagle_state(
+    cfg: SimxConfig, tasks: TaskArrays, batch: int | None = None
+) -> EagleState:
+    return EagleState(
+        long_head=torch.zeros(_lead(batch), dtype=torch.int32, device=tasks.device),
+        **_queue_fields(cfg, tasks, True, batch),
     )
 
 

@@ -5,8 +5,9 @@ The paper's headline comparison sweeps scheduler x load at a fixed DC size
 and reports p50/p95 job delay per point.  For the synthetic trace, load
 only rescales inter-arrival times (same jobs, same tasks, same durations),
 so every grid point shares one ``TaskArrays`` *structure* and differs only
-in the ``submit`` / ``job_submit`` arrays (and, for megha, in the GM
-orders its seed draws):
+in the ``submit`` / ``job_submit`` arrays (and in the random draws of its
+seed: megha's GM orders, sparrow's and eagle's probe targets and eagle's
+re-route rotations):
 
     grid = sweep_grid("megha", cfg, tasks, submit_g, job_submit_g, seeds, R)
     grid["p50"]   # float32[L, S] — one percentile per (load, seed) point
@@ -20,14 +21,16 @@ over the B points' rows.  Percentiles are reduced on the device
 (``point_summary``), so a 50k-worker grid never builds per-task records on
 the host.
 
-Left out, with their slices: Fig. 4 (``fig4_sweep``, ROADMAP item 7), the
-probe-memory guard of sparrow and eagle (item 9), provenance columns
-(item 10) and the sharded executor (item 12).
+Sparrow and eagle grids are guarded by the reference's probe-memory
+pre-flight (``check_probe_memory``).  Left out, with their slices: Fig. 4
+(``fig4_sweep``, ROADMAP item 7), provenance columns (item 10) and the
+sharded executor (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,20 +39,11 @@ import torch
 from repro_torch.core.base import grid_workers
 from repro_torch.device import resolve_device
 from repro_torch.simx import engine, runtime
-from repro_torch.simx.megha import gm_orders
 from repro_torch.simx.runtime import MatchFn, default_match_fn
-from repro_torch.simx.state import SimxConfig, TaskArrays, export_workload
+from repro_torch.simx.state import QueueState, SimxConfig, TaskArrays, export_workload
 from repro_torch.workload.synth import synthetic_trace
 
-#: the reference's rules that the port has not brought over yet
-_NOT_PORTED = ("sparrow", "eagle")
-
-
-def _check_ported(name: str) -> None:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} on simx is not ported yet (ROADMAP.md queue 1, item 9)"
-        )
+log = logging.getLogger(__name__)
 
 
 def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
@@ -59,7 +53,9 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
     job-delay reduction), completion counts, the crash-loss counter, mean
     worker utilisation, control messages and probes, the inconsistency
     count and its per-task rate, and the reservation-queue counters
-    (literal zeros: no ported rule has queues).
+    ``res_overflow`` and ``probe_lag`` of a ``QueueState`` (a nonzero
+    value flags a point distorted by a too-small ``reserve_cap`` /
+    ``probe_window``; rules without queues report zeros).
 
     A batched state gives one value per point (``[B]``).  ``mean_util`` is
     exact in closed form: each launched task occupied its worker for
@@ -79,6 +75,7 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
         tasks.duration,
     )
     W = state.worker_finish.shape[-1]
+    has_queues = isinstance(state, QueueState)
     zero = torch.zeros_like(state.lost)
     return {
         "p50": torch.nanquantile(delays, 0.5, dim=-1),
@@ -94,9 +91,64 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
         "inconsistency_rate": state.inconsistencies.to(torch.float32)
         / torch.tensor(float(max(tasks.num_tasks, 1)), dtype=torch.float32,
                        device=state.lost.device),
-        "res_overflow": zero,
-        "probe_lag": zero,
+        "res_overflow": state.res_overflow if has_queues else zero,
+        "probe_lag": state.probe_lag if has_queues else zero,
     }
+
+
+def probe_memory_bytes(
+    scheduler: str,
+    num_jobs: int,
+    num_workers: int,
+    n_points: int,
+    tasks_per_job: int = 1000,
+    probe_ratio: int = 2,
+    reserve_cap: int = 0,
+) -> int:
+    """Estimated peak bytes of reservation-queue probe state a grid holds
+    (the reference's estimate, unchanged); 0 for rules without queues.
+
+    Per point: the carried ``int32[W, R]`` queue plus its per-round
+    compaction/scatter intermediates (about 3 int32 copies), and the
+    static probe-edge constants, O(d * T) int32."""
+    rule = runtime.RULES.get(scheduler.lower())
+    if rule is None or not rule.has_queues:
+        return 0
+    num_edges = num_jobs * min(probe_ratio * tasks_per_job, num_workers)
+    cap = SimxConfig(
+        num_workers=num_workers, probe_ratio=probe_ratio, reserve_cap=reserve_cap
+    ).queue_cap(num_edges)
+    per_point = 12 * num_workers * cap + 8 * num_edges
+    return per_point * n_points
+
+
+def check_probe_memory(
+    scheduler: str,
+    num_jobs: int,
+    num_workers: int,
+    n_points: int,
+    limit_bytes: Optional[float],
+    **kw,
+) -> int:
+    """Log the reservation-queue memory estimate and fail fast when it
+    exceeds ``limit_bytes`` (None disables), before any state is built."""
+    est = probe_memory_bytes(scheduler, num_jobs, num_workers, n_points, **kw)
+    if not est:
+        return est
+    log.info(
+        "%s grid: ~%.1f MiB reservation-queue state (J=%d, W=%d) across %d points",
+        scheduler, est / 2**20, num_jobs, num_workers, n_points,
+    )
+    if limit_bytes is not None and est > limit_bytes:
+        raise RuntimeError(
+            f"{scheduler} sweep needs ~{est / 2**30:.2f} GiB of "
+            f"reservation-queue state (J={num_jobs}, W={num_workers}) over "
+            f"{n_points} grid points, above the {limit_bytes / 2**30:.2f} GiB "
+            "limit. Shrink the grid (fewer loads/seeds per call), lower "
+            "reserve_cap, or raise mem_limit_gb if the device really has the "
+            "memory. megha/pigeon/oracle carry no probe state."
+        )
+    return est
 
 
 def make_load_grid(
@@ -138,6 +190,32 @@ def make_load_grid(
     return template, torch.stack(submit), torch.stack(job_submit)
 
 
+def seed_draws(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    seeds: Sequence[int],
+    draws: Optional[dict] = None,
+) -> dict:
+    """A grid's draws, one per seed (each ``[S, ...]``, on the CPU unless
+    fed in): ``draws`` checked against the rule's, or each seed ``s`` drawn
+    from ``torch.Generator().manual_seed(s)``, the draws
+    ``simulate_workload(seed=s)`` makes."""
+    rule = runtime.get_rule(scheduler)
+    S = len(seeds)
+    if draws is None:
+        per_seed = [runtime.rule_draws(rule, cfg, tasks, s) for s in seeds]
+        draws = {k: torch.stack([d[k] for d in per_seed]) for k in rule.draw_dims}
+    elif set(draws) != set(rule.draw_dims):
+        raise ValueError(f"{rule.name} draws {tuple(rule.draw_dims)}, got {tuple(draws)}")
+    for k, dims in rule.draw_dims.items():
+        if draws[k].dim() != dims + 1 or draws[k].shape[0] != S:
+            raise ValueError(
+                f"{rule.name}'s {k} must carry a leading axis of {S} seeds, "
+                f"got {tuple(draws[k].shape)}")
+    return draws
+
+
 def build_grid(
     scheduler: str,
     cfg: SimxConfig,
@@ -147,17 +225,18 @@ def build_grid(
     seeds: Sequence[int],
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
 ):
     """The grid as one batched run, not yet advanced: ``(step, state,
     tasks)`` with B = L x S points, point ``b`` = (load ``b // S``, seed
     ``b % S``), and ``tasks`` carrying each point's arrival times.
 
-    Megha's seed ``s`` uses ``orders[s]`` (``int32[S, G, W]``) when given,
-    else ``gm_orders(torch.Generator().manual_seed(s), cfg)``, the orders
-    ``simulate_workload(seed=s)`` draws.  The other rules draw nothing;
-    their seed copies of a load are identical, as in the reference."""
+    Seed ``s`` uses the rule's draws ``draws[k][s]`` (each ``[S, ...]``)
+    when given, or megha's ``orders[s]`` (``int32[S, G, W]``), else the
+    draws ``simulate_workload(seed=s)`` makes.  Pigeon and the oracle draw
+    nothing; their seed copies of a load are identical, as in the
+    reference."""
     name = scheduler.lower()
-    _check_ported(name)
     rule = runtime.get_rule(name)
     seeds = [int(s) for s in seeds]
     L, S = submit_grid.shape[0], len(seeds)
@@ -166,19 +245,11 @@ def build_grid(
         submit=submit_grid.repeat_interleave(S, dim=0),
         job_submit=job_submit_grid.repeat_interleave(S, dim=0),
     )
-    if rule.needs_grid:
-        if orders is None:
-            orders = torch.stack([
-                gm_orders(torch.Generator().manual_seed(s), cfg) for s in seeds
-            ])
-        if orders.dim() != 3 or orders.shape[0] != S:
-            raise ValueError(f"orders must be [{S}, G, W], got {tuple(orders.shape)}")
-        orders = orders.to(tasks.device).repeat(L, 1, 1)           # [B, G, W]
-    elif orders is not None:
-        raise ValueError(f"{name} takes no GM orders")
-    step = rule.build_step(
-        cfg, point_tasks, None, match_fn=match_fn, orders=orders,
-    )
+    draws = seed_draws(name, cfg, tasks, seeds, runtime.orders_as_draws(orders, draws))
+    # seeds repeat over loads: point b takes seed b % S
+    draws = {k: v.to(tasks.device).repeat((L,) + (1,) * (v.dim() - 1))
+             for k, v in draws.items()}
+    step = rule.build_step(cfg, point_tasks, draws, match_fn=match_fn)
     return step, rule.init(cfg, point_tasks, B), point_tasks
 
 
@@ -192,12 +263,13 @@ def grid_state(
     num_rounds: int,
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
 ):
     """Run the grid exactly ``num_rounds`` rounds from a fresh DC (each
     point is ``runtime.simulate_fixed`` of that point); returns ``(final
     batched state, point tasks, step)``."""
     step, state, point_tasks = build_grid(
-        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, match_fn, orders)
+        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, match_fn, orders, draws)
     return runtime.scan_rounds(step, state, num_rounds), point_tasks, step
 
 
@@ -211,12 +283,13 @@ def sweep_grid(
     num_rounds: int,
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
 ) -> dict[str, torch.Tensor]:
     """Run the whole (load x seed) grid as one batched program; returns the
     ``point_summary`` fields as ``[L, S]`` tensors on the grid's device."""
     state, point_tasks, _ = grid_state(
         scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, num_rounds,
-        match_fn, orders)
+        match_fn, orders, draws)
     L, S = submit_grid.shape[0], len(seeds)
     return {k: v.reshape(L, S) for k, v in point_summary(state, point_tasks).items()}
 
@@ -224,7 +297,7 @@ def sweep_grid(
 @dataclasses.dataclass(frozen=True)
 class SweepPlan:
     """Everything a Fig. 2 grid run needs, built once (the reference's
-    ``SweepPlan``, with megha's ``orders`` in place of its PRNG seeds)."""
+    ``SweepPlan``, with fed-in draws beside its seeds)."""
 
     name: str
     cfg: SimxConfig
@@ -234,7 +307,7 @@ class SweepPlan:
     seeds: tuple[int, ...]           # [S]
     num_rounds: int
     match_fn: MatchFn
-    orders: Optional[torch.Tensor]   # int32[S, G, W] (megha) or None
+    draws: Optional[dict]            # the rule's draws, each [S, ...], or None
     annotate: dict                   # numpy extras merged into the result
 
 
@@ -251,6 +324,8 @@ def fig2_plan(
     trace_seed: int = 0,
     use_kernel: bool = True,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+    mem_limit_gb: Optional[float] = 16.0,
     device=None,
     **cfg_kwargs,
 ) -> SweepPlan:
@@ -258,13 +333,20 @@ def fig2_plan(
     the shared config, and the round budget sized off the slowest point.
     Megha's worker count is shaved to its GM x LM grid first
     (``grid_workers``) and the trace is built at that count, as the
-    reference does."""
+    reference does.  ``mem_limit_gb`` bounds the reservation-queue state
+    of a sparrow/eagle grid (``check_probe_memory``; None disables)."""
     name = scheduler.lower()
-    _check_ported(name)
     if runtime.get_rule(name).needs_grid:
         num_workers = grid_workers(
             num_workers, cfg_kwargs.get("num_gms", 8), cfg_kwargs.get("num_lms", 8)
         )
+    check_probe_memory(
+        name, num_jobs, num_workers, len(loads) * num_seeds,
+        None if mem_limit_gb is None else mem_limit_gb * 2**30,
+        tasks_per_job=tasks_per_job,
+        probe_ratio=cfg_kwargs.get("probe_ratio", 2),
+        reserve_cap=cfg_kwargs.get("reserve_cap", 0),
+    )
     cfg = SimxConfig(num_workers=num_workers, dt=dt, **cfg_kwargs)
     tasks, submit_g, job_submit_g = make_load_grid(
         loads,
@@ -289,7 +371,7 @@ def fig2_plan(
         seeds=tuple(range(num_seeds)),
         num_rounds=num_rounds,
         match_fn=default_match_fn(use_kernel),
-        orders=orders,
+        draws=runtime.orders_as_draws(orders, draws),
         annotate={
             "loads": np.asarray(loads),
             "num_rounds": np.asarray(num_rounds),
@@ -311,6 +393,8 @@ def fig2_sweep(
     trace_seed: int = 0,
     use_kernel: bool = True,
     orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+    mem_limit_gb: Optional[float] = 16.0,
     device=None,
     **cfg_kwargs,
 ) -> dict[str, np.ndarray]:
@@ -320,18 +404,19 @@ def fig2_sweep(
 
     The defaults mirror the paper's synthetic trace (jobs of 1000
     one-second tasks).  ``use_kernel`` selects the rank-and-select kernel
-    (the default) or its plain version; ``orders`` (``int32[S, G, W]``,
-    megha only) feeds in GM orders, e.g. the reference's draws."""
+    (the default) or its plain version; ``draws`` (the rule's draws, each
+    ``[S, ...]``) or, for megha, ``orders`` (``int32[S, G, W]``) feed in
+    the seeds' random draws, e.g. the reference's."""
     plan = fig2_plan(
         scheduler,
         loads=loads, num_seeds=num_seeds, num_workers=num_workers,
         num_jobs=num_jobs, tasks_per_job=tasks_per_job, dt=dt, slack=slack,
-        trace_seed=trace_seed, use_kernel=use_kernel, orders=orders,
-        device=device, **cfg_kwargs,
+        trace_seed=trace_seed, use_kernel=use_kernel, orders=orders, draws=draws,
+        mem_limit_gb=mem_limit_gb, device=device, **cfg_kwargs,
     )
     out = sweep_grid(
         plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
-        plan.seeds, plan.num_rounds, match_fn=plan.match_fn, orders=plan.orders,
+        plan.seeds, plan.num_rounds, match_fn=plan.match_fn, draws=plan.draws,
     )
     res = {k: v.cpu().numpy() for k, v in out.items()}
     res.update(plan.annotate)

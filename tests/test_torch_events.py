@@ -1,19 +1,21 @@
-"""The port's event backend (``repro_torch.core.{events,base,megha}`` behind
-``run_simulation(..., backend="events")``) against the JAX package's, record
-for record: every task's times and delay components, every job record and
-every counter, on small synthetic traces built by each package's own copy of
-``synthetic_trace``."""
+"""The port's event backend (``repro_torch.core.{events,base,megha}`` and
+``core.baselines`` behind ``run_simulation(..., backend="events")``) against
+the JAX package's, record for record: every task's times and delay
+components, every job record and every counter, on small synthetic and
+google-like traces built by each package's own copy of the generators, for
+megha, sparrow, eagle and pigeon."""
 
 import dataclasses
 import math
 
 import pytest
 
+from repro.core import baselines as jax_baselines
 from repro.core import megha as jax_megha
 from repro.core.events import NETWORK_DELAY as JAX_NETWORK_DELAY
 from repro.sim.simulator import run_simulation as jax_run_simulation
 from repro.workload import synth as jax_synth
-from repro_torch.core import base, megha
+from repro_torch.core import base, baselines, megha
 from repro_torch.core.events import NETWORK_DELAY, EventLoop
 from repro_torch.sim.simulator import run_simulation
 from repro_torch.workload import synth
@@ -41,13 +43,7 @@ def _assert_records_equal(got, want) -> None:
         assert _same(a, b), (f.name, a, b)
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
-@pytest.mark.parametrize("trace", list(TRACES))
-def test_megha_events_match_reference_record_for_record(trace, config):
-    kw = CONFIGS[config]
-    got = run_simulation("megha", synth.synthetic_trace(**TRACES[trace]), num_workers=256, **kw)
-    want = jax_run_simulation("megha", jax_synth.synthetic_trace(**TRACES[trace]),
-                              num_workers=256, **kw)
+def _assert_runs_equal(got, want) -> None:
     assert len(got.tasks) == len(want.tasks) > 0
     assert len(got.jobs) == len(want.jobs) > 0
     for a, b in zip(got.tasks, want.tasks):
@@ -60,6 +56,57 @@ def test_megha_events_match_reference_record_for_record(trace, config):
     s, t = got.summary(), want.summary()
     assert s.keys() == t.keys() and all(_same(s[k], t[k]) for k in t)
     assert all(tr.finish_time == tr.finish_time for tr in got.tasks)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("trace", list(TRACES))
+def test_megha_events_match_reference_record_for_record(trace, config):
+    kw = CONFIGS[config]
+    got = run_simulation("megha", synth.synthetic_trace(**TRACES[trace]), num_workers=256, **kw)
+    want = jax_run_simulation("megha", jax_synth.synthetic_trace(**TRACES[trace]),
+                              num_workers=256, **kw)
+    _assert_runs_equal(got, want)
+
+
+#: the baselines' configs: their defaults and every knob moved
+BASELINE_CONFIGS = {
+    "sparrow": {"default": {}, "tuned": dict(num_schedulers=3, probe_ratio=3, seed=4)},
+    "eagle": {"default": {}, "tuned": dict(num_schedulers=4, probe_ratio=3,
+                                           short_partition_fraction=0.2, long_threshold=8.0,
+                                           seed=2)},
+    "pigeon": {"default": {}, "tuned": dict(num_distributors=3, group_size=24,
+                                            reserved_per_group=3, weight=2,
+                                            long_threshold=8.0)},
+}
+#: a trace with long jobs (eagle's central scheduler, pigeon's low queue)
+GOOGLE = dict(num_jobs=60, total_tasks=1500, num_workers=256, seed=2)
+
+
+def _baseline_trace(trace: str, m):
+    return m.google_like_trace(**GOOGLE) if trace == "google" else \
+        m.synthetic_trace(**TRACES[trace])
+
+
+@pytest.mark.parametrize("config", ["default", "tuned"])
+@pytest.mark.parametrize("trace", list(TRACES) + ["google"])
+@pytest.mark.parametrize("name", list(BASELINE_CONFIGS))
+def test_baseline_events_match_reference_record_for_record(name, trace, config):
+    kw = BASELINE_CONFIGS[name][config]
+    got = run_simulation(name, _baseline_trace(trace, synth), num_workers=256, **kw)
+    want = jax_run_simulation(name, _baseline_trace(trace, jax_synth), num_workers=256, **kw)
+    _assert_runs_equal(got, want)
+    assert got.scheduler == name
+
+
+def test_baseline_configs_are_copies():
+    for name in ("Sparrow", "Eagle", "Pigeon"):
+        ours = getattr(baselines, f"{name}Config")(num_workers=256)
+        theirs = getattr(jax_baselines, f"{name}Config")(num_workers=256)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert baselines.EagleConfig(num_workers=1000).short_reserved == \
+        jax_baselines.EagleConfig(num_workers=1000).short_reserved
+    assert baselines.PigeonConfig(num_workers=1000).num_groups == \
+        jax_baselines.PigeonConfig(num_workers=1000).num_groups
 
 
 def test_events_until_and_max_events_stop_like_reference():
@@ -100,13 +147,6 @@ def test_event_loop_orders_ties_by_insertion():
     assert fired == [0, 1, 2, 3, 4] and loop.now == 1.0 and loop.empty()
     with pytest.raises(ValueError):
         loop.push(-1.0, lambda: None)
-
-
-@pytest.mark.parametrize("name", ["sparrow", "eagle", "pigeon"])
-def test_events_baselines_refuse_until_ported(name):
-    wl = synth.synthetic_trace(num_jobs=2, tasks_per_job=4, num_workers=64, seed=0)
-    with pytest.raises(NotImplementedError, match="items 8-9"):
-        run_simulation(name, wl, 64)
 
 
 def test_events_refuse_faults_and_unknown_names():

@@ -1,8 +1,10 @@
 """The port on a CUDA card: the hand-written kernels against their plain
-versions, and small megha / pigeon / oracle runs, Fig. 2 grids and
+versions, and small runs of all five simx rules, Fig. 2 grids and
 serving-engine runs on the card against the same runs on the CPU.  Every test here carries the ``gpu`` marker and skips itself
 without a card.  This file imports no ``jax`` (the card's machine has
 none); run it there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
+
+import random
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 from repro_torch.kernels import match, ref
 from repro_torch.serve.engine import MeghaServeEngine, Request
 from repro_torch.simx import SimxConfig, convert, runtime, simulate_workload, sweep
+from repro_torch.workload import traces
 from repro_torch.workload.synth import synthetic_trace
 
 WIDTHS = [1, 100, 128, 1024, 8192, 50_000]
@@ -61,6 +64,81 @@ def test_cuda_kernel_narrow_pick_shape(dtype):
     avail = (torch.rand((50_000, 64), generator=gen) < 0.3).to(dtype).cuda()
     _batched_matches_plain(avail, [1] * 50_000)
     _batched_matches_plain(avail, torch.randint(0, 72, (50_000,), generator=gen).tolist())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,lanes", [(300_000, 40), (50_000, 40), (13_000, 64)])
+def test_cuda_kernel_queue_pick_at_path_shapes(rows, lanes):
+    """The sparrow/eagle head-of-queue pick as the paths call it, n = 1 per
+    row: the Fig. 2 grid at B = 6 and B = 1 (R = 40 at 50,000 workers)
+    and eagle on the google-like trace (R = 64 at 13,000); each row's
+    active lanes as a compacted queue leaves them (live entries first)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(rows + lanes)
+    active = torch.rand((rows, lanes), generator=gen) < 0.2
+    fill = torch.randint(0, lanes + 1, (rows, 1), generator=gen)
+    active &= torch.arange(lanes)[None, :] < fill
+    active = active.cuda()
+    assert match._batched_plan(lanes)[0] == "narrow"
+    n = torch.ones((rows,), dtype=torch.int32, device="cuda")
+    before = match.match_ranks_batched.launches
+    got = match.match_ranks_batched(active, n)
+    torch.cuda.synchronize()
+    assert match.match_ranks_batched.launches == before + 1
+    assert torch.equal(got, ref.match_ranks_batched_ref(active, n))
+    assert int((got == 0).sum()) == int(active.any(1).sum())
+
+
+def _mixed_trace():
+    """Short and long jobs (every fourth 11-13 s, estimate above eagle's
+    10 s threshold), so eagle's SSS and central match run."""
+    rng = random.Random(5)
+    jobs, t = [], 0.0
+    for i in range(24):
+        n = rng.randint(4, 24)
+        lo, hi = (11.0, 13.0) if i % 4 == 1 else (0.2, 1.5)
+        jobs.append(traces.Job(job_id=i, submit_time=t,
+                               durations=[rng.uniform(lo, hi) for _ in range(n)]))
+        t += rng.expovariate(4.0)
+    return traces.Workload(name="mixed", jobs=jobs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,trace", [("sparrow", "synth"), ("eagle", "synth"),
+                                        ("eagle", "mixed"), ("sparrow", "small_cap")])
+def test_queue_rule_card_run_is_bitwise_plain_and_cpu(name, trace):
+    """Sparrow and eagle on the card with the kernel, without it, and on
+    the CPU, final states bitwise equal; one pick a round, and eagle's
+    central match beside it where long jobs run; with one queue slot a
+    worker, probes overflow and orphan rescue serves their jobs."""
+    _need_card()
+    if trace == "mixed":
+        wl, W, kw = _mixed_trace(), 100, dict(dt=0.05)
+    elif trace == "small_cap":
+        wl = synthetic_trace(num_jobs=40, tasks_per_job=4, load=0.9, num_workers=32, seed=7)
+        W, kw = 32, dict(dt=0.02, reserve_cap=1)
+    else:
+        wl = synthetic_trace(num_jobs=24, tasks_per_job=128, load=0.8, num_workers=1024,
+                             seed=1)
+        W, kw = 1024, dict(dt=0.02)
+    before = match.match_ranks_batched.launches
+    card = simulate_workload(name, wl, W, device="cuda", **kw)
+    launches = match.match_ranks_batched.launches - before
+    plain = simulate_workload(name, wl, W, device="cuda", use_kernel=False, **kw)
+    assert match.match_ranks_batched.launches == before + launches
+    cpu = simulate_workload(name, wl, W, device="cpu", **kw)
+    per_round = 2 if trace == "mixed" else 1
+    assert launches == per_round * int(card.state.rnd)
+    want = convert.state_to_numpy(cpu.state)
+    for other in (card, plain):
+        got = convert.state_to_numpy(other.state)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert card.tasks_completed == wl.num_tasks
+    if trace == "small_cap":
+        assert int(card.state.res_overflow) > 0
+    if trace == "mixed":
+        assert int(card.state.probes) > int(card.state.probe_head) and int(card.state.long_head) > 0
 
 
 @pytest.mark.gpu
@@ -217,7 +295,7 @@ def _grid(name: str, device: str, use_kernel: bool = True):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["megha", "pigeon", "oracle"])
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
 def test_grid_on_the_card_is_bitwise_plain_and_cpu(name):
     """The batched grid: kernel path, plain path on the card and the CPU
     run, final states bitwise equal; one launch per match (megha's borrow
@@ -226,7 +304,8 @@ def test_grid_on_the_card_is_bitwise_plain_and_cpu(name):
     card, step, launches = _grid(name, "cuda")
     plain, _, plain_launches = _grid(name, "cuda", use_kernel=False)
     cpu, _, _ = _grid(name, "cpu")
-    per_round = {"megha": 1, "pigeon": 2, "oracle": 1}[name]
+    # sparrow's and eagle's one match is the pick (no long job here)
+    per_round = {"megha": 1, "sparrow": 1, "eagle": 1, "pigeon": 2, "oracle": 1}[name]
     assert launches == per_round * GRID_ROUNDS + getattr(step, "borrow_rounds", 0)
     assert plain_launches == 0
     want = convert.state_to_numpy(cpu)

@@ -78,3 +78,16 @@ def test_walk_covers_the_sweep_and_pigeon_modules():
     sweep and the pigeon rule are among them."""
     assert {"repro_torch.simx.sweep", "repro_torch.simx.pigeon"} <= set(MODULES)
     assert {PORT / "simx" / "sweep.py", PORT / "simx" / "pigeon.py"} <= set(SOURCES)
+
+
+def test_walk_covers_the_queue_rules_and_event_baselines():
+    """The walk covers the sparrow and eagle rules, their fault helper and
+    the event backend's copied baselines."""
+    new = {"repro_torch.simx.sparrow", "repro_torch.simx.eagle", "repro_torch.simx.faults",
+           "repro_torch.core.baselines", "repro_torch.core.baselines.sparrow",
+           "repro_torch.core.baselines.eagle", "repro_torch.core.baselines.pigeon"}
+    assert new <= set(MODULES)
+    for rel in ("simx/sparrow.py", "simx/eagle.py", "simx/faults.py",
+                "core/baselines/__init__.py", "core/baselines/sparrow.py",
+                "core/baselines/eagle.py", "core/baselines/pigeon.py"):
+        assert PORT / rel in SOURCES
