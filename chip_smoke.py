@@ -11,8 +11,9 @@ against its plain PyTorch version on the card, drives the paths —
 ``run_simulation(..., backend="simx")`` for megha and the oracle at 49,984
 workers and 480,000 tasks, the Fig. 2 sweep (``fig2_sweep``'s grid of 3
 loads x 2 seeds as one batched program) for megha, pigeon, the oracle,
-sparrow and eagle at that size, eagle's long-job path on the google-like
-trace at 13,000 workers, the Megha serving engine at 49,984 slots with
+sparrow and eagle at that size, the Fig. 4 availability grid (``fig4_sweep``'s
+4 crash fractions x 2 seeds) for the same five rules at that size, eagle's
+long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
 200,000 requests, and the fast path's SDPS loop — and prints one JSON line
 per phase:
 
@@ -23,9 +24,11 @@ per phase:
                dtypes and n, and at [50000, 64]; then at the main path's
                shapes, the narrow [50000, 64], the sparrow/eagle
                head-of-queue picks (n = 1: [300000, 40], [50000, 40],
-               [13000, 64]) and eagle's central matches ([1, 13000],
-               [6, 50000]): error, time, plain time, torch.cumsum time,
-               bytes and the byte bound
+               [13000, 64]), eagle's central matches ([1, 13000],
+               [6, 50000]) and the Fig. 4 grid's shapes at B = 8
+               ([64, 49984], [64, 6248], [8, 50000], [10000, 40] and the
+               n = 1 pick [400000, 40]): error, time, plain time,
+               torch.cumsum time, bytes and the byte bound
   kernel_single  the single-row kernel (both entry points, match_ranks and
                the fused match_tasks) likewise, at the serving and SDPS
                shapes
@@ -49,8 +52,19 @@ per phase:
                run of the same trace
   sweep_profile  torch.profiler over megha's and sparrow's grids, rounds
                128-192 at B = 6
+  fig4         the Fig. 4 grid (crash fractions 0 / 0.05 / 0.1 / 0.2 x
+               seeds 0 / 1, 5 s outages from mid-arrival span, megha also
+               losing 2 GMs) for all five rules, kernel and plain runs:
+               every point completes, nothing lost at fraction 0 and some
+               lost elsewhere, kernel and plain final states bitwise equal,
+               the fraction-0 point bitwise its fault-free run, launches
+               per round; grid wall and tasks per wall second at B = 8,
+               the [F, S] delays, losses, messages and megha's
+               inconsistencies
+  fig4_profile torch.profiler over megha's and pigeon's Fig. 4 grids,
+               rounds 128-192 (inside the outage) at B = 8
   eagle_long   eagle on google_like_trace() (10,000 jobs, 312,558 tasks)
-               at 13,000 workers until 200 s through run_simulation: SSS
+               at 13,000 workers until 100 s through run_simulation: SSS
                rejections and central long launches, kernel and plain
                final states bitwise equal, two launches a round
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
@@ -140,11 +154,23 @@ SWEEP_RULES = ("megha", "pigeon", "oracle", "sparrow", "eagle")
 #: pick (no job is long there, so eagle's central match is left out)
 SWEEP_PER_ROUND = {"megha": 1, "pigeon": 2, "oracle": 1, "sparrow": 1, "eagle": 1}
 
+#: The Fig. 4 availability grid at the Fig. 2 grid's size, with the
+#: severity axis of bench_simx.py's FAULTS_FULL: 4 crash fractions x 2
+#: seeds = 8 points of the load-0.8 trace, 5 s outages from mid-arrival
+#: span, megha also losing 2 of its 8 GMs at every nonzero fraction
+FIG4_FULL = dict(fractions=(0.0, 0.05, 0.1, 0.2), num_seeds=2, outage=5.0, gm_outages=2,
+                 load=0.8, num_workers=WORKERS, num_jobs=480, tasks_per_job=1000, dt=DT)
+FIG4_POINTS = 8
+#: the rules' kernel launches a round on the Fig. 4 grid: eagle's SSS is on
+#: under faults, but no job is long, so its one match is still the pick
+FIG4_PER_ROUND = SWEEP_PER_ROUND
+
 #: eagle's long path: google_like_trace() at its Table 1 size (10,000 jobs,
-#: 312,558 tasks, 13,000 workers) until 200 simulated seconds (4,000
-#: rounds; its last job arrives at 146.9 s, its longest task runs 2,250 s)
+#: 312,558 tasks, 13,000 workers) until 100 simulated seconds (2,000
+#: rounds; its last job arrives at 146.9 s, its longest task runs 2,250 s;
+#: cut from 200 s to keep the script in half its time limit)
 EAGLE_LONG_WORKERS = 13_000
-EAGLE_LONG_UNTIL = 200.0
+EAGLE_LONG_UNTIL = 100.0
 
 #: The main path's match shapes at the paper scale (8 GMs, 8 LMs), then
 #: the Fig. 2 grid's (B = 6 points; pigeon's 1,250 groups of 40 workers)
@@ -169,6 +195,17 @@ PICK_SHAPES = (
 CENTRAL_SHAPES = (
     ("eagle_long_central", 1, EAGLE_LONG_WORKERS),
     ("eagle_central_grid", SWEEP_POINTS, WORKERS),
+)
+#: the Fig. 4 grid's match shapes at B = 8 (n = W, wide but for pigeon's
+#: groups), then its sparrow/eagle pick (n = 1)
+FIG4_SHAPES = (
+    ("fig4_megha_borrow", FIG4_POINTS * 8, GRID_WORKERS),
+    ("fig4_megha_internal", FIG4_POINTS * 8, GRID_WORKERS // 8),
+    ("fig4_oracle", FIG4_POINTS, WORKERS),
+    ("fig4_pigeon", FIG4_POINTS * (WORKERS // 40), 40),
+)
+FIG4_PICK_SHAPES = (
+    ("fig4_queue_pick", FIG4_POINTS * WORKERS, 40),
 )
 
 #: The serving engine at the paper's 50k-worker fleet on the 8 x 8 grid:
@@ -316,8 +353,9 @@ def phase_kernel(gen: torch.Generator) -> dict:
     # bool views as the main path passes them; n = w per row, so every
     # wide row is scanned to its end (no early exit) and the bound counts
     # every byte; the narrow picks at their own n = 1 (no early exit there)
-    shapes = ([(c, g, w, w) for c, g, w in MAIN_SHAPES + CENTRAL_SHAPES]
-              + [(*NARROW_SHAPE, 1)] + [(c, g, w, 1) for c, g, w in PICK_SHAPES])
+    shapes = ([(c, g, w, w) for c, g, w in MAIN_SHAPES + CENTRAL_SHAPES + FIG4_SHAPES]
+              + [(*NARROW_SHAPE, 1)]
+              + [(c, g, w, 1) for c, g, w in PICK_SHAPES + FIG4_PICK_SHAPES])
     for caller, g, w, n_row in shapes:
         avail = (torch.rand((g, w), generator=gen) < 0.5).to(DEVICE)
         n = torch.full((g,), n_row, dtype=torch.int32, device=DEVICE)
@@ -698,9 +736,121 @@ def phase_sweep_profile(plans: dict) -> list[dict]:
     return out
 
 
+def _fault_grid_run(plan, draws: dict, use_kernel: bool):
+    """One batched Fig. 4 grid run of ``plan`` on the card: (final state,
+    step, summary, wall seconds, kernel launches), the wall as in
+    ``_grid_run``."""
+    match.match_ranks_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, step = sweep.fault_grid_state(
+        plan.name, plan.cfg, plan.tasks, plan.schedules, plan.seeds, plan.num_rounds,
+        match_fn=runtime.default_match_fn(use_kernel), draws=draws)
+    summary = sweep.point_summary(state, plan.tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return state, step, summary, wall, match.match_ranks_batched.launches
+
+
+def phase_fig4() -> dict:
+    """The Fig. 4 grid (4 crash fractions x 2 seeds, B = 8) for all five
+    rules: kernel run (whose launches count) and plain run, then the
+    fraction-0 / seed-0 point against the same point's fault-free run."""
+    t0 = time.perf_counter()
+    plans = {"megha": sweep.fig4_plan("megha", device=DEVICE, **FIG4_FULL)}
+    # the 50,000-worker rules share one trace and one schedule (only megha
+    # takes GM outages): built once, with sparrow's probe-memory pre-flight
+    plans["sparrow"] = sweep.fig4_plan("sparrow", device=DEVICE, **FIG4_FULL)
+    for name in ("eagle", "pigeon", "oracle"):
+        plans[name] = dataclasses.replace(plans["sparrow"], name=name)
+    plan_s = time.perf_counter() - t0
+    F, S = len(FIG4_FULL["fractions"]), FIG4_FULL["num_seeds"]
+    out = dict(phase="fig4", entry="fig4_plan + fault_sweep_grid", grid=dict(
+        fractions=list(FIG4_FULL["fractions"]), seeds=S, points=FIG4_POINTS,
+        outage_s=FIG4_FULL["outage"], gm_outages_megha=FIG4_FULL["gm_outages"],
+        load=FIG4_FULL["load"], jobs=FIG4_FULL["num_jobs"],
+        tasks_per_job=FIG4_FULL["tasks_per_job"], dt=DT),
+        plan_build_s=plan_s, rules={})
+    for name in SWEEP_RULES:
+        plan = plans[name]
+        draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
+        state, step, summ, wall, launches = _fault_grid_run(plan, draws, True)
+        p_state, _, _, p_wall, p_launches = _fault_grid_run(plan, draws, False)
+        # the fraction-0, seed-0 point without a fault schedule
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clean, _, _ = sweep.grid_state(
+            name, plan.cfg, plan.tasks, plan.tasks.submit[None], plan.tasks.job_submit[None],
+            plan.seeds[:1], plan.num_rounds, match_fn=runtime.default_match_fn(True),
+            draws={k: v[:1] for k, v in draws.items()})
+        torch.cuda.synchronize()
+        clean_wall = time.perf_counter() - t0
+        rounds, T = plan.num_rounds, plan.tasks.num_tasks
+        borrow = getattr(step, "borrow_rounds", 0)
+        summary = {k: torch.reshape(v, (F, S)).cpu().tolist() for k, v in summ.items()}
+        crashed = torch.isfinite(plan.schedules.worker_down).sum(dim=-1).tolist()
+        r = dict(
+            workers=plan.cfg.num_workers, num_rounds=rounds, tasks_per_point=T,
+            fail_time_s=float(plan.annotate["fail_time"]), crashed_workers=crashed,
+            gms_down=torch.isfinite(plan.schedules.gm_down).sum(dim=-1).tolist(),
+            kernel_launches=launches,
+            expected_launches=FIG4_PER_ROUND[name] * rounds + borrow,
+            borrow_rounds_any=borrow,
+            borrow_rounds_per_point=(step.point_borrow_rounds.tolist()
+                                     if getattr(step, "point_borrow_rounds", None) is not None
+                                     else None),
+            plain_run_launches=p_launches,
+            kernel_and_plain_bitwise=states_equal(state, p_state),
+            zero_fraction_bitwise_fault_free=all(
+                np.array_equal(a, b) for a, b in zip(
+                    _point(state, 0).values(), _point(clean, 0).values())),
+            p50=summary["p50"], p95=summary["p95"], lost=summary["lost"],
+            messages=summary["messages"], tasks_done=summary["tasks_done"],
+            inconsistencies=summary["inconsistencies"] if name == "megha" else None,
+            probes=summary["probes"] if name in ("sparrow", "eagle") else None,
+            res_overflow=summary["res_overflow"], probe_lag=summary["probe_lag"],
+            wall_s=wall, plain_wall_s=p_wall, fault_free_point_wall_s=clean_wall,
+            tasks_per_wall_s=FIG4_POINTS * T / wall, ms_per_round=wall / rounds * 1e3,
+        )
+        check(all(v == T for row in summary["tasks_done"] for v in row),
+              f"fig4 {name}: every grid point completes its {T} tasks")
+        check(all(v == 0 for v in summary["lost"][0]), f"fig4 {name}: nothing lost at fraction 0")
+        check(all(v > 0 for row in summary["lost"][1:] for v in row),
+              f"fig4 {name}: tasks lost at every nonzero fraction")
+        check(launches == r["expected_launches"] > 0,
+              f"fig4 {name}: one kernel launch per match of the batch")
+        check(p_launches == 0, f"fig4 {name}: the plain grid launches no kernel")
+        check(r["kernel_and_plain_bitwise"], f"fig4 {name}: kernel and plain grids bitwise equal")
+        check(r["zero_fraction_bitwise_fault_free"],
+              f"fig4 {name}: the fraction-0 point is bitwise its fault-free run")
+        out["rules"][name] = r
+    emit(out)
+    out["_plans"] = plans
+    return out
+
+
+def phase_fig4_profile(plans: dict) -> list[dict]:
+    """Megha's and pigeon's Fig. 4 grids (B = 8) under torch.profiler,
+    rounds 128-192: inside the outage, which starts at round 125."""
+    out = []
+    for name, kernel in (("megha", "match_batched_wide_kernel"),
+                         ("pigeon", "match_batched_narrow_kernel")):
+        plan = plans[name]
+        step, state = sweep.build_fault_grid(
+            plan.name, plan.cfg, plan.tasks, plan.schedules, plan.seeds,
+            match_fn=runtime.default_match_fn(True))
+        r = dict(phase="fig4_profile", scheduler=name, points=FIG4_POINTS,
+                 **_profile_rounds(step, state, start=128, length=64, kernel=kernel))
+        check(r["device_ops_per_round"] > 0, f"the profiler saw {name}'s Fig. 4 device work")
+        check(r["match_kernel_launches"] >= 64, f"{name}'s Fig. 4 window ran its kernel")
+        emit(r)
+        out.append(r)
+    return out
+
+
 def phase_eagle_long() -> dict:
     """Eagle's SSS and central long match, which the synthetic trace never
-    reaches: ``google_like_trace()`` at 13,000 workers until 200 s, first
+    reaches: ``google_like_trace()`` at 13,000 workers until 100 s, first
     through ``run_simulation`` (whose launches count), then kernel and
     plain runs of ``simulate_workload`` whose final states must agree."""
     wl = google_like_trace()
@@ -1181,6 +1331,8 @@ def main() -> int:
     orc = phase_oracle(wl, megha)
     swp = phase_sweep(megha)
     phase_sweep_profile(swp.pop("_plans"))
+    fig4 = phase_fig4()
+    phase_fig4_profile(fig4.pop("_plans"))
     elong = phase_eagle_long()
     serve = phase_serve()
     phase_serve_profile()
@@ -1201,7 +1353,9 @@ def main() -> int:
             pigeon=swp["rules"]["pigeon"]["kernel_launches"],
             sparrow=swp["rules"]["sparrow"]["kernel_launches"],
             eagle=swp["rules"]["eagle"]["kernel_launches"],
-            eagle_long=elong["kernel_launches"]),
+            eagle_long=elong["kernel_launches"],
+            fig4=sum(r["kernel_launches"] for r in fig4["rules"].values()),
+            fig4_by_rule={k: r["kernel_launches"] for k, r in fig4["rules"].items()}),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],

@@ -87,28 +87,43 @@ def run_simulation(
     ``group_size``, ``reserved_per_group``, ``weight``; and ``dt``,
     ``seed``, ``chunk``, ``max_rounds``, ``use_kernel``, the rule's
     ``draws`` (megha's ``orders``) and ``device``; it returns the run's
-    ``RunMetrics``."""
-    if backend not in ("events", "simx"):
-        raise ValueError(f"unknown backend {backend!r}")
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
-    if backend == "events":
-        loop = EventLoop()
-        metrics = RunMetrics(scheduler=scheduler, workload=workload.name)
-        sched = make_scheduler(scheduler, loop, metrics, num_workers, **kwargs)
-        for job in workload.sorted_jobs():
-            loop.push_at(job.submit_time, lambda j=job: sched.submit(j))
-        if hooks is not None:
-            hooks(sched, loop)
-        loop.run(until=until, max_events=max_events)
-        return metrics
-    if hooks is not None:
-        raise ValueError("imperative hooks require backend='events'")
-    if max_events is not None:
-        raise ValueError("max_events is event-backend-only; use until")
-    from repro_torch.simx import simulate_workload
+    ``RunMetrics``.
 
-    run = simulate_workload(scheduler, workload, num_workers, until=until, **kwargs)
-    return run.to_run_metrics()
+    ``faults`` injects faults on either backend: a
+    ``repro_torch.simx.FaultPlan`` (worker failures and megha GM outages
+    in simulated seconds) installs the ``fail_worker`` / ``fail_gm`` /
+    ``recover_gm`` hooks on the event loop (megha only), after ``hooks``,
+    or enters the simx round step, where a dense ``FaultSchedule`` is also
+    accepted and worker down-windows and heartbeat delays exist."""
+    if backend == "simx":
+        if hooks is not None:
+            raise ValueError(
+                "imperative hooks require backend='events'; pass faults= "
+                "(a FaultPlan / FaultSchedule) for simx fault injection"
+            )
+        if max_events is not None:
+            raise ValueError("max_events is event-backend-only; use until")
+        from repro_torch.simx import simulate_workload
+
+        run = simulate_workload(
+            scheduler, workload, num_workers, until=until, faults=faults, **kwargs
+        )
+        return run.to_run_metrics()
+    if backend != "events":
+        raise ValueError(f"unknown backend {backend!r}")
+    if faults is not None and not hasattr(faults, "install_events"):
+        raise ValueError(
+            "the events backend takes a backend-neutral FaultPlan; dense "
+            "FaultSchedules compile into the simx round step only"
+        )
+    loop = EventLoop()
+    metrics = RunMetrics(scheduler=scheduler, workload=workload.name)
+    sched = make_scheduler(scheduler, loop, metrics, num_workers, **kwargs)
+    for job in workload.sorted_jobs():
+        loop.push_at(job.submit_time, lambda j=job: sched.submit(j))
+    if hooks is not None:
+        hooks(sched, loop)
+    if faults is not None:
+        faults.install_events(sched, loop)
+    loop.run(until=until, max_events=max_events)
+    return metrics

@@ -6,7 +6,9 @@ host loop, with every rule's match going through the rank-and-select
 kernel (``repro_torch.kernels``).  Select it via
 ``repro_torch.sim.simulator.run_simulation(..., backend="simx")``; run a
 whole Fig. 2 (load x seed) grid as one batched program with
-``fig2_sweep``.
+``fig2_sweep``, and the Fig. 4 (fault severity x seed) grid with
+``fig4_sweep``.  Faults enter a run as a ``FaultPlan`` or a dense
+``FaultSchedule`` (``faults=``).
 """
 
 from repro_torch.simx.engine import (
@@ -15,7 +17,16 @@ from repro_torch.simx.engine import (
     run_to_completion,
     simulate_workload,
 )
-from repro_torch.simx.faults import jobs_with_reservation
+from repro_torch.simx.faults import (
+    FaultPlan,
+    FaultSchedule,
+    GmOutage,
+    WorkerFailure,
+    empty_schedule,
+    fault_grid_schedule,
+    is_empty,
+    jobs_with_reservation,
+)
 from repro_torch.simx.runtime import (
     RULES,
     Draws,
@@ -49,8 +60,11 @@ from repro_torch.simx.state import (
 from repro_torch.simx.sweep import (
     SweepPlan,
     check_probe_memory,
+    fault_sweep_grid,
     fig2_plan,
     fig2_sweep,
+    fig4_plan,
+    fig4_sweep,
     make_load_grid,
     point_summary,
     probe_memory_bytes,
@@ -65,6 +79,10 @@ __all__ = [
     "SimxConfig",
     "TaskArrays",
     "CoreState",
+    "FaultPlan",
+    "FaultSchedule",
+    "GmOutage",
+    "WorkerFailure",
     "QueueState",
     "MeghaState",
     "SparrowState",
@@ -75,15 +93,21 @@ __all__ = [
     "check_probe_memory",
     "compose_step",
     "default_match_fn",
+    "empty_schedule",
     "estimate_rounds",
     "export_workload",
+    "fault_grid_schedule",
+    "fault_sweep_grid",
     "fig2_plan",
     "fig2_sweep",
+    "fig4_plan",
+    "fig4_sweep",
     "init_eagle_state",
     "init_megha_state",
     "init_oracle_state",
     "init_pigeon_state",
     "init_sparrow_state",
+    "is_empty",
     "job_delays_from_state",
     "jobs_with_reservation",
     "make_load_grid",

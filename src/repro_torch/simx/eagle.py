@@ -1,6 +1,6 @@
 """Eagle transition rule for the simx round-stepped backend (port of
-``repro/simx/eagle.py``, fault-free, without telemetry, provenance or the
-streaming ``EagleLayout``).
+``repro/simx/eagle.py``, without telemetry, provenance or the streaming
+``EagleLayout``).
 
 Hybrid scheduling with Succinct State Sharing (SSS) and sticky batch
 probing (paper §2.2.3), over dense tensors:
@@ -23,8 +23,10 @@ Short-job reservations live in sparrow's capped per-worker queues
 (``repro_torch.simx.sparrow``); SSS is evaluated per edge at insertion.
 Whether the SSS and central stages exist is decided when the step is
 built, as in the reference: a trace with no long job (the synthetic Fig. 2
-trace, every estimate 1 s) compiles both out, and the round's only match
-is the head-of-queue pick.
+trace, every estimate 1 s) leaves both out, and the round's only match is
+the head-of-queue pick.  Under a fault schedule SSS stays in even then,
+since it also bounces probes off dead workers, so on the Fig. 4 grid eagle
+no longer binds as sparrow does.
 
 The reference draws the probe targets and the two re-route rotations
 (``off1``, ``off2``) with ``jax.random`` when it builds the step; here
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.simx import runtime as rt
-from repro_torch.simx.faults import jobs_with_reservation
+from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.sparrow import (
     build_probe_edges,
@@ -77,8 +79,10 @@ def make_eagle_step(
     tasks: TaskArrays,
     draws: dict,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[EagleState], EagleState]:
-    """Build the one-round transition function on ``tasks``' device.
+    """Build the one-round transition function on ``tasks``' device, under
+    the fault schedule ``faults`` if one is given.
 
     ``draws`` holds the short jobs' probe-target table ``targets``
     (``int32[J, kmax]``, kmax of the short jobs' edges) and the per-job
@@ -90,7 +94,14 @@ def make_eagle_step(
     (completed workers continue their previous job) -> late binding (idle
     workers serve their queue heads, orphans rescued) -> central long
     match -> advance the central FIFO head.  ``match_fn`` drives both the
-    narrow ``[B * W, R_q]`` pick and the wide ``[B, W]`` central match."""
+    narrow ``[B * W, R_q]`` pick and the wide ``[B, W]`` central match.
+
+    With ``faults``, crashed workers lose their in-flight task (lost long
+    tasks roll the central FIFO head back; lost shorts simply re-pend) and
+    read busy until recovery; SSS also bounces probe edges off dead
+    workers, and orphan rescue counts only reservations on live workers.
+    ``faults=None`` builds the fault-free step; an empty schedule is
+    bitwise the same run."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -121,20 +132,35 @@ def make_eagle_step(
     CL = min(max(NL, 1), max(W - R, 64))
     long_fifo = torch.from_numpy(
         np.concatenate([long_ids, np.full(CL, T)]).astype(np.int32)).to(dev)
-    # structural, as in the reference: a trace with no long job has no SSS
-    # rejections and no central queue, so both stages are left out
-    use_sss = use_central = bool(NL)
+    # structural, as in the reference: a trace with no long job has no
+    # central queue, and no SSS rejections unless dead workers bounce
+    # probes, so those stages are left out
+    use_sss = bool(NL) or faults is not None
+    use_central = bool(NL)
     long_partition = w_row >= R
+    if faults is not None:
+        # task -> central-FIFO position for crash-loss head rollback
+        # (short tasks and the T pad map to NL: the min below ignores them)
+        long_pos_np = np.full(T + 1, NL, np.int32)
+        long_pos_np[long_ids] = np.arange(NL, dtype=np.int32)
+        long_pos = torch.from_numpy(long_pos_np).to(dev)
 
     def apply_launch(launch, task_pick, start, task_finish, worker_finish, worker_task):
         return rt.apply_launch(launch, task_pick, start, dur_pad,
                                task_finish, worker_finish, worker_task, T)
 
     def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
-        del free, lost_w  # idleness is re-derived after the sticky launches
+        del free  # idleness is re-derived after the sticky launches
         B = t.shape[0]
         tt = t[:, None]
         long_head = s.long_head
+        dead = None
+        if faults is not None:
+            # lost long tasks re-enter the central FIFO: roll the head back
+            if NL:
+                lt0 = torch.where(lost_w, s.worker_task, T).to(_I64)
+                long_head = torch.minimum(long_head, torch.amin(long_pos[lt0], dim=-1))
+            dead = worker_dead(faults, t)                         # bool[B,W]
         long_here = (worker_finish0 > tt) & long_task[s.worker_task.to(_I64)]   # [B,W]
 
         # -- 0. recycle completed jobs' slots, compact the queues -----------
@@ -144,10 +170,12 @@ def make_eagle_step(
         win_j, win_w, lead, ins, lagged = probe_window_slice(
             edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
         if use_sss:
+            # SSS also bounces probes off dead workers (the RPC times out)
+            sss_reject = long_here if dead is None else long_here | dead
             wj = torch.clamp(win_j, 0, max(J - 1, 0))
-            rej0 = ins & rt.take(long_here, torch.clamp(win_w, 0, W - 1))
+            rej0 = ins & rt.take(sss_reject, torch.clamp(win_w, 0, W - 1))
             w1 = torch.where(rej0, (win_w + rt.take(off1, wj)) % W, win_w)
-            rej1 = rej0 & rt.take(long_here, w1)
+            rej1 = rej0 & rt.take(sss_reject, w1)
             wfin = torch.where(rej1, (w1 + rt.take(off2, wj)) % R, w1)
             n_rej = (torch.sum(rej0, dim=-1, dtype=_I32)
                      + torch.sum(rej1, dim=-1, dtype=_I32))
@@ -178,9 +206,10 @@ def make_eagle_step(
         active = ((resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
                   & idle[..., None])
         job_pick = queue_head_pick(resq, active, match_fn, J)    # int32[B,W]
-        # orphan rescue: a pending short job with no reservation anywhere
+        # orphan rescue: a pending short job with no live reservation
+        # anywhere may be served by any idle worker
         orphan = (short_job & (edge_end <= head[:, None]) & (pending[:, :-1] > 0)
-                  & ~jobs_with_reservation(resq, J))
+                  & ~jobs_with_reservation(resq, J, dead=dead))
         rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
         job_pick = torch.where(idle, torch.minimum(job_pick, rescue[:, None]), J)
         launch2, task2 = late_bind(job_pick, pend_task, tasks.job, job_start)
@@ -224,7 +253,7 @@ def make_eagle_step(
             probes=probes,
         )
 
-    return rt.compose_step(cfg, tasks, dispatch)
+    return rt.compose_step(cfg, tasks, dispatch, faults)
 
 
 def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
@@ -246,8 +275,9 @@ def _build_step(
     draws: dict,
     *,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[EagleState], EagleState]:
-    return make_eagle_step(cfg, tasks, draws, match_fn)
+    return make_eagle_step(cfg, tasks, draws, match_fn, faults)
 
 
 RULE = rt.register_rule(

@@ -27,6 +27,7 @@ from repro_torch.core.base import LONG_JOB_THRESHOLD, grid_workers
 from repro_torch.core.metrics import JobRecord, RunMetrics, TaskRecord, classify_long
 from repro_torch.device import resolve_device
 from repro_torch.simx import runtime
+from repro_torch.simx.faults import FaultPlan, FaultSchedule, is_empty
 
 # importing the rule modules registers them (the paper schedulers, then
 # the oracle baseline), in the reference's order
@@ -119,6 +120,11 @@ class SimxRun:
     @property
     def tasks_completed(self) -> int:
         return int(torch.sum(self.state.task_finish <= self.state.t))
+
+    @property
+    def lost_tasks(self) -> int:
+        """In-flight tasks lost to worker crashes (each re-ran elsewhere)."""
+        return int(self.state.lost)
 
     def job_finish_times(self) -> np.ndarray:
         """float64[J] job finish (max task finish; nan if any task is
@@ -229,6 +235,7 @@ def simulate_workload(
     orders: Optional[torch.Tensor] = None,
     draws: Optional[dict] = None,
     device=None,
+    faults: FaultSchedule | FaultPlan | None = None,
 ) -> SimxRun:
     """Run one (scheduler, workload) simx simulation to completion on
     ``device`` (``None`` = the CUDA card).
@@ -242,7 +249,14 @@ def simulate_workload(
     ``use_kernel`` selects the rank-and-select kernel (the default) or its
     plain version.  The rule's random draws are ``draws`` (a dict, e.g.
     sparrow's ``targets``) or, for megha, ``orders`` (int32[G, W]); without
-    them they are drawn from a ``torch.Generator`` seeded with ``seed``."""
+    them they are drawn from a ``torch.Generator`` seeded with ``seed``.
+
+    ``faults`` injects a fault schedule (a dense ``FaultSchedule`` for the
+    run's worker and GM counts, or a backend-neutral ``FaultPlan``) into
+    the round step; an empty one builds the fault-free step.  Outages park
+    work until recovery, so without ``max_rounds`` the round cap grows past
+    the last finite recovery by a heartbeat interval, as in the
+    reference."""
     dev = resolve_device(device)
     name = scheduler.lower()
     rule = runtime.get_rule(name)
@@ -265,13 +279,38 @@ def simulate_workload(
         probe_window=probe_window,
         dt=dt,
     )
+    if isinstance(faults, FaultPlan):
+        faults = faults.to_schedule(num_workers, num_gms, dt, device=dev)
+    if faults is not None:
+        if tuple(faults.worker_down.shape) != (num_workers,):
+            raise ValueError(
+                f"fault schedule covers {faults.worker_down.shape[0]} workers, "
+                f"simulation has {num_workers} (megha shaves to the GM x LM "
+                "grid — build the schedule from grid_workers(num_workers))"
+            )
+        if rule.needs_grid and tuple(faults.gm_down.shape) != (num_gms,):
+            raise ValueError(
+                f"fault schedule covers {faults.gm_down.shape[0]} GMs, "
+                f"simulation has {num_gms}"
+            )
+        if is_empty(faults):
+            faults = None  # the no-op schedule: build the fault-free step
+        else:
+            faults = faults.to(dev)
     draws = runtime.orders_as_draws(orders, draws)
     step = rule.build_step(
         cfg, tasks, runtime.rule_draws(rule, cfg, tasks, seed if draws is None else draws),
-        match_fn=runtime.default_match_fn(use_kernel),
+        match_fn=runtime.default_match_fn(use_kernel), faults=faults,
     )
     state = rule.init(cfg, tasks)
     cap = max_rounds if max_rounds is not None else estimate_rounds(cfg, tasks)
+    if max_rounds is None and faults is not None:
+        # outages park work until recovery: extend the horizon past the last
+        # finite recovery plus a drain allowance for the re-run tasks
+        ups = torch.cat([faults.worker_up.reshape(-1), faults.gm_up.reshape(-1)])
+        finite = ups[torch.isfinite(ups)]
+        if finite.numel():
+            cap += int(math.ceil(float(finite.max()) / dt)) + cfg.heartbeat_rounds
     if until is not None:
         cap = min(cap, int(math.ceil(until / dt)))
     state = run_to_completion(step, state, chunk=chunk, max_rounds=cap)

@@ -1,6 +1,6 @@
 """Megha transition rule for the simx round-stepped backend (port of
-``repro/simx/megha.py``, without faults, telemetry, provenance or the
-streaming layout).
+``repro/simx/megha.py``, without telemetry, provenance or the streaming
+layout).
 
 One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
 
@@ -20,6 +20,14 @@ One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
      proposing GM keeps those workers marked busy and gets a piggybacked
      fresh snapshot of every LM that rejected it (§3.4.1).
 
+Under a fault schedule (``repro_torch.simx.faults``) the round gains the
+§3.5 masked transitions: crashed workers lose their in-flight task (the
+GM's FIFO head rolls back) and read busy until recovery, while stale views
+keep proposing onto them until heartbeats or piggybacks repair them; down
+GMs stop matching and live GMs adopt their queues round-robin, matching
+against the adopter's own view; a recovering GM's view resets from LM
+ground truth; ``hb_extra_rounds`` stretches the heartbeat period.
+
 The reference enters the borrow pass through ``lax.cond``; here it is a
 Python ``if`` on a device scalar, one host sync per round.  The step runs
 a batch of grid points at once (see ``make_megha_step``); a single run is
@@ -34,6 +42,12 @@ import numpy as np
 import torch
 
 from repro_torch.simx import runtime as rt
+from repro_torch.simx.faults import (
+    FaultSchedule,
+    gm_adoption,
+    gm_down_mask,
+    gm_recovered_now,
+)
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import MeghaState, SimxConfig, TaskArrays, init_megha_state
 
@@ -64,8 +78,12 @@ def make_megha_step(
     tasks: TaskArrays,
     orders: torch.Tensor,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[MeghaState], MeghaState]:
-    """Build the one-round transition function on ``tasks``' device.
+    """Build the one-round transition function on ``tasks``' device, under
+    the fault schedule ``faults`` (leaves shared or one per point) if one
+    is given; ``faults=None`` builds the fault-free step, and an empty
+    schedule is bitwise the same run.
 
     Layout, as in the reference: tasks live in a compact per-GM layout
     ``gm_tasks[G, Tg]`` (jobs round-robin over GMs, padded with the
@@ -88,7 +106,13 @@ def make_megha_step(
     The returned step carries ``step.borrow_rounds``, the number of rounds
     that entered the borrow pass, and ``step.point_borrow_rounds``
     (``int32[B]``, None before the first borrow), the rounds each point
-    borrowed in."""
+    borrowed in.
+
+    Under faults the heartbeat period ``hb + hb_extra_rounds`` and the
+    adoption map are per point; both matches read the adopter's view
+    (``view[adopt]``, a gather along G per point), and a rejected proposal
+    refreshes the adopter's view (a max-scatter along G, whose order does
+    not matter)."""
     if match_fn is None:
         match_fn = default_match_fn()
     cfg.validate_megha_grid()
@@ -118,16 +142,31 @@ def make_megha_step(
     C = min(max(W // G, 64), tg)
     # pad with C sentinels so the head window never leaves the row
     gm_tasks_np = np.full((G, tg + C), T, np.int32)
+    task_pos_np = np.zeros(T + 1, np.int32)            # task -> window position
     for g in range(G):
         mine = np.nonzero(task_gm == g)[0]
         gm_tasks_np[g, : mine.size] = mine
+        task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
     gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
+    if faults is not None:
+        # task -> (gm row, FIFO position) for crash-loss head rollback;
+        # the T pad routes to the pad row G, which is cut off
+        task_gm_pad = torch.from_numpy(
+            np.append(task_gm, G).astype(np.int64)).to(dev)
+        task_pos_pad = torch.from_numpy(task_pos_np).to(dev)
     # task submit times in the padded compact layout (sentinel -> inf),
     # one row per point of a grid (Bt = 1 when the arrivals are shared)
     submit = tasks.submit.reshape(-1, T)                      # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     submit_c = rt.take(submit_pad, gm_tasks)                  # [Bt, G, Tg+C]
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+
+    def adopted(view, adopt):
+        """Each GM row's view as its adopter sees it (``view[adopt]`` per
+        point); the view itself without a fault schedule."""
+        if adopt is None:
+            return view
+        return torch.gather(view, 1, adopt.to(torch.int64)[..., None].expand(view.shape))
 
     def launch_updates(start, launch_w, task_w, gm_w, task_finish, worker_finish,
                        worker_task, worker_gm, worker_borrowed):
@@ -141,16 +180,29 @@ def make_megha_step(
         worker_borrowed = torch.where(launch_w, part_gm != gm_w, worker_borrowed)
         return task_finish, worker_finish, worker_task, worker_gm, worker_borrowed
 
-    def piggyback(view, truth, invalid_gl):
+    def piggyback(view, truth, invalid_gl, adopt=None):
         """Refresh GM g's view of every LM that rejected one of its
-        proposals with that LM's fresh ground truth (§3.4.1)."""
+        proposals with that LM's fresh ground truth (§3.4.1).  Under GM
+        adoption the refresh lands on the adopter's view (it made the
+        proposal): a max over the rows each GM adopted, carried as uint8
+        (two down GMs may share an adopter)."""
+        if adopt is not None:
+            B_ = invalid_gl.shape[0]
+            invalid_gl = torch.zeros((B_, G, L), dtype=torch.uint8, device=dev).scatter_reduce(
+                1, adopt.to(torch.int64)[..., None].expand(B_, G, L),
+                invalid_gl.to(torch.uint8), "amax", include_self=True).to(torch.bool)
         refresh = torch.repeat_interleave(invalid_gl, wpl, dim=-1)  # bool[B,G,W]
         return torch.where(refresh, truth.unsqueeze(1), view)
 
     def dispatch(s, t, task_finish0, worker_finish0, truth, comp, lost_w):
-        del lost_w
         head0 = s.head
         B = head0.shape[0]
+        # -- 0. crash-loss rollback (the fault stage ran in the runtime) ----
+        if faults is not None:
+            # re-enqueue lost tasks: roll each GM's FIFO head back to the
+            # earliest lost position (several lost tasks of one GM: a min)
+            lt0 = torch.where(lost_w, s.worker_task, T).to(torch.int64)
+            head0 = rt.rollback_heads(head0, task_gm_pad[lt0], task_pos_pad[lt0])
         t3 = t.reshape(B, 1, 1)
         # launch start = round time + client->GM + GM->LM + LM->worker hops
         start = t.reshape(B, 1) + 3 * cfg.hop
@@ -160,10 +212,20 @@ def make_megha_step(
         view = s.view | regain
         messages = s.messages + torch.sum(comp, dim=-1, dtype=torch.int32)  # LM -> GM
 
-        # -- 2. heartbeat ---------------------------------------------------
-        do_hb = (s.rnd % hb) == (hb - 1)                          # bool[B]
+        # -- 2. heartbeat (+ GM down windows / recovery resets) -------------
+        period, hb_messages, adopt = hb, G * L, None
+        if faults is not None:
+            period = hb + faults.hb_extra_rounds                  # delay perturbation
+            adopt, row_active, n_live = gm_adoption(gm_down_mask(faults, t), s.rnd)
+            hb_messages = n_live * L                              # live GMs only
+        do_hb = (s.rnd % period) == (period - 1)                  # bool[B]
         view = torch.where(do_hb.reshape(B, 1, 1), truth.unsqueeze(1), view)
-        messages = messages + do_hb.to(torch.int32) * (G * L)
+        messages = messages + do_hb.to(torch.int32) * hb_messages
+        if faults is not None:
+            # §3.5 recovery: a returning GM rebuilds its view from LM truth
+            rec = gm_recovered_now(faults, t, cfg.dt)             # bool[B,G]
+            view = torch.where(rec[..., None], truth.unsqueeze(1), view)
+            messages = messages + L * torch.sum(rec, dim=-1, dtype=torch.int32)
 
         # -- 3. internal match (FIFO windows, [B, G, W/G] arrays) -----------
         wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[B,G,C]
@@ -171,9 +233,11 @@ def make_megha_step(
         fpad = rt.finish_pad(task_finish0)
         launched_w = rt.window_launched(fpad, wtask, T)           # bool[B,G,C]
         queued_w = ~launched_w & (wsubmit <= t3)                  # bool[B,G,C]
+        if faults is not None:
+            queued_w = queued_w & row_active[..., None]  # frozen when no GM live
         nq = torch.sum(queued_w, dim=-1, dtype=torch.int32)       # int32[B,G]
         fifo = rt.sorted_fifo(queued_w, C)                        # int32[B,G,C]
-        avail_int = rt.take(view, int_ord)                        # bool[B,G,wi]
+        avail_int = rt.take(adopted(view, adopt), int_ord)        # bool[B,G,wi]
         ranks_i = match_fn(avail_int.reshape(B * G, wi), nq.reshape(B * G))
         ranks_i = ranks_i.reshape(B, G, wi)                       # int32[B,G,wi]
         sel_pos = torch.gather(fifo, -1, ranks_i.clamp(0, C - 1).to(torch.int64))
@@ -203,7 +267,7 @@ def make_megha_step(
         inconsistencies = s.inconsistencies + torch.sum(
             invalid_i, dim=(1, 2), dtype=torch.int32)
         inval_gl = (invalid_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
-        view = piggyback(view, truth, inval_gl)
+        view = piggyback(view, truth, inval_gl, adopt)
         batch_gl = (proposed_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
         messages = messages + 2 * torch.sum(batch_gl, dim=(1, 2), dtype=torch.int32)
         repartitions = s.repartitions
@@ -224,9 +288,11 @@ def make_megha_step(
             fpad2 = rt.finish_pad(task_finish)
             launched2 = rt.window_launched(fpad2, wtask, T)
             queued2 = ~launched2 & (wsubmit <= t3)
+            if faults is not None:
+                queued2 = queued2 & row_active[..., None]
             nq2 = torch.sum(queued2, dim=-1, dtype=torch.int32)
             fifo2 = rt.sorted_fifo(queued2, C)
-            avail_ord = rt.take(view, orders)                       # bool[B,G,W]
+            avail_ord = rt.take(adopted(view, adopt), orders)       # bool[B,G,W]
             ranks = match_fn(avail_ord.reshape(B * G, W), nq2.reshape(B * G))
             ranks = ranks.reshape(B, G, W)                          # int32[B,G,W]
             sel_pos2 = torch.gather(fifo2, -1, ranks.clamp(0, C - 1).to(torch.int64))
@@ -265,7 +331,7 @@ def make_megha_step(
             inconsistencies = inconsistencies + torch.sum(
                 invalid, dim=(1, 2), dtype=torch.int32)
             inval2_gl = invalid.reshape(B, G, L, wpl).any(dim=-1)
-            view = piggyback(view, truth, inval2_gl)
+            view = piggyback(view, truth, inval2_gl, adopt)
             batch2 = proposed.reshape(B, G, L, wpl).any(dim=-1)
             messages = messages + 2 * torch.sum(batch2, dim=(1, 2), dtype=torch.int32)
             if B > 1:
@@ -295,7 +361,7 @@ def make_megha_step(
             messages=messages,
         )
 
-    step = rt.compose_step(cfg, tasks, dispatch)
+    step = rt.compose_step(cfg, tasks, dispatch, faults)
     step.borrow_rounds = 0
     step.point_borrow_rounds = None
     return step
@@ -307,8 +373,9 @@ def _build_step(
     draws: dict,
     *,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[MeghaState], MeghaState]:
-    return make_megha_step(cfg, tasks, draws["orders"], match_fn)
+    return make_megha_step(cfg, tasks, draws["orders"], match_fn, faults)
 
 
 RULE = rt.register_rule(

@@ -1,5 +1,5 @@
 """Omniscient centralized oracle — the global-knowledge lower bound (port
-of ``repro/simx/oracle.py``, without faults, telemetry or provenance).
+of ``repro/simx/oracle.py``, without telemetry or provenance).
 
 One centralized scheduler with perfect, instant knowledge of every worker
 serves one global FIFO: each round every queued task in the head window is
@@ -7,6 +7,12 @@ matched onto the actually-free workers through the same rank-and-select
 primitive, with the same launch hop costs as the real schedulers.  The gap
 between a scheduler's p50/p95 job delay and the oracle's on the same trace
 is its partial-knowledge cost.
+
+Under faults the oracle plays by the same rules as everyone else: crashed
+workers lose their in-flight task (re-pended through a FIFO-head rollback:
+task ids are global FIFO positions) and read busy until recovery; perfect
+knowledge means it never proposes onto a dead worker.  GM outages do not
+apply (there are no GMs).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Callable
 import torch
 
 from repro_torch.simx import runtime as rt
+from repro_torch.simx.faults import FaultSchedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import OracleState, SimxConfig, TaskArrays, init_oracle_state
 
@@ -24,8 +31,10 @@ def make_oracle_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[OracleState], OracleState]:
-    """Build the one-round transition function on ``tasks``' device.
+    """Build the one-round transition function on ``tasks``' device, under
+    the fault schedule ``faults`` if one is given.
 
     The global FIFO is the task-id order itself (``export_workload`` sorts
     tasks by job submit time), so the queue is a head pointer over
@@ -50,8 +59,12 @@ def make_oracle_step(
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
 
     def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
-        del comp, lost_w
+        del comp
+        # -- 0. crash-loss rollback: a lost task's id is its FIFO position -
         head0 = s.head                                             # int32[B]
+        if faults is not None:
+            lost_t = torch.where(lost_w, s.worker_task, T)
+            head0 = torch.minimum(head0, torch.amin(lost_t, dim=-1))
 
         # -- 1. queued window ----------------------------------------------
         wtask = rt.slice_rows(fifo, head0, C)                      # int32[B,C]
@@ -89,7 +102,7 @@ def make_oracle_step(
             messages=messages,
         )
 
-    return rt.compose_step(cfg, tasks, dispatch)
+    return rt.compose_step(cfg, tasks, dispatch, faults)
 
 
 def _build_step(
@@ -98,9 +111,10 @@ def _build_step(
     draws: dict,
     *,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable:
     del draws  # draws nothing
-    return make_oracle_step(cfg, tasks, match_fn)
+    return make_oracle_step(cfg, tasks, match_fn, faults)
 
 
 RULE = rt.register_rule(

@@ -1,6 +1,6 @@
 """Pigeon transition rule for the simx round-stepped backend (port of
-``repro/simx/pigeon.py``, without faults, telemetry, provenance or the
-streaming layout).
+``repro/simx/pigeon.py``, without telemetry, provenance or the streaming
+layout).
 
 Federated two-layer scheduling (paper §2.2.4) over dense per-group arrays:
 
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.simx import runtime as rt
+from repro_torch.simx.faults import FaultSchedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import PigeonState, SimxConfig, TaskArrays, init_pigeon_state
 
@@ -65,13 +66,24 @@ def make_pigeon_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[PigeonState], PigeonState]:
     """Build the one-round transition function on ``tasks``' device.
 
     Round order: completions (implicit via ``worker_finish``) -> WFQ split
     of each group's free unreserved workers between its high/low queue
     heads -> high overflow onto reserved workers -> launch + head advance.
-    The step is batched over grid points (``runtime``'s point axis)."""
+    The step is batched over grid points (``runtime``'s point axis).
+
+    With ``faults``, crashed workers lose their in-flight task (the group's
+    high/low head rolls back so the FIFO re-examines it) and read busy
+    until recovery, which shrinks the group's capacity: tasks can NOT
+    migrate groups, so a decimated group queues until its workers return.
+    Because rolled-back windows contain already-launched tasks, the fault
+    build swaps the submitted-prefix queue count for an explicit unlaunched
+    mask and sorted FIFO positions, and advances heads past the launched
+    prefix; without rollbacks both forms coincide, so an empty schedule is
+    bitwise the ``faults=None`` step."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -97,6 +109,7 @@ def make_pigeon_step(
     gt = task_groups(cfg, tasks)
     high_task = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
                  < cfg.long_threshold)
+    task_pos_np = np.zeros(T + 1, np.int32)  # task -> position in its FIFO
 
     def class_layout(mask: np.ndarray) -> torch.Tensor:
         length = int(np.max(np.bincount(gt[mask], minlength=NG))) if mask.any() else 0
@@ -104,6 +117,7 @@ def make_pigeon_step(
         for g in range(NG):
             mine = np.nonzero(mask & (gt == g))[0]
             rows[g, : mine.size] = mine
+            task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
         return torch.from_numpy(rows).to(dev)[None]
 
     high_fifo = class_layout(high_task)  # int32[1, NG, Lh+C], ascending = FIFO
@@ -114,6 +128,12 @@ def make_pigeon_step(
     submit = tasks.submit.reshape(-1, T)                       # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    if faults is not None:
+        # task -> (group, FIFO position, class) for crash-loss head rollback;
+        # the T pad routes to the pad group NG, which is cut off
+        task_pos_pad = torch.from_numpy(task_pos_np).to(dev)
+        grp_pad = torch.from_numpy(np.append(gt, NG).astype(np.int64)).to(dev)
+        high_pad = torch.from_numpy(np.append(high_task, False)).to(dev)
 
     def window(fifo, heads, t):
         """Window task ids + queued counts.  Launches are strictly FIFO and
@@ -124,9 +144,29 @@ def make_pigeon_step(
             wtask >= T, float("inf"), rt.take(submit_pad, torch.clamp(wtask, max=T)))
         return wtask, torch.sum(wsub <= t[:, None, None], dim=-1, dtype=torch.int32)
 
+    def window_fault(fifo, heads, t, task_finish):
+        """Fault-mode window: a rolled-back head re-examines launched tasks,
+        so 'queued' needs the explicit unlaunched mask and rank -> task
+        goes through sorted queued positions (megha's FIFO recovery)."""
+        wtask = rt.slice_rows(fifo, heads, C)                  # int32[B,NG,C]
+        wsub = torch.where(
+            wtask >= T, float("inf"), rt.take(submit_pad, torch.clamp(wtask, max=T)))
+        launched = ~torch.isinf(rt.take(rt.finish_pad(task_finish), wtask))  # pad: False
+        queued = ~launched & (wsub <= t[:, None, None])
+        return (wtask, torch.sum(queued, dim=-1, dtype=torch.int32),
+                rt.sorted_fifo(queued, C))
+
     def dispatch(s, t, task_finish0, worker_finish0, free_w, comp, lost_w):
-        del comp, lost_w  # completions stay implicit in the group capacity
+        del comp  # completions stay implicit in the group capacity
         B = t.shape[0]
+        # -- 0. crash-loss rollback (the fault stage ran in the runtime) ----
+        high_head0, low_head0 = s.high_head, s.low_head
+        if faults is not None:
+            # re-enqueue lost tasks: roll the owning group's class FIFO back
+            lt0 = torch.where(lost_w, s.worker_task, T).to(torch.int64)
+            g0, p0, hi0 = grp_pad[lt0], task_pos_pad[lt0], high_pad[lt0]
+            high_head0 = rt.rollback_heads(high_head0, torch.where(hi0, g0, NG), p0)
+            low_head0 = rt.rollback_heads(low_head0, torch.where(hi0, NG, g0), p0)
 
         # -- 1. free capacity per group (the runtime's completion stage,
         #       gathered into the [NG, S] group grid; pads read busy) -------
@@ -138,8 +178,12 @@ def make_pigeon_step(
         nfr = torch.sum(free_r, dim=-1, dtype=torch.int32)
 
         # -- 2. queued counts + WFQ split of unreserved capacity ------------
-        wh, qh = window(high_fifo, s.high_head, t)
-        wl, ql = window(low_fifo, s.low_head, t)
+        if faults is None:
+            wh, qh = window(high_fifo, high_head0, t)
+            wl, ql = window(low_fifo, low_head0, t)
+        else:
+            wh, qh, fifo_h = window_fault(high_fifo, high_head0, t, task_finish0)
+            wl, ql, fifo_l = window_fault(low_fifo, low_head0, t, task_finish0)
         total_u = torch.minimum(nfu, qh + ql)
         lead = torch.clamp(weight - s.since_low, min=0)  # highs before first low
         low_wfq = torch.where(
@@ -159,21 +203,28 @@ def make_pigeon_step(
         ranks_r = match_fn(free_r.reshape(B * NG, S_), n_high_r.reshape(B * NG))
         ranks_u = ranks_u.reshape(B, NG, S_)                     # int32[B,NG,S]
         ranks_r = ranks_r.reshape(B, NG, S_)
-        # no holes: the r-th queued task sits at window position r
         nhu = n_high_u[..., None]
+        if faults is None:
+            # no holes: the r-th queued task sits at window position r
+            pos_uh, pos_ul, pos_r = ranks_u, ranks_u - nhu, nhu + ranks_r
+        else:
+            # rank -> sorted queued position -> window task id
+            pos_uh = rt.take(fifo_h, ranks_u.clamp(0, C - 1))
+            pos_ul = rt.take(fifo_l, (ranks_u - nhu).clamp(0, C - 1))
+            pos_r = rt.take(fifo_h, (nhu + ranks_r).clamp(0, C - 1))
         task_u = torch.where(
             ranks_u < 0,
             T,
             torch.where(
                 ranks_u < nhu,
-                torch.gather(wh, -1, ranks_u.clamp(0, C - 1).to(torch.int64)),
-                torch.gather(wl, -1, (ranks_u - nhu).clamp(0, C - 1).to(torch.int64)),
+                torch.gather(wh, -1, pos_uh.clamp(0, C - 1).to(torch.int64)),
+                torch.gather(wl, -1, pos_ul.clamp(0, C - 1).to(torch.int64)),
             ),
         )
         task_r = torch.where(
             ranks_r < 0,
             T,
-            torch.gather(wh, -1, (nhu + ranks_r).clamp(0, C - 1).to(torch.int64)),
+            torch.gather(wh, -1, pos_r.clamp(0, C - 1).to(torch.int64)),
         )
         task_g = torch.minimum(task_u, task_r)  # disjoint slots: one is T
         launch = task_g < T                                         # [B,NG,S]
@@ -198,9 +249,22 @@ def make_pigeon_step(
         arrived = torch.sum((submit > tt - cfg.dt) & (submit <= tt), dim=-1, dtype=torch.int32)
         messages = s.messages + arrived + torch.sum(launch, dim=(1, 2), dtype=torch.int32)
 
-        # -- 5. head advance: strict FIFO launches advance by the counts ----
-        high_head = torch.clamp(s.high_head + n_high_u + n_high_r, max=len_h)
-        low_head = torch.clamp(s.low_head + n_low, max=len_l)
+        # -- 5. head advance ------------------------------------------------
+        if faults is None:
+            # strict FIFO launches: advance by the launch counts
+            high_head = torch.clamp(high_head0 + n_high_u + n_high_r, max=len_h)
+            low_head = torch.clamp(low_head0 + n_low, max=len_l)
+        else:
+            # rolled-back windows have holes: advance past the launched
+            # prefix instead (equal to the counts whenever there are none).
+            # Pads read NOT launched here (unlike ``rt.window_launched``):
+            # the head stops at the real tail instead of running through
+            # the pad slots.
+            fpad2 = rt.finish_pad(task_finish)
+            lead_h = rt.launched_lead(~torch.isinf(rt.take(fpad2, wh)))
+            lead_l = rt.launched_lead(~torch.isinf(rt.take(fpad2, wl)))
+            high_head = torch.clamp(high_head0 + lead_h, max=len_h)
+            low_head = torch.clamp(low_head0 + lead_l, max=len_l)
 
         return dict(
             task_finish=task_finish,
@@ -212,7 +276,7 @@ def make_pigeon_step(
             messages=messages,
         )
 
-    return rt.compose_step(cfg, tasks, dispatch)
+    return rt.compose_step(cfg, tasks, dispatch, faults)
 
 
 def _build_step(
@@ -221,9 +285,10 @@ def _build_step(
     draws: dict,
     *,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable:
     del draws  # draws nothing
-    return make_pigeon_step(cfg, tasks, match_fn)
+    return make_pigeon_step(cfg, tasks, match_fn, faults)
 
 
 RULE = rt.register_rule(

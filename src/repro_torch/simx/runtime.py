@@ -3,17 +3,20 @@
 Every rule advances the datacenter through the same round pipeline;
 only the dispatch in the middle differs.  ``compose_step`` assembles it:
 
-  1. **complete** — ``completion_masks``: ground-truth free/completed-now
+  1. **faults** — ``fault_stage``: the crash transition of a fault
+     schedule (``repro_torch.simx.faults``), shared by every rule; it is
+     left out of the step when there is no schedule.
+  2. **complete** — ``completion_masks``: ground-truth free/completed-now
      masks from ``worker_finish`` crossing the round time.
-  2. **rule.dispatch** — the scheduler-specific stage, built from the
+  3. **rule.dispatch** — the scheduler-specific stage, built from the
      windowed-FIFO helpers (``slice_rows``, ``sorted_fifo``,
      ``window_launched``, ``launched_lead``) and the launch bookkeeping
      (``apply_launch``); returns the state-field updates as a dict.
-  3. **advance** — the runtime folds the updates into a new state and
-     advances ``t``/``rnd``.
+  4. **advance** — the runtime folds the updates into a new state and
+     advances ``t``/``rnd`` and the crash-loss counter ``lost``.
 
-The reference's fault, telemetry and provenance stages are later slices
-of the port; ``compose_step`` refuses them for now.
+The reference's telemetry and provenance stages are a later slice of the
+port; ``compose_step`` refuses them for now.
 
 ``jax.lax.scan`` becomes a Python loop (``scan_rounds``), and the
 reference's ``mode="drop"`` scatters become scatters into a padded slot
@@ -40,6 +43,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import match, ref
+from repro_torch.simx.faults import FaultSchedule, apply_worker_faults
 from repro_torch.simx.state import SimxConfig, TaskArrays
 
 #: rank-and-select primitive: (avail bool[B, N], n int32[B]) -> ranks
@@ -216,6 +220,16 @@ def apply_launch(
     return task_finish, worker_finish, worker_task
 
 
+def rollback_heads(heads: torch.Tensor, rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """FIFO heads ``[B, N]`` rolled back to the positions ``pos`` of lost
+    tasks, per row ``rows`` (``[B, K]``; row N is the pad of a lane with no
+    loss, cut off): the reference's dropped ``heads.at[rows].min(pos)``.
+    A min does not depend on the order of repeated rows, so the result is
+    the same on any device."""
+    padded = torch.cat([heads, heads.new_zeros(heads.shape[:-1] + (1,))], -1)
+    return padded.scatter_reduce(-1, rows, pos, "amin", include_self=True)[..., :-1]
+
+
 def completion_masks(
     worker_finish: torch.Tensor, t: torch.Tensor, dt: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -227,14 +241,34 @@ def completion_masks(
     return free, free & (worker_finish > t - dt)
 
 
+def fault_stage(
+    faults: FaultSchedule | None,
+    t: torch.Tensor,
+    dt: float,
+    task_finish: torch.Tensor,
+    worker_finish: torch.Tensor,
+    worker_task: torch.Tensor,
+    num_tasks: int,
+):
+    """Stage 1: the crash transition shared by every rule.  Returns
+    ``(task_finish, worker_finish, lost_w, n_lost)``; with ``faults=None``
+    the arrays pass through untouched and ``lost_w``/``n_lost`` are None
+    (the stage is left out; rules guard their rollback on it)."""
+    if faults is None:
+        return task_finish, worker_finish, None, None
+    return apply_worker_faults(
+        faults, t, dt, task_finish, worker_finish, worker_task, num_tasks
+    )
+
+
 # ---------------------------------------------------------------------------
 # the round pipeline
 # ---------------------------------------------------------------------------
 
 #: Dispatch stage: (state, t, task_finish0, worker_finish0, free, comp,
 #: lost_w) -> dict of state-field updates (everything except t/rnd/lost,
-#: which the runtime advances).  ``lost_w`` is always None until the fault
-#: stage is ported.
+#: which the runtime advances).  ``lost_w`` (bool[B, W], the workers whose
+#: in-flight task the fault stage lost) is None without a fault schedule.
 DispatchFn = Callable[..., dict]
 
 #: Round-index budget: ``rnd`` is int32, so a run may advance at most this
@@ -260,23 +294,30 @@ def compose_step(
     telemetry: bool = False,
     provenance: bool = False,
 ) -> Callable:
-    """Assemble one rule's round step: ``complete -> dispatch -> advance``,
-    on a batched state (an unbatched one is lifted to one point and back).
-    The fault, telemetry and provenance stages of the reference are not
-    ported yet and raise ``NotImplementedError``."""
-    if faults is not None or telemetry or provenance:
+    """Assemble one rule's round step: ``faults -> complete -> dispatch ->
+    advance``, on a batched state (an unbatched one is lifted to one point
+    and back).  ``faults`` (a ``FaultSchedule``, its leaves shared by every
+    point or with a leading point axis) adds the crash stage and the
+    ``lost`` counter; ``None`` leaves both out.  The telemetry and
+    provenance stages of the reference are not ported yet and raise
+    ``NotImplementedError``."""
+    if telemetry or provenance:
         raise NotImplementedError(
-            "faults, telemetry and provenance are not ported yet "
-            "(ROADMAP.md queue 1, items 7 and 10)"
+            "telemetry and provenance are not ported yet (ROADMAP.md queue 1, item 10)"
         )
-    del tasks
+    T = tasks.num_tasks
 
     def step(s):
         if not is_batched(s):
             return unbatch_state(step(batch_state(s)))
         t = s.t
-        free, comp = completion_masks(s.worker_finish, t, cfg.dt)
-        updates = dispatch(s, t, s.task_finish, s.worker_finish, free, comp, None)
+        task_finish0, worker_finish0, lost_w, n_lost = fault_stage(
+            faults, t, cfg.dt, s.task_finish, s.worker_finish, s.worker_task, T
+        )
+        free, comp = completion_masks(worker_finish0, t, cfg.dt)
+        updates = dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w)
+        if n_lost is not None:
+            updates["lost"] = s.lost + n_lost
         return s.replace(t=t + cfg.dt, rnd=s.rnd + 1, **updates)
 
     return step
@@ -308,7 +349,9 @@ Draws = dict[str, torch.Tensor]
 class Rule:
     """One scheduler of the simx matrix.
 
-    ``build_step(cfg, tasks, draws, *, match_fn)`` returns the round step;
+    ``build_step(cfg, tasks, draws, *, match_fn, faults)`` returns the
+    round step (``faults``: a ``FaultSchedule`` or None, see
+    ``compose_step``);
     ``init(cfg, tasks, batch)`` the fresh state on ``tasks``' device,
     unbatched for ``batch=None`` and with ``batch`` points else.
 
@@ -403,23 +446,30 @@ def simulate_fixed(
     draws: Draws | torch.Tensor | torch.Generator | int,
     num_rounds: int,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ):
     """Run any registered rule exactly ``num_rounds`` rounds from a fresh
-    DC, with no done probe (the reference's ``simulate_fixed``).
+    DC, with no done probe (the reference's ``simulate_fixed``), under the
+    fault schedule ``faults`` if one is given.
 
     ``draws`` is the rule's draws or where to draw them from
     (``rule_draws``): megha's GM orders as a tensor (``int32[G, W]``, or
     ``[B, G, W]`` one set per point), a dict of any rule's draws, a
     ``torch.Generator`` or an int seeding one.  The run is batched when
-    ``tasks`` carries per-point arrival times or the draws a point axis,
-    and returns a state with that leading axis; otherwise the state is
-    unbatched."""
+    ``tasks`` carries per-point arrival times, the draws a point axis or
+    the fault schedule a point axis (a Fig. 4 grid shares one trace, and
+    pigeon and the oracle draw nothing), and returns a state with that
+    leading axis; otherwise the state is unbatched."""
     rule = get_rule(name)
     draws = rule_draws(rule, cfg, tasks, draws)
-    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn)
+    if faults is not None:
+        faults = faults.to(tasks.device)
+    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn, faults=faults)
     batch = tasks.batch
     if batch is None:
         batch = draws_batch(rule, draws)
+    if batch is None and faults is not None:
+        batch = faults.batch
     return scan_rounds(step, rule.init(cfg, tasks, batch), num_rounds)
 
 

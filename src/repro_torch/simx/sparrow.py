@@ -1,6 +1,6 @@
 """Sparrow transition rule for the simx round-stepped backend (port of
-``repro/simx/sparrow.py``, without faults, telemetry, provenance or the
-streaming ``ProbeLayout``).
+``repro/simx/sparrow.py``, without telemetry, provenance or the streaming
+``ProbeLayout``).
 
 Batch sampling + late binding (§2.2.2).  When a job of n tasks arrives it
 probes ``min(d * n, W)`` DISTINCT random workers, leaving a *reservation*
@@ -37,7 +37,7 @@ from typing import Callable
 import torch
 
 from repro_torch.simx import runtime as rt
-from repro_torch.simx.faults import jobs_with_reservation
+from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import (
     SimxConfig,
@@ -325,6 +325,7 @@ def make_sparrow_step(
     tasks: TaskArrays,
     targets: torch.Tensor,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[SparrowState], SparrowState]:
     """Build the one-round transition function on ``tasks``' device.
 
@@ -333,7 +334,14 @@ def make_sparrow_step(
     windowed probe insertion -> late binding (idle workers serve their
     queue heads; an inserted pending job with no reservation anywhere, all
     its probes dropped on full queues, is served by any idle worker: the
-    orphan rescue).  The step is batched over grid points."""
+    orphan rescue).  The step is batched over grid points.
+
+    With ``faults``, crashed workers lose their in-flight task (it simply
+    re-pends: late binding has no head pointer to roll back) and read
+    busy until recovery; a pending job whose every queue entry sits on a
+    currently dead worker is orphaned and rescued like one whose probes
+    were all dropped.  ``faults=None`` builds the fault-free step; an
+    empty schedule is bitwise the same run."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -351,7 +359,8 @@ def make_sparrow_step(
 
     def dispatch(s, t, task_finish0, worker_finish0, idle, comp, lost_w):
         # completions are implicit (a worker is idle iff worker_finish <=
-        # t) and task_finish was recorded at launch
+        # t) and task_finish was recorded at launch; a crash-lost task
+        # simply re-pends, so ``lost_w`` goes unused
         del comp, lost_w
         B = t.shape[0]
 
@@ -372,9 +381,13 @@ def make_sparrow_step(
             -1, job64.expand(B, T), pend_task.to(_I32))
         active = (resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
         job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
-        # orphan rescue: an inserted pending job with no reservation left
+        # orphan rescue: an inserted pending job with no live reservation
+        # anywhere (all probes dropped on full queues, or, under faults,
+        # every probed worker currently dead) may be served by any idle
+        # worker (dead workers never serve: worker_finish holds recovery)
+        dead = worker_dead(faults, t) if faults is not None else None
         orphan = ((edge_end <= head[:, None]) & (pending[:, :-1] > 0)
-                  & ~jobs_with_reservation(resq, J))
+                  & ~jobs_with_reservation(resq, J, dead=dead))
         rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
         job_pick = torch.minimum(job_pick, rescue[:, None])
         launch, task_pick = late_bind(
@@ -397,7 +410,7 @@ def make_sparrow_step(
             messages=messages,
         )
 
-    return rt.compose_step(cfg, tasks, dispatch)
+    return rt.compose_step(cfg, tasks, dispatch, faults)
 
 
 def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
@@ -412,8 +425,9 @@ def _build_step(
     draws: dict,
     *,
     match_fn: MatchFn | None = None,
+    faults: FaultSchedule | None = None,
 ) -> Callable[[SparrowState], SparrowState]:
-    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn)
+    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn, faults)
 
 
 RULE = rt.register_rule(

@@ -1,5 +1,5 @@
-"""The Fig. 2 sweep: a whole (load x seed) grid as one batched program
-(port of the Fig. 2 half of ``repro/simx/sweep.py``).
+"""The Fig. 2 and Fig. 4 sweeps: a whole (load x seed) or (fault severity
+x seed) grid as one batched program (port of ``repro/simx/sweep.py``).
 
 The paper's headline comparison sweeps scheduler x load at a fixed DC size
 and reports p50/p95 job delay per point.  For the synthetic trace, load
@@ -21,16 +21,22 @@ over the B points' rows.  Percentiles are reduced on the device
 (``point_summary``), so a 50k-worker grid never builds per-task records on
 the host.
 
+``fig4_sweep`` is the fault-tolerance counterpart (paper §3.5, Fig. 4):
+the grid axis is fault *severity* instead of load.  A batched
+``FaultSchedule`` (leading axis = fraction of the DC crashed) gives each
+point its schedule, the trace is shared, and the F x S points again run
+as one batched state (point ``b`` is fraction ``b // S``, seed ``b % S``).
+
 Sparrow and eagle grids are guarded by the reference's probe-memory
-pre-flight (``check_probe_memory``).  Left out, with their slices: Fig. 4
-(``fig4_sweep``, ROADMAP item 7), provenance columns (item 10) and the
-sharded executor (item 12).
+pre-flight (``check_probe_memory``).  Left out, with their slices:
+provenance columns (ROADMAP item 10) and the sharded executors (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -39,6 +45,7 @@ import torch
 from repro_torch.core.base import grid_workers
 from repro_torch.device import resolve_device
 from repro_torch.simx import engine, runtime
+from repro_torch.simx.faults import FaultSchedule, fault_grid_schedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import QueueState, SimxConfig, TaskArrays, export_workload
 from repro_torch.workload.synth import synthetic_trace
@@ -417,6 +424,236 @@ def fig2_sweep(
     out = sweep_grid(
         plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
         plan.seeds, plan.num_rounds, match_fn=plan.match_fn, draws=plan.draws,
+    )
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    res.update(plan.annotate)
+    return res
+
+
+def build_fault_grid(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    schedules: FaultSchedule,        # leaves carry a leading severity axis [F]
+    seeds: Sequence[int],
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+):
+    """The Fig. 4 grid as one batched run, not yet advanced: ``(step,
+    state)`` with B = F x S points, point ``b`` = (severity ``b // S``,
+    seed ``b % S``), on ``tasks``' device.  Each severity's schedule row
+    repeats over the seeds and the seeds' draws repeat over the
+    severities, as ``build_grid`` does for loads."""
+    name = scheduler.lower()
+    rule = runtime.get_rule(name)
+    if schedules.batch is None:
+        raise ValueError("a fault grid needs schedules with a leading severity axis")
+    seeds = [int(s) for s in seeds]
+    F, S = schedules.batch, len(seeds)
+    point_faults = FaultSchedule(**{
+        f.name: getattr(schedules, f.name).repeat_interleave(S, dim=0)
+        for f in dataclasses.fields(FaultSchedule)
+    }).to(tasks.device)
+    draws = seed_draws(name, cfg, tasks, seeds, runtime.orders_as_draws(orders, draws))
+    # seeds repeat over severities: point b takes seed b % S
+    draws = {k: v.to(tasks.device).repeat((F,) + (1,) * (v.dim() - 1))
+             for k, v in draws.items()}
+    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn, faults=point_faults)
+    return step, rule.init(cfg, tasks, F * S)
+
+
+def fault_grid_state(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    schedules: FaultSchedule,
+    seeds: Sequence[int],
+    num_rounds: int,
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+):
+    """Run the Fig. 4 grid exactly ``num_rounds`` rounds from a fresh DC
+    (each point is ``runtime.simulate_fixed`` of that point under its
+    schedule); returns ``(final batched state, step)``."""
+    step, state = build_fault_grid(
+        scheduler, cfg, tasks, schedules, seeds, match_fn, orders, draws)
+    return runtime.scan_rounds(step, state, num_rounds), step
+
+
+def fault_sweep_grid(
+    scheduler: str,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    schedules: FaultSchedule,        # leaves carry a leading severity axis [F]
+    seeds: Sequence[int],
+    num_rounds: int,
+    match_fn: MatchFn | None = None,
+    orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+) -> dict[str, torch.Tensor]:
+    """Run a (fault severity x seed) grid as one batched program, the
+    Fig. 4 counterpart of ``sweep_grid``.  Returns the ``point_summary``
+    fields as ``[F, S]`` tensors (``lost`` counts the in-flight tasks
+    crashes destroyed per point)."""
+    state, _ = fault_grid_state(
+        scheduler, cfg, tasks, schedules, seeds, num_rounds, match_fn, orders, draws)
+    F, S = schedules.batch, len(seeds)
+    return {k: v.reshape(F, S) for k, v in point_summary(state, tasks).items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultPlan:
+    """The Fig. 4 counterpart of ``SweepPlan``: one batched
+    ``FaultSchedule`` (leading severity axis) instead of submit grids (the
+    reference's ``sweep.FaultPlan``; ``repro_torch.simx.FaultPlan`` is the
+    backend-neutral plan of ``faults``, as in the reference)."""
+
+    name: str
+    cfg: SimxConfig
+    tasks: TaskArrays
+    schedules: FaultSchedule         # leaves carry a leading severity axis [F]
+    seeds: tuple[int, ...]           # [S]
+    num_rounds: int
+    match_fn: MatchFn
+    draws: Optional[dict]            # the rule's draws, each [S, ...], or None
+    annotate: dict
+
+
+def fig4_plan(
+    scheduler: str,
+    *,
+    fractions: Sequence[float] = (0.0, 0.02, 0.05, 0.1),
+    fail_time: Optional[float] = None,
+    outage: float = 2.0,
+    gm_outages: int = 0,
+    heartbeat_delay: float = 0.0,
+    num_seeds: int = 2,
+    load: float = 0.8,
+    num_workers: int = 1024,
+    num_jobs: int = 32,
+    tasks_per_job: int = 128,
+    dt: float = 0.05,
+    slack: float = 6.0,
+    trace_seed: int = 0,
+    fault_seed: int = 0,
+    use_kernel: bool = True,
+    orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+    mem_limit_gb: Optional[float] = 16.0,
+    device=None,
+    **cfg_kwargs,
+) -> FaultPlan:
+    """Build the Fig. 4 grid inputs without running them: the batched
+    severity schedule, the trace, and the outage-extended round budget,
+    on ``device`` (``None`` = the CUDA card).  Megha's worker count is
+    shaved to its GM x LM grid first, and only megha takes GM outages."""
+    name = scheduler.lower()
+    if runtime.get_rule(name).needs_grid:
+        num_workers = grid_workers(
+            num_workers, cfg_kwargs.get("num_gms", 8), cfg_kwargs.get("num_lms", 8)
+        )
+    check_probe_memory(
+        name, num_jobs, num_workers, len(fractions) * num_seeds,
+        None if mem_limit_gb is None else mem_limit_gb * 2**30,
+        tasks_per_job=tasks_per_job,
+        probe_ratio=cfg_kwargs.get("probe_ratio", 2),
+        reserve_cap=cfg_kwargs.get("reserve_cap", 0),
+    )
+    dev = resolve_device(device)
+    cfg = SimxConfig(num_workers=num_workers, dt=dt, **cfg_kwargs)
+    tasks = export_workload(
+        synthetic_trace(
+            num_jobs=num_jobs,
+            tasks_per_job=tasks_per_job,
+            load=load,
+            num_workers=num_workers,
+            seed=trace_seed,
+        ),
+        dev,
+    )
+    if fail_time is None:
+        fail_time = 0.5 * float(torch.max(tasks.submit))
+    schedules = fault_grid_schedule(
+        num_workers,
+        cfg.num_gms,
+        fractions,
+        fail_time=fail_time,
+        outage=outage,
+        gm_outages=gm_outages if name == "megha" else 0,
+        dt=dt,
+        heartbeat_delay=heartbeat_delay,
+        seed=fault_seed,
+        device=dev,
+    )
+    num_rounds = engine.estimate_rounds(cfg, tasks, slack=slack) + int(
+        math.ceil((fail_time + outage) / dt)
+    )
+    return FaultPlan(
+        name=name,
+        cfg=cfg,
+        tasks=tasks,
+        schedules=schedules,
+        seeds=tuple(range(num_seeds)),
+        num_rounds=num_rounds,
+        match_fn=default_match_fn(use_kernel),
+        draws=runtime.orders_as_draws(orders, draws),
+        annotate={
+            "fractions": np.asarray(fractions),
+            "fail_time": np.asarray(fail_time),
+            "outage": np.asarray(outage),
+            "num_rounds": np.asarray(num_rounds),
+            "num_tasks": np.asarray(tasks.num_tasks),
+        },
+    )
+
+
+def fig4_sweep(
+    scheduler: str,
+    *,
+    fractions: Sequence[float] = (0.0, 0.02, 0.05, 0.1),
+    fail_time: Optional[float] = None,
+    outage: float = 2.0,
+    gm_outages: int = 0,
+    heartbeat_delay: float = 0.0,
+    num_seeds: int = 2,
+    load: float = 0.8,
+    num_workers: int = 1024,
+    num_jobs: int = 32,
+    tasks_per_job: int = 128,
+    dt: float = 0.05,
+    slack: float = 6.0,
+    trace_seed: int = 0,
+    fault_seed: int = 0,
+    use_kernel: bool = True,
+    orders: Optional[torch.Tensor] = None,
+    draws: Optional[dict] = None,
+    mem_limit_gb: Optional[float] = 16.0,
+    device=None,
+    **cfg_kwargs,
+) -> dict[str, np.ndarray]:
+    """The Fig. 4 availability study: one batched (severity x seed) grid on
+    ``device`` (``None`` = the CUDA card), returned as numpy arrays.
+
+    Each severity point crashes ``fraction * num_workers`` random workers
+    at ``fail_time`` (default: mid-arrival-span) for ``outage`` seconds,
+    plus, for megha, ``gm_outages`` GMs over the same window and an
+    optional heartbeat-delay perturbation.  ``use_kernel``, ``orders`` and
+    ``draws`` are ``fig2_sweep``'s."""
+    plan = fig4_plan(
+        scheduler,
+        fractions=fractions, fail_time=fail_time, outage=outage,
+        gm_outages=gm_outages, heartbeat_delay=heartbeat_delay,
+        num_seeds=num_seeds, load=load, num_workers=num_workers,
+        num_jobs=num_jobs, tasks_per_job=tasks_per_job, dt=dt, slack=slack,
+        trace_seed=trace_seed, fault_seed=fault_seed, use_kernel=use_kernel,
+        orders=orders, draws=draws, mem_limit_gb=mem_limit_gb, device=device,
+        **cfg_kwargs,
+    )
+    out = fault_sweep_grid(
+        plan.name, plan.cfg, plan.tasks, plan.schedules, plan.seeds,
+        plan.num_rounds, match_fn=plan.match_fn, draws=plan.draws,
     )
     res = {k: v.cpu().numpy() for k, v in out.items()}
     res.update(plan.annotate)

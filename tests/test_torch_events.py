@@ -18,6 +18,7 @@ from repro.workload import synth as jax_synth
 from repro_torch.core import base, baselines, megha
 from repro_torch.core.events import NETWORK_DELAY, EventLoop
 from repro_torch.sim.simulator import run_simulation
+from repro_torch.simx import FaultPlan, GmOutage, WorkerFailure
 from repro_torch.workload import synth
 
 TRACES = {
@@ -150,8 +151,15 @@ def test_event_loop_orders_ties_by_insertion():
 
 
 def test_events_refuse_faults_and_unknown_names():
+    """A ``FaultPlan`` drives megha's hooks on the event backend (every job
+    finishes, and the crash is paid for); anything without
+    ``install_events`` is refused, as are unknown names."""
     wl = synth.synthetic_trace(num_jobs=2, tasks_per_job=4, num_workers=64, seed=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    plan = FaultPlan(worker_failures=(WorkerFailure(0, 0.01),),
+                     gm_outages=(GmOutage(1, 0.0, 0.5),))
+    m = run_simulation("megha", wl, 64, num_gms=2, num_lms=2, faults=plan)
+    assert len(m.job_delays()) == 2 and all(t.finish_time == t.finish_time for t in m.tasks)
+    with pytest.raises(ValueError, match="FaultPlan"):
         run_simulation("megha", wl, 64, faults=object())
     with pytest.raises(ValueError, match="unknown scheduler"):
         run_simulation("nope", wl, 64)

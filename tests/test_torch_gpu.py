@@ -347,3 +347,63 @@ def test_narrow_design_at_pigeon_shapes(rows, lanes, real):
     assert match._batched_plan(lanes)[0] == "narrow"
     _batched_matches_plain(avail, torch.randint(0, lanes + 3, (rows,), generator=gen).tolist())
     _batched_matches_plain(avail, [lanes] * rows)
+
+
+#: a small Fig. 4 grid: 2 crash fractions x 2 seeds at 256 workers, megha
+#: also losing one of its 4 GMs
+FIG4_GRID = dict(fractions=(0.0, 0.25), num_seeds=2, num_workers=256, num_jobs=12,
+                 tasks_per_job=64, outage=2.0, gm_outages=1, dt=0.05, num_gms=4, num_lms=4,
+                 heartbeat_interval=1.0)
+
+
+def _fig4_grid(name: str, device: str, use_kernel: bool = True):
+    """The small Fig. 4 grid on ``device``; returns (state, step, launches,
+    rounds)."""
+    plan = sweep.fig4_plan(name, use_kernel=use_kernel, device=device, **FIG4_GRID)
+    before = match.match_ranks_batched.launches
+    state, step = sweep.fault_grid_state(plan.name, plan.cfg, plan.tasks, plan.schedules,
+                                         plan.seeds, plan.num_rounds, match_fn=plan.match_fn)
+    return state, step, match.match_ranks_batched.launches - before, plan.num_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_fig4_grid_on_the_card_is_bitwise_plain_and_cpu(name):
+    """The Fig. 4 grid: kernel path, plain path on the card and the CPU
+    run, final states bitwise equal; one launch per match a round (megha
+    adds its borrow rounds; eagle's SSS is on, its one match the pick);
+    nothing lost at fraction 0, something at 0.25, every task done."""
+    _need_card()
+    card, step, launches, rounds = _fig4_grid(name, "cuda")
+    plain, _, plain_launches, _ = _fig4_grid(name, "cuda", use_kernel=False)
+    cpu, _, _, _ = _fig4_grid(name, "cpu")
+    per_round = {"megha": 1, "sparrow": 1, "eagle": 1, "pigeon": 2, "oracle": 1}[name]
+    assert launches == per_round * rounds + getattr(step, "borrow_rounds", 0)
+    assert plain_launches == 0
+    want = convert.state_to_numpy(cpu)
+    for other in (card, plain):
+        got = convert.state_to_numpy(other)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert (card.task_finish <= card.t[:, None]).all()
+    assert card.lost[:2].tolist() == [0, 0] and min(card.lost[2:].tolist()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,lanes,n", [(64, 49_984, None), (64, 6248, None),
+                                          (8, 50_000, None), (10_000, 40, None),
+                                          (400_000, 40, 1)])
+def test_cuda_kernel_at_fig4_shapes(rows, lanes, n):
+    """The kernel at the Fig. 4 grid's shapes (B = 8): megha's borrow and
+    internal matches, the oracle's, pigeon's groups and the sparrow/eagle
+    pick; n = W (every row scanned to its end), random n, and the pick's
+    n = 1."""
+    _need_card()
+    gen = torch.Generator().manual_seed(rows + lanes)
+    avail = (torch.rand((rows, lanes), generator=gen) < 0.5).cuda()
+    if n is None:
+        _batched_matches_plain(avail, [lanes] * rows)
+        _batched_matches_plain(avail, torch.randint(0, lanes + 1, (rows,),
+                                                    generator=gen).tolist())
+    else:
+        _batched_matches_plain(avail, [n] * rows)

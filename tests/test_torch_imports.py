@@ -91,3 +91,16 @@ def test_walk_covers_the_queue_rules_and_event_baselines():
                 "core/baselines/__init__.py", "core/baselines/sparrow.py",
                 "core/baselines/eagle.py", "core/baselines/pigeon.py"):
         assert PORT / rel in SOURCES
+
+
+def test_walk_covers_the_fault_modules():
+    """The walk covers the fault subsystem and every module its slice
+    touched: the schedules and plans, the runtime's fault stage, the five
+    rules' fault branches, the engine, the Fig. 4 sweep and both
+    backends' front door."""
+    new = {"repro_torch.simx.faults", "repro_torch.simx.runtime", "repro_torch.simx.engine",
+           "repro_torch.simx.sweep", "repro_torch.sim.simulator"} | {
+        f"repro_torch.simx.{r}" for r in ("megha", "sparrow", "eagle", "pigeon", "oracle")}
+    assert new <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in new} <= set(SOURCES)

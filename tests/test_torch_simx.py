@@ -26,7 +26,15 @@ from repro.simx.state import init_megha_state as jax_init_megha_state
 from repro.simx.state import init_oracle_state as jax_init_oracle_state
 from repro.workload import synth as jax_synth
 from repro_torch.sim.simulator import run_simulation
-from repro_torch.simx import convert, engine, megha, oracle, simulate_workload
+from repro_torch.simx import (
+    FaultPlan,
+    WorkerFailure,
+    convert,
+    engine,
+    megha,
+    oracle,
+    simulate_workload,
+)
 from repro_torch.simx import runtime as rt
 from repro_torch.simx.state import (
     MeghaState,
@@ -341,8 +349,10 @@ def test_entry_points_refuse_what_is_not_ported(monkeypatch):
     wl = synth.synthetic_trace(num_jobs=2, tasks_per_job=4, num_workers=64, seed=0)
     with pytest.raises(ValueError, match="unknown scheduler"):
         run_simulation("omega", wl, 64)
-    with pytest.raises(NotImplementedError, match="fault"):
-        run_simulation("sparrow", wl, 64, backend="simx", faults=object(), device="cpu")
+    # faults are ported: a plan runs on simx and every job still finishes
+    plan = FaultPlan(worker_failures=tuple(WorkerFailure(w, 0.1, 0.4) for w in range(8)))
+    m = run_simulation("sparrow", wl, 64, backend="simx", faults=plan, device="cpu")
+    assert len(m.job_delays()) == 2
     with pytest.raises(ValueError, match="implements"):
         simulate_workload("omega", wl, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="telemetry"):
