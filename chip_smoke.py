@@ -63,8 +63,31 @@ per phase:
                inconsistencies
   fig4_profile torch.profiler over megha's and pigeon's Fig. 4 grids,
                rounds 128-192 (inside the outage) at B = 8
+  telemetry    megha (49,984 workers) and sparrow (50,000) on the megha
+               phase's trace with telemetry and provenance on
+               (simulate_workload(telemetry=TelemetryConfig(),
+               provenance=True)), flags-off, kernel and plain runs in turns:
+               final state bitwise the flags-off run's, Timeline and
+               Provenance bitwise kernel = plain, gauges that account for
+               every arrived task at every sample, components summing to
+               the job delays, the same kernel launches and host syncs as
+               the flags-off run; walls with and without the flags, the
+               view-repair / inconsistency / probe totals, peak memory, and
+               a Chrome trace of the first MAX_TRACE_TASKS tasks' spans
+               written under the gitignored build directory
+  telemetry_profile  torch.profiler over rounds 128-192 of megha's and
+               sparrow's steps on that trace, with both stages off and on:
+               device ops and busy time per round, idle share
+  breakdown    the sweep phase's Fig. 2 grid (B = 6) for all five rules with
+               provenance=True: every other column equal to the sweep
+               phase's, mean_<component> summing to mean, fault rework 0,
+               inconsistency retries only for megha; each rule's oracle gap
+               by component, grid walls against the sweep phase's
+  fault_provenance  megha on the fig4 phase's fraction-0.1 schedule (seed 0)
+               as one run with provenance=True: requeues equal the lost
+               tasks and match the Fig. 4 grid's point, fault rework above 0
   eagle_long   eagle on google_like_trace() (10,000 jobs, 312,558 tasks)
-               at 13,000 workers until 100 s through run_simulation: SSS
+               at 13,000 workers until 50 s through run_simulation: SSS
                rejections and central long launches, kernel and plain
                final states bitwise equal, two launches a round
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
@@ -110,6 +133,9 @@ from repro_torch.kernels import build, match, ops, ref  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
 from repro_torch.simx import convert, runtime, simulate_workload, sweep  # noqa: E402
+from repro_torch.simx import telemetry as tlm  # noqa: E402
+from repro_torch.simx.faults import FaultSchedule  # noqa: E402
+from repro_torch.simx.provenance import COMPONENTS, decompose_delays  # noqa: E402
 from repro_torch.simx.state import SimxConfig, export_workload  # noqa: E402
 from repro_torch.workload.synth import google_like_trace, synthetic_trace  # noqa: E402
 
@@ -165,12 +191,23 @@ FIG4_POINTS = 8
 #: under faults, but no job is long, so its one match is still the pick
 FIG4_PER_ROUND = SWEEP_PER_ROUND
 
+#: the telemetry phase's rules (megha shaves to 49,984 workers) and the
+#: tasks whose provenance spans go into its Chrome trace
+TELEMETRY_RULES = ("megha", "sparrow")
+MAX_TRACE_TASKS = 5000
+#: the provenance check's tolerance on the components' sum (the
+#: reference's, tests/test_simx_provenance.py)
+COMPONENT_SUM_ATOL = 1e-4
+#: the Fig. 4 schedule the fault_provenance phase runs: fraction 0.1
+FAULT_PROVENANCE_FRACTION = 0.1
+
 #: eagle's long path: google_like_trace() at its Table 1 size (10,000 jobs,
-#: 312,558 tasks, 13,000 workers) until 100 simulated seconds (2,000
+#: 312,558 tasks, 13,000 workers) until 50 simulated seconds (1,000
 #: rounds; its last job arrives at 146.9 s, its longest task runs 2,250 s;
-#: cut from 200 s to keep the script in half its time limit)
+#: cut from 200 s, then from 100 s, to keep the script near half its time
+#: limit as phases were added)
 EAGLE_LONG_WORKERS = 13_000
-EAGLE_LONG_UNTIL = 100.0
+EAGLE_LONG_UNTIL = 50.0
 
 #: The main path's match shapes at the paper scale (8 GMs, 8 LMs), then
 #: the Fig. 2 grid's (B = 6 points; pigeon's 1,250 groups of 40 workers)
@@ -459,17 +496,24 @@ def phase_megha_plain(wl, entry: dict) -> dict:
     return out
 
 
-def phase_megha_sync(wl) -> dict:
-    """Host synchronisations of one whole run, counted by torch's
-    sync-debug mode (one warning per synchronising call)."""
+def _sync_count(fn):
+    """``fn()`` under torch's sync-debug mode: (result, host syncs counted,
+    one warning per synchronising call)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            run = simulate_workload("megha", wl, WORKERS, dt=DT, device=DEVICE)
+            out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_megha_sync(wl) -> dict:
+    """Host synchronisations of one whole run, counted by torch's
+    sync-debug mode (``_sync_count``)."""
+    run, syncs = _sync_count(lambda: simulate_workload("megha", wl, WORKERS, dt=DT,
+                                                       device=DEVICE))
     rounds = int(run.state.rnd)
     chunks = -(-rounds // 256)
     out = dict(phase="megha_sync", host_syncs=syncs, rounds=rounds,
@@ -634,12 +678,13 @@ def phase_sweep(megha: dict) -> dict:
         loads=list(SWEEP_FULL["loads"]), seeds=SWEEP_FULL["num_seeds"], points=SWEEP_POINTS,
         jobs=SWEEP_FULL["num_jobs"], tasks_per_job=SWEEP_FULL["tasks_per_job"], dt=DT),
         plan_build_s=plan_s, rules={})
-    finals = {}
+    finals, all_draws = {}, {}
     for name in SWEEP_RULES:
         plan = plans[name]
         t0 = time.perf_counter()
         draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
         draw_s = time.perf_counter() - t0
+        all_draws[name] = draws
         state, tasks, step, summ, wall, launches = _grid_run(plan, draws, True)
         p_state, _, _, _, p_wall, p_launches = _grid_run(plan, draws, False)
         o_state, _, _, _, o_wall, o_launches = _grid_run(plan, draws, True, one_point=True)
@@ -713,6 +758,7 @@ def phase_sweep(megha: dict) -> dict:
           "megha's (0.8, 0) grid point equals its standalone run")
     emit(out)
     out["_plans"] = plans
+    out["_draws"] = all_draws
     return out
 
 
@@ -848,9 +894,271 @@ def phase_fig4_profile(plans: dict) -> list[dict]:
     return out
 
 
+def _tel_run(name: str, wl, flags: bool, use_kernel: bool = True):
+    """One simulate_workload run of the telemetry phase, with telemetry and
+    provenance on or both off: (run, wall s, kernel launches, peak bytes
+    allocated above what was allocated before the run)."""
+    _reset_peak_memory()
+    base = torch.cuda.memory_allocated()
+    match.match_ranks_batched.launches = 0
+    t0 = time.perf_counter()
+    run = simulate_workload(name, wl, WORKERS, dt=DT, use_kernel=use_kernel, device=DEVICE,
+                            telemetry=tlm.TelemetryConfig() if flags else None,
+                            provenance=flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (run, wall, match.match_ranks_batched.launches,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def _timeline_np(tl) -> dict:
+    out = {"t": tl.t, "delay_hist": tl.delay_hist}
+    out.update({f"series.{k}": v for k, v in tl.series.items()})
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _arrays_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def phase_telemetry(wl) -> dict:
+    """Megha and sparrow on the megha phase's trace with telemetry and
+    provenance on: runs in turns (flags off, on, on with the plain match,
+    on, off), then one run each way under sync-debug mode."""
+    trace_dir = ROOT / "src" / "repro_torch" / "kernels" / "_build" / "traces"
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    cfg = tlm.TelemetryConfig()
+    out = dict(phase="telemetry", entry="simulate_workload(telemetry=, provenance=True)",
+               tasks=wl.num_tasks, telemetry_config=dataclasses.asdict(cfg), rules={})
+    for name in TELEMETRY_RULES:
+        runs, walls, launches, peak = {}, {}, {}, {}
+        for kind in ("off", "on", "on_plain", "on", "off"):
+            run, wall, n, mem = _tel_run(name, wl, flags=kind != "off",
+                                         use_kernel=kind != "on_plain")
+            runs.setdefault(kind, run)
+            walls.setdefault(kind, []).append(wall)
+            launches.setdefault(kind, []).append(n)
+            peak.setdefault(kind, mem)
+        off, on, plain = runs["off"], runs["on"], runs["on_plain"]
+        _, syncs_off = _sync_count(lambda: simulate_workload(
+            name, wl, WORKERS, dt=DT, device=DEVICE))
+        _, syncs_on = _sync_count(lambda: simulate_workload(
+            name, wl, WORKERS, dt=DT, device=DEVICE, telemetry=cfg, provenance=True))
+        rounds = int(off.state.rnd)
+        tl = on.timeline
+        series = tl.series
+        # the gauges account for every arrived task at every sample
+        arrived = torch.searchsorted(torch.sort(on.tasks.submit).values, tl.t, right=True)
+        accounted = (series["pending"] + series["running"] + series["completed"]).long()
+        dec = on.delay_decomposition()
+        delays = on.job_delays()
+        done = np.isfinite(delays)
+        total = sum(np.where(done, dec[k], 0.0) for k in COMPONENTS)
+        sums = {k: int(series[k].sum()) for k in ("launches", "messages", "probes",
+                                                   "inconsistencies", "view_repairs")
+                if k in series}
+        t0 = time.perf_counter()
+        spans = tlm.provenance_spans(on.provenance, on.state, on.tasks, on.cfg, pid=1,
+                                     name=name, max_tasks=MAX_TRACE_TASKS)
+        events = spans + tl.to_chrome_trace(pid=1)["traceEvents"]
+        path = trace_dir / f"{name}_telemetry_trace.json"
+        path.write_text(json.dumps({"traceEvents": events, "displayTimeUnit": "ms"}))
+        trace_s = time.perf_counter() - t0
+        wall_off, wall_on = float(np.median(walls["off"])), float(np.median(walls["on"]))
+        r = dict(
+            workers=on.cfg.num_workers, rounds=rounds, samples=tl.num_samples,
+            kernel_launches=launches["on"][0], flags_off_launches=launches["off"][0],
+            plain_run_launches=max(launches["on_plain"]),
+            host_syncs=syncs_on, flags_off_host_syncs=syncs_off,
+            host_syncs_per_round=syncs_on / rounds,
+            state_bitwise_flags_off=states_equal(on.state, off.state),
+            kernel_and_plain_bitwise=(
+                _arrays_equal(_timeline_np(tl), _timeline_np(plain.timeline))
+                and states_equal(on.provenance, plain.provenance)
+                and states_equal(on.state, plain.state)),
+            gauges_account_for_every_task=bool(torch.equal(accounted, arrived)),
+            components_finite_where_done=all(
+                np.array_equal(np.isfinite(dec[k]), done) for k in COMPONENTS),
+            component_sum_max_abs_err=float(np.max(np.abs(total[done] - delays[done]))),
+            series_totals=sums,
+            state_totals=dict(messages=int(on.state.messages), probes=int(on.state.probes),
+                              inconsistencies=int(on.state.inconsistencies)),
+            requeues=int(on.provenance.requeue_count.sum()),
+            stale_retries=int(on.provenance.stale_retry_count.sum()),
+            mean_delay=float(np.nanmean(delays)),
+            mean_components={k: float(np.nanmean(dec[k])) for k in COMPONENTS},
+            delay_hist=tl.delay_hist.tolist(),
+            walls_s=walls["on"], flags_off_walls_s=walls["off"], plain_walls_s=walls["on_plain"],
+            wall_s=wall_on, flags_off_wall_s=wall_off, wall_ratio=wall_on / wall_off,
+            ms_per_round=wall_on / rounds * 1e3, flags_off_ms_per_round=wall_off / rounds * 1e3,
+            peak_bytes=peak["on"], flags_off_peak_bytes=peak["off"],
+            trace_file=str(path.relative_to(ROOT)), trace_bytes=path.stat().st_size,
+            trace_events=len(events), trace_span_tasks=min(MAX_TRACE_TASKS, on.tasks_completed),
+            trace_s=trace_s,
+        )
+        check(on.tasks_completed == wl.num_tasks, f"telemetry {name}: completes every task")
+        check(r["state_bitwise_flags_off"], f"telemetry {name}: state bitwise the flags-off run's")
+        check(r["kernel_and_plain_bitwise"],
+              f"telemetry {name}: Timeline, Provenance and state bitwise kernel = plain")
+        check(r["gauges_account_for_every_task"],
+              f"telemetry {name}: pending + running + completed = arrived at every sample")
+        check(r["components_finite_where_done"]
+              and r["component_sum_max_abs_err"] <= COMPONENT_SUM_ATOL,
+              f"telemetry {name}: the components sum to the job delays")
+        check(set(launches["on"]) == set(launches["off"]) and launches["on"][0] > 0,
+              f"telemetry {name}: the flags add no kernel launch")
+        check(r["plain_run_launches"] == 0, f"telemetry {name}: the plain run launches no kernel")
+        check(syncs_on == syncs_off and syncs_on >= -(-rounds // 256),
+              f"telemetry {name}: the flags add no host sync")
+        if rounds % cfg.stride == 0:
+            check(all(sums[k] == r["state_totals"][k] for k in r["state_totals"]),
+                  f"telemetry {name}: the series' counters sum to the state's")
+        out["rules"][name] = r
+    emit(out)
+    return out
+
+
+def phase_telemetry_profile(wl) -> list[dict]:
+    """Rounds 128-192 of megha's and sparrow's steps on the telemetry
+    phase's trace under torch.profiler, with both stages off and on (the
+    telemetry step's counters are computed and dropped; the window-end
+    gauges, one sample in 8 rounds, are left out)."""
+    from repro_torch.simx.provenance import init_provenance
+
+    tasks = export_workload(wl, DEVICE)
+    out = []
+    for name, workers, kernel in (("megha", GRID_WORKERS, "match_batched_wide_kernel"),
+                                  ("sparrow", WORKERS, "match_batched_narrow_kernel")):
+        cfg = SimxConfig(num_workers=workers, dt=DT)
+        rule = runtime.get_rule(name)
+        draws = runtime.rule_draws(rule, cfg, tasks, 0)
+        for flags in (False, True):
+            step = rule.build_step(cfg, tasks, draws, match_fn=runtime.default_match_fn(True),
+                                   telemetry=flags, provenance=flags)
+            state = rule.init(cfg, tasks)
+            if flags:
+                state = (state, init_provenance(tasks.num_tasks, DEVICE))
+                step = (lambda tel_step: lambda c: tel_step(c)[0])(step)
+            r = dict(phase="telemetry_profile", scheduler=name, stages=flags,
+                     **_profile_rounds(step, state, start=128, length=64, kernel=kernel))
+            check(r["device_ops_per_round"] > 0, f"the profiler saw {name}'s device work")
+            check(r["match_kernel_launches"] >= 64, f"{name}'s window ran its kernel")
+            emit(r)
+            out.append(r)
+    return out
+
+
+def phase_breakdown(swp: dict, plans: dict, draws: dict) -> dict:
+    """The sweep phase's Fig. 2 grids again, with provenance: every column
+    of the sweep phase plus mean_<component>, and each rule's oracle gap
+    split by component."""
+    out = dict(phase="breakdown", entry="sweep_grid(provenance=True)", points=SWEEP_POINTS,
+               components=list(COMPONENTS), rules={})
+    cols = {}
+    for name in SWEEP_RULES:
+        plan = plans[name]
+        match.match_ranks_batched.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = sweep.sweep_grid(
+            plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+            plan.seeds, plan.num_rounds, match_fn=runtime.default_match_fn(True),
+            draws=draws[name], provenance=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = match.match_ranks_batched.launches
+        summ = {k: v.reshape(-1).cpu().numpy() for k, v in grid.items()}
+        ref = swp["rules"][name]
+        total = sum(summ[f"mean_{k}"] for k in COMPONENTS)
+        r = dict(
+            kernel_launches=launches, flags_off_launches=ref["kernel_launches"],
+            columns_equal_sweep=all(
+                np.array_equal(summ[k], np.asarray(v), equal_nan=True)
+                for k, v in ref["summary"].items()),
+            mean=summ["mean"].tolist(),
+            **{f"mean_{k}": summ[f"mean_{k}"].tolist() for k in COMPONENTS},
+            component_sum_max_abs_err=float(np.max(np.abs(total - summ["mean"]))),
+            wall_s=wall, flags_off_wall_s=ref["wall_s"], wall_ratio=wall / ref["wall_s"],
+            ms_per_round=wall / plan.num_rounds * 1e3,
+        )
+        check(r["columns_equal_sweep"], f"breakdown {name}: the sweep phase's columns")
+        check(r["component_sum_max_abs_err"] <= COMPONENT_SUM_ATOL,
+              f"breakdown {name}: mean_<component> sums to mean")
+        check(not np.any(summ["mean_fault_rework"]), f"breakdown {name}: no fault rework")
+        retry = summ["mean_inconsistency_retry"]
+        check(bool(np.any(retry > 0)) if name == "megha" else not np.any(retry),
+              f"breakdown {name}: inconsistency retries for megha only")
+        check(launches == ref["kernel_launches"] > 0,
+              f"breakdown {name}: the flag adds no kernel launch")
+        out["rules"][name] = r
+        cols[name] = summ
+    # each rule's gap above the oracle at every point, by component
+    for name in SWEEP_RULES:
+        out["rules"][name]["oracle_gap"] = {
+            k: (cols[name][k] - cols["oracle"][k]).tolist()
+            for k in ["mean"] + [f"mean_{c}" for c in COMPONENTS]}
+    emit(out)
+    return out
+
+
+def phase_fault_provenance(fig4: dict, plans: dict) -> dict:
+    """Megha under the Fig. 4 fraction-0.1 schedule (seed 0's draws) as one
+    run with provenance: the lost tasks' requeues and rework."""
+    plan = plans["megha"]
+    fi = list(FIG4_FULL["fractions"]).index(FAULT_PROVENANCE_FRACTION)
+    row = FaultSchedule(**{f.name: getattr(plan.schedules, f.name)[fi]
+                           for f in dataclasses.fields(FaultSchedule)})
+    draws = {k: v[0] for k, v in sweep.seed_draws("megha", plan.cfg, plan.tasks,
+                                                   plan.seeds[:1]).items()}
+    match.match_ranks_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, prov = runtime.simulate_fixed(
+        "megha", plan.cfg, plan.tasks, draws, plan.num_rounds,
+        match_fn=runtime.default_match_fn(True), faults=row, provenance=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = match.match_ranks_batched.launches
+    dec = decompose_delays(prov, state.task_finish, state.t, plan.tasks, plan.cfg.dt)
+    delays = dec["delays"]
+    total = sum(torch.where(torch.isfinite(delays), dec[k], 0.0) for k in COMPONENTS)
+    done = torch.isfinite(delays)
+    out = dict(
+        phase="fault_provenance", entry="simulate_fixed(faults=, provenance=True)",
+        workers=plan.cfg.num_workers, tasks=plan.tasks.num_tasks, rounds=plan.num_rounds,
+        fraction=FAULT_PROVENANCE_FRACTION, seed=0,
+        crashed_workers=int(torch.isfinite(row.worker_down).sum()),
+        gms_down=int(torch.isfinite(row.gm_down).sum()),
+        tasks_done=int((state.task_finish <= state.t).sum()),
+        lost=int(state.lost), requeues=int(prov.requeue_count.sum()),
+        fig4_grid_lost=fig4["rules"]["megha"]["lost"][fi][0],
+        tasks_requeued=int((prov.requeue_count > 0).sum()),
+        max_requeues=int(prov.requeue_count.max()),
+        stale_retries=int(prov.stale_retry_count.sum()),
+        fault_rework_sum_s=float(torch.nansum(dec["fault_rework"])),
+        jobs_with_rework=int((dec["fault_rework"] > 0).sum()),
+        mean_delay=float(torch.nanmean(delays)),
+        mean_components={k: float(torch.nanmean(dec[k])) for k in COMPONENTS},
+        component_sum_max_abs_err=float((total - torch.where(done, delays, 0.0)).abs().max()),
+        kernel_launches=launches, wall_s=wall, ms_per_round=wall / plan.num_rounds * 1e3,
+    )
+    check(out["tasks_done"] == plan.tasks.num_tasks, "fault_provenance: every task completes")
+    check(out["requeues"] > 0 and out["requeues"] == out["lost"],
+          "fault_provenance: each lost task is requeued once")
+    check(out["lost"] == out["fig4_grid_lost"], "fault_provenance: the Fig. 4 grid's point")
+    check(out["fault_rework_sum_s"] > 0, "fault_provenance: fault rework above 0")
+    check(out["component_sum_max_abs_err"] <= COMPONENT_SUM_ATOL,
+          "fault_provenance: the components sum to the job delays")
+    check(launches > 0, "fault_provenance: launched the kernel")
+    emit(out)
+    return out
+
+
 def phase_eagle_long() -> dict:
     """Eagle's SSS and central long match, which the synthetic trace never
-    reaches: ``google_like_trace()`` at 13,000 workers until 100 s, first
+    reaches: ``google_like_trace()`` at 13,000 workers until 50 s, first
     through ``run_simulation`` (whose launches count), then kernel and
     plain runs of ``simulate_workload`` whose final states must agree."""
     wl = google_like_trace()
@@ -1329,10 +1637,18 @@ def main() -> int:
     emit(megha)
     phase_megha_profile(wl)
     orc = phase_oracle(wl, megha)
+    tel = phase_telemetry(wl)
+    phase_telemetry_profile(wl)
     swp = phase_sweep(megha)
-    phase_sweep_profile(swp.pop("_plans"))
+    sweep_plans, sweep_draws = swp.pop("_plans"), swp.pop("_draws")
+    phase_sweep_profile(sweep_plans)
+    brk = phase_breakdown(swp, sweep_plans, sweep_draws)
+    del sweep_plans, sweep_draws
     fig4 = phase_fig4()
-    phase_fig4_profile(fig4.pop("_plans"))
+    fig4_plans = fig4.pop("_plans")
+    phase_fig4_profile(fig4_plans)
+    fprov = phase_fault_provenance(fig4, fig4_plans)
+    del fig4_plans
     elong = phase_eagle_long()
     serve = phase_serve()
     phase_serve_profile()
@@ -1355,7 +1671,11 @@ def main() -> int:
             eagle=swp["rules"]["eagle"]["kernel_launches"],
             eagle_long=elong["kernel_launches"],
             fig4=sum(r["kernel_launches"] for r in fig4["rules"].values()),
-            fig4_by_rule={k: r["kernel_launches"] for k, r in fig4["rules"].items()}),
+            fig4_by_rule={k: r["kernel_launches"] for k, r in fig4["rules"].items()},
+            telemetry_by_rule={k: r["kernel_launches"] for k, r in tel["rules"].items()},
+            breakdown=sum(r["kernel_launches"] for r in brk["rules"].values()),
+            breakdown_by_rule={k: r["kernel_launches"] for k, r in brk["rules"].items()},
+            fault_provenance=fprov["kernel_launches"]),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],

@@ -1,9 +1,11 @@
 """Scheduler metrics: JCT / delay decomposition (paper §2.3.1, Eq. 1-5).
 
-A copy of ``TaskRecord``, ``JobRecord``, ``RunMetrics``, ``percentile`` and
+A copy of ``TaskRecord``, ``JobRecord``, ``RunMetrics``,
+``PROVENANCE_COMPONENTS``, ``job_delay_decomposition``, ``percentile`` and
 ``classify_long`` from ``repro/core/metrics.py``, so the port's
 ``SimxRun.to_run_metrics`` builds the same records (and the same
-``summary()``) without importing the reference.
+``summary()``), and the event backend's delay breakdown is the same,
+without importing the reference.
 """
 
 from __future__ import annotations
@@ -130,6 +132,69 @@ class RunMetrics:
             out[f"{name}_p95_delay"] = percentile(d, 95)
             out[f"{name}_mean_delay"] = sum(d) / len(d) if d else math.nan
         return out
+
+
+#: the four provenance components, matching ``repro_torch.simx.provenance.COMPONENTS``
+PROVENANCE_COMPONENTS = (
+    "eligible_wait",
+    "placement_wait",
+    "inconsistency_retry",
+    "fault_rework",
+)
+
+
+def job_delay_decomposition(metrics: RunMetrics) -> dict:
+    """Split each finished job's Eq. 2 delay into the four provenance
+    components — the event-backend mirror of
+    ``repro_torch.simx.provenance.decompose_delays``, with continuous event
+    times where simx counts rounds.
+
+    Per job the attribution follows its critical (last-finishing) task,
+    ties broken to the highest task index:
+
+      * ``eligible_wait``       — submit -> the critical task's first
+        scheduler attempt, anchored inside [submit, start].
+      * ``inconsistency_retry`` — its accumulated ``stale_retry_time``.
+      * ``fault_rework``        — final start - first start (re-runs).
+      * ``placement_wait``      — the residual.
+
+    Retry and rework are clipped into the remaining budget in sequence, so
+    the components telescope exactly to the job delay.  Returns one list
+    per key, aligned with ``metrics.jobs`` (NaN for unfinished jobs)."""
+    by_job: dict[int, list[TaskRecord]] = {}
+    for tr in metrics.tasks:
+        by_job.setdefault(tr.job_id, []).append(tr)
+    out: dict[str, list[float]] = {
+        k: [] for k in ("delays",) + PROVENANCE_COMPONENTS
+    }
+    for j in metrics.jobs:
+        trs = by_job.get(j.job_id, [])
+        if math.isnan(j.finish_time) or not trs:
+            for k in out:
+                out[k].append(math.nan)
+            continue
+        fmax = max(t.finish_time for t in trs)
+        ci = max(
+            (t for t in trs if t.finish_time == fmax),
+            key=lambda t: t.task_index,
+        )
+        d = j.delay
+        start = ci.finish_time - ci.duration
+        submit = ci.submit_time
+        attempt = submit if math.isnan(ci.first_attempt_time) else ci.first_attempt_time
+        anchor = min(max(attempt, submit), max(start, submit))
+        eligible = min(max(anchor - submit, 0.0), d)
+        retry = min(max(ci.stale_retry_time, 0.0), d - eligible)
+        first_start = (
+            start if math.isnan(ci.first_start_time) else ci.first_start_time
+        )
+        rework = min(max(start - first_start, 0.0), d - eligible - retry)
+        out["delays"].append(d)
+        out["eligible_wait"].append(eligible)
+        out["inconsistency_retry"].append(retry)
+        out["fault_rework"].append(rework)
+        out["placement_wait"].append(d - (eligible + retry + rework))
+    return out
 
 
 def percentile(xs: Sequence[float], p: float) -> float:

@@ -8,7 +8,10 @@ kernel (``repro_torch.kernels``).  Select it via
 whole Fig. 2 (load x seed) grid as one batched program with
 ``fig2_sweep``, and the Fig. 4 (fault severity x seed) grid with
 ``fig4_sweep``.  Faults enter a run as a ``FaultPlan`` or a dense
-``FaultSchedule`` (``faults=``).
+``FaultSchedule`` (``faults=``); telemetry (``TelemetryConfig`` ->
+``SimxRun.timeline``) and delay provenance (``provenance=True`` ->
+``SimxRun.provenance``, ``mean_<component>`` sweep columns) are optional
+stages of the same runs.
 """
 
 from repro_torch.simx.engine import (
@@ -26,6 +29,12 @@ from repro_torch.simx.faults import (
     fault_grid_schedule,
     is_empty,
     jobs_with_reservation,
+)
+from repro_torch.simx.provenance import (
+    COMPONENTS,
+    Provenance,
+    decompose_delays,
+    init_provenance,
 )
 from repro_torch.simx.runtime import (
     RULES,
@@ -70,8 +79,15 @@ from repro_torch.simx.sweep import (
     probe_memory_bytes,
     sweep_grid,
 )
+from repro_torch.simx.telemetry import TelemetryConfig, Timeline
 
 __all__ = [
+    "COMPONENTS",
+    "Provenance",
+    "TelemetryConfig",
+    "Timeline",
+    "decompose_delays",
+    "init_provenance",
     "RULES",
     "Draws",
     "Rule",

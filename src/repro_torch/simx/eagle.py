@@ -1,6 +1,5 @@
 """Eagle transition rule for the simx round-stepped backend (port of
-``repro/simx/eagle.py``, without telemetry, provenance or the streaming
-``EagleLayout``).
+``repro/simx/eagle.py``, without the streaming ``EagleLayout``).
 
 Hybrid scheduling with Succinct State Sharing (SSS) and sticky batch
 probing (paper §2.2.3), over dense tensors:
@@ -50,6 +49,7 @@ from repro_torch.simx.sparrow import (
     insert_probes,
     job_starts,
     late_bind,
+    probe_attempt,
     probe_mask,
     probe_targets,
     probe_window_slice,
@@ -80,6 +80,8 @@ def make_eagle_step(
     draws: dict,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[EagleState], EagleState]:
     """Build the one-round transition function on ``tasks``' device, under
     the fault schedule ``faults`` if one is given.
@@ -101,7 +103,13 @@ def make_eagle_step(
     read busy until recovery; SSS also bounces probe edges off dead
     workers, and orphan rescue counts only reservations on live workers.
     ``faults=None`` builds the fault-free step; an empty schedule is
-    bitwise the same run."""
+    bitwise the same run.
+
+    ``telemetry`` adds the per-round ``launches`` and ``sss_rejections``
+    counters; ``provenance`` the extras ``attempt`` (short-path probes
+    inserted or orphan-rescued, or the long task in the central queued
+    window) and ``authority`` (the job's home scheduler, ``job % num_gms``,
+    for short jobs, entity ``num_gms`` for the central scheduler)."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -181,7 +189,7 @@ def make_eagle_step(
                      + torch.sum(rej1, dim=-1, dtype=_I32))
         else:
             wfin = win_w
-            n_rej = 0
+            n_rej = torch.zeros_like(lead) if telemetry else 0
         resq, n_over = insert_probes(resq, fill, wfin, win_j, ins)
         head = s.probe_head + lead
         probes = s.probes + lead + n_rej
@@ -217,6 +225,9 @@ def make_eagle_step(
         task_finish, worker_finish, worker_task = apply_launch(
             launch2, task2, start, task_finish, worker_finish, worker_task)
         messages = messages + 2 * torch.sum(launch2, dim=-1, dtype=_I32)
+        if telemetry:
+            n_launch = (torch.sum(launch1, dim=-1, dtype=_I32)
+                        + torch.sum(launch2, dim=-1, dtype=_I32))
 
         # -- 4. central scheduler: queued long window -> free long partition
         if use_central:
@@ -236,11 +247,13 @@ def make_eagle_step(
             task_finish, worker_finish, worker_task = apply_launch(
                 launch3, sel_task, start, task_finish, worker_finish, worker_task)
             messages = messages + torch.sum(launch3, dim=-1, dtype=_I32)
+            if telemetry:
+                n_launch = n_launch + torch.sum(launch3, dim=-1, dtype=_I32)
             # advance the head past the launched prefix
             launched2 = rt.window_launched(rt.finish_pad(task_finish), wtask, T)
             long_head = torch.clamp(long_head + rt.launched_lead(launched2), max=NL)
 
-        return dict(
+        upd = dict(
             task_finish=task_finish,
             worker_finish=worker_finish,
             worker_task=worker_task,
@@ -252,8 +265,23 @@ def make_eagle_step(
             messages=messages,
             probes=probes,
         )
+        if telemetry:
+            upd["telemetry"] = dict(launches=n_launch, sss_rejections=n_rej)
+        if provenance:
+            attempt = probe_attempt(win_j, ins, orphan, tasks.job)
+            if use_central:
+                # the long tasks of the central scheduler's queued window,
+                # written into a pad slot T that is cut off
+                attempt = attempt | torch.zeros(
+                    (B, T + 1), dtype=torch.bool, device=dev).scatter(
+                    -1, torch.where(queued, wtask, T).to(_I64), True)[:, :T]
+            wt = torch.clamp(worker_task, max=T).to(_I64)
+            aj = torch.clamp(job_pad[wt], max=J - 1) % cfg.num_gms
+            upd["provenance"] = dict(attempt=attempt, authority=torch.where(
+                long_task[wt], cfg.num_gms, aj).to(_I32))
+        return upd
 
-    return rt.compose_step(cfg, tasks, dispatch, faults)
+    return rt.compose_step(cfg, tasks, dispatch, faults, telemetry, provenance)
 
 
 def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
@@ -276,8 +304,10 @@ def _build_step(
     *,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[EagleState], EagleState]:
-    return make_eagle_step(cfg, tasks, draws, match_fn, faults)
+    return make_eagle_step(cfg, tasks, draws, match_fn, faults, telemetry, provenance)
 
 
 RULE = rt.register_rule(

@@ -11,7 +11,10 @@ priority.
 The reference runs ``chunk`` rounds per jitted ``lax.scan`` and reads the
 all-done probe once per chunk; the port runs the same rounds as a Python
 loop and reads the probe at the same points, so the final ``t``/``rnd``
-(and every delay) are the reference's.
+(and every delay) are the reference's.  ``simulate_workload(telemetry=,
+provenance=)`` adds the optional stages (``repro_torch.simx.telemetry``,
+``repro_torch.simx.provenance``) without another host read: the probe
+stays the one read a chunk.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from repro_torch.core.base import LONG_JOB_THRESHOLD, grid_workers
 from repro_torch.core.metrics import JobRecord, RunMetrics, TaskRecord, classify_long
 from repro_torch.device import resolve_device
 from repro_torch.simx import runtime
+from repro_torch.simx import telemetry as tlm
 from repro_torch.simx.faults import FaultPlan, FaultSchedule, is_empty
+from repro_torch.simx.provenance import Provenance, decompose_delays, init_provenance
 
 # importing the rule modules registers them (the paper schedulers, then
 # the oracle baseline), in the reference's order
@@ -38,6 +43,7 @@ from repro_torch.simx import pigeon as simx_pigeon  # noqa: F401
 from repro_torch.simx import oracle as simx_oracle  # noqa: F401
 from repro_torch.simx.runtime import scan_rounds
 from repro_torch.simx.state import CoreState, SimxConfig, TaskArrays, export_workload
+from repro_torch.simx.telemetry import TelemetryConfig, Timeline
 from repro_torch.workload.traces import Workload
 
 
@@ -45,11 +51,18 @@ def make_chunk_runner(step: Callable, chunk: int = 256) -> Callable:
     """A ``chunk``-round advance of ``step`` that also returns the all-done
     probe (a device bool: reading it is the caller's host sync)."""
 
-    def run(state):
-        state = scan_rounds(step, state, chunk)
-        return state, torch.all(state.task_finish <= state.t)
+    def run(carry):
+        carry = scan_rounds(step, carry, chunk)
+        return carry, all_done(carry)
 
     return run
+
+
+def all_done(carry) -> torch.Tensor:
+    """The all-done probe of a carry: every task's finish time has passed
+    the clock (a device bool)."""
+    s = runtime.carry_state(carry)
+    return torch.all(s.task_finish <= runtime.lift(s.t, s.task_finish))
 
 
 def _run_tail(step: Callable, state, n: int):
@@ -84,6 +97,54 @@ def run_to_completion(
     return state
 
 
+def run_to_completion_telemetry(
+    step: Callable,
+    state,
+    tel: TelemetryConfig,
+    cfg: SimxConfig,
+    tasks: TaskArrays,
+    *,
+    faults: FaultSchedule | None = None,
+    chunk: int = 256,
+    max_rounds: int = 1_000_000,
+) -> tuple:
+    """Telemetry counterpart of ``run_to_completion``: drive a step built
+    with telemetry (it returns ``(carry, counters)``) in chunks of whole
+    telemetry windows, keeping the series on the device.  Returns
+    ``(carry, Timeline)``.
+
+    The chunk is rounded down to a multiple of ``tel.stride`` (at least
+    one window), as the reference rounds it, so that the series match; a
+    final partial chunk keeps ``max_rounds`` exact, its trailing ``<
+    stride`` rounds advancing the state unsampled.  The done probe is
+    read once a chunk, as in ``run_to_completion``."""
+    runtime.check_round_budget(max_rounds, "run_to_completion_telemetry(max_rounds=...)")
+    if not runtime.is_batched(runtime.carry_state(state)):
+        carry, tl = run_to_completion_telemetry(
+            step, runtime.batch_carry(state), tel, cfg, tasks, faults=faults,
+            chunk=chunk, max_rounds=max_rounds)
+        return runtime.unbatch_carry(carry), tlm.unbatch_timeline(tl)
+    stride = tel.stride
+    chunk = max(stride, (chunk // stride) * stride)
+    sample_fn = tlm.default_sample_fn(cfg, tasks, faults)
+    blocks: list[dict] = []
+    rounds = 0
+    while rounds < max_rounds:
+        n = min(chunk, max_rounds - rounds)
+        k = n // stride
+        if k:
+            state, series = tlm.scan_blocks(step, state, k, stride, sample_fn)
+            blocks.append(series)
+        if n - k * stride:
+            state = tlm.advance_plain(step, state, n - k * stride)
+        rounds += n
+        if bool(all_done(state)):
+            break
+    series = ({key: torch.cat([b[key] for b in blocks], dim=-1) for key in blocks[0]}
+              if blocks else {})
+    return state, tlm.make_timeline(series, state, tasks, tel, cfg)
+
+
 def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays, slack: float = 4.0) -> int:
     """Upper-bound round count: arrival span + ``slack`` x the perfectly
     packed drain time + the longest task + one heartbeat interval.  The duration
@@ -104,7 +165,9 @@ def estimate_rounds(cfg: SimxConfig, tasks: TaskArrays, slack: float = 4.0) -> i
 class SimxRun:
     """A finished simx simulation plus everything needed to report it.
     ``borrow_rounds`` counts the rounds that ran megha's borrow pass (each
-    one a second match launch); it is 0 for the other rules."""
+    one a second match launch); it is 0 for the other rules.  ``timeline``
+    and ``provenance`` are the optional stages' results (None when the run
+    was built without them)."""
 
     scheduler: str
     workload_name: str
@@ -112,6 +175,8 @@ class SimxRun:
     tasks: TaskArrays
     state: CoreState
     borrow_rounds: int = 0
+    timeline: Optional[Timeline] = None
+    provenance: Optional[Provenance] = None
 
     @property
     def end_time(self) -> float:
@@ -141,6 +206,27 @@ class SimxRun:
             self.state.task_finish, self.state.t, self.tasks
         )
         return delays.cpu().numpy().astype(np.float64)
+
+    def _need_provenance(self) -> Provenance:
+        if self.provenance is None:
+            raise ValueError(
+                "run was built without provenance (simulate_workload(..., provenance=True))")
+        return self.provenance
+
+    def delay_decomposition(self) -> dict[str, np.ndarray]:
+        """Per-job delay split into the four provenance components (each
+        float64[J], nan for unfinished jobs), summing to ``job_delays()``.
+        Requires ``simulate_workload(provenance=True)``."""
+        d = decompose_delays(self._need_provenance(), self.state.task_finish, self.state.t,
+                             self.tasks, self.cfg.dt)
+        return {k: v.cpu().numpy().astype(np.float64) for k, v in d.items()}
+
+    def span_events(self, pid: int = 1) -> list[dict]:
+        """Chrome trace ``ph: "X"`` duration spans of this run's tasks on
+        per-GM and per-worker tracks (``telemetry.provenance_spans``).
+        Requires ``simulate_workload(provenance=True)``."""
+        return tlm.provenance_spans(self._need_provenance(), self.state, self.tasks, self.cfg,
+                                    pid=pid, name=self.scheduler)
 
     def to_run_metrics(self) -> RunMetrics:
         """Materialize ``RunMetrics`` records so event-backend consumers
@@ -236,6 +322,8 @@ def simulate_workload(
     draws: Optional[dict] = None,
     device=None,
     faults: FaultSchedule | FaultPlan | None = None,
+    telemetry: TelemetryConfig | bool | None = None,
+    provenance: bool = False,
 ) -> SimxRun:
     """Run one (scheduler, workload) simx simulation to completion on
     ``device`` (``None`` = the CUDA card).
@@ -256,7 +344,14 @@ def simulate_workload(
     the round step; an empty one builds the fault-free step.  Outages park
     work until recovery, so without ``max_rounds`` the round cap grows past
     the last finite recovery by a heartbeat interval, as in the
-    reference."""
+    reference.
+
+    ``telemetry`` (a ``TelemetryConfig``, or ``True`` for the defaults)
+    collects the decimated series and the delay histogram into
+    ``SimxRun.timeline``; ``provenance=True`` carries the per-task
+    lifecycle arrays into ``SimxRun.provenance`` (``delay_decomposition()``,
+    ``span_events()``).  Without them the run is the one without either
+    stage, bitwise."""
     dev = resolve_device(device)
     name = scheduler.lower()
     rule = runtime.get_rule(name)
@@ -298,11 +393,16 @@ def simulate_workload(
         else:
             faults = faults.to(dev)
     draws = runtime.orders_as_draws(orders, draws)
+    if telemetry is True:
+        telemetry = TelemetryConfig()
     step = rule.build_step(
         cfg, tasks, runtime.rule_draws(rule, cfg, tasks, seed if draws is None else draws),
         match_fn=runtime.default_match_fn(use_kernel), faults=faults,
+        telemetry=telemetry is not None, provenance=provenance,
     )
     state = rule.init(cfg, tasks)
+    if provenance:
+        state = (state, init_provenance(tasks.num_tasks, dev))
     cap = max_rounds if max_rounds is not None else estimate_rounds(cfg, tasks)
     if max_rounds is None and faults is not None:
         # outages park work until recovery: extend the horizon past the last
@@ -313,7 +413,14 @@ def simulate_workload(
             cap += int(math.ceil(float(finite.max()) / dt)) + cfg.heartbeat_rounds
     if until is not None:
         cap = min(cap, int(math.ceil(until / dt)))
-    state = run_to_completion(step, state, chunk=chunk, max_rounds=cap)
+    timeline = prov = None
+    if telemetry is None:
+        state = run_to_completion(step, state, chunk=chunk, max_rounds=cap)
+    else:
+        state, timeline = run_to_completion_telemetry(
+            step, state, telemetry, cfg, tasks, faults=faults, chunk=chunk, max_rounds=cap)
+    if provenance:
+        state, prov = state
     return SimxRun(
         scheduler=name,
         workload_name=workload.name,
@@ -321,4 +428,6 @@ def simulate_workload(
         tasks=tasks,
         state=state,
         borrow_rounds=getattr(step, "borrow_rounds", 0),
+        timeline=timeline,
+        provenance=prov,
     )

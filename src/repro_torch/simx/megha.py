@@ -1,6 +1,5 @@
 """Megha transition rule for the simx round-stepped backend (port of
-``repro/simx/megha.py``, without telemetry, provenance or the streaming
-layout).
+``repro/simx/megha.py``, without the streaming layout).
 
 One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
 
@@ -79,6 +78,8 @@ def make_megha_step(
     orders: torch.Tensor,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[MeghaState], MeghaState]:
     """Build the one-round transition function on ``tasks``' device, under
     the fault schedule ``faults`` (leaves shared or one per point) if one
@@ -112,7 +113,14 @@ def make_megha_step(
     adoption map are per point; both matches read the adopter's view
     (``view[adopt]``, a gather along G per point), and a rejected proposal
     refreshes the adopter's view (a max-scatter along G, whose order does
-    not matter)."""
+    not matter).
+
+    ``telemetry`` adds the per-round ``launches`` and piggybacked [GM, LM]
+    ``view_repairs`` counters; ``provenance`` the extras ``attempt``
+    (every queued task of a GM window), ``stale`` (invalid proposals per
+    task) and ``authority`` (the launching GM).  The borrow pass's share of
+    each reaches only the points that needed the pass, through the same
+    select as the state."""
     if match_fn is None:
         match_fn = default_match_fn()
     cfg.validate_megha_grid()
@@ -271,6 +279,22 @@ def make_megha_step(
         batch_gl = (proposed_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
         messages = messages + 2 * torch.sum(batch_gl, dim=(1, 2), dtype=torch.int32)
         repartitions = s.repartitions
+        extra = ()
+        if telemetry:
+            # launches + piggybacked [GM, LM] view repairs (§3.4.1)
+            extra += (torch.sum(launch_w, dim=-1, dtype=torch.int32),
+                      torch.sum(inval_gl, dim=(1, 2), dtype=torch.int32))
+        if provenance:
+            # attempt = every queued task of a GM window (ranked this
+            # round); stale = per-task invalid proposals (§3.4), each
+            # written into a pad slot T that is cut off
+            att = torch.zeros((B, T + 1), dtype=torch.bool, device=dev).scatter(
+                -1, torch.where(queued_w, wtask, T).reshape(B, -1).to(torch.int64), True)
+            prov_attempt = att[:, :T]
+            stale_pad = torch.zeros((B, T + 1), dtype=torch.int32, device=dev).scatter_add(
+                -1, torch.where(invalid_i, sel_task_i, T).reshape(B, -1).to(torch.int64),
+                torch.ones((B, G * wi), dtype=torch.int32, device=dev))
+            extra += (stale_pad,)
 
         # -- 4. borrow match (full [B, G, W] pass, only when queues outrun
         #       the internal views): a host read of the any-point flag -----
@@ -284,7 +308,7 @@ def make_megha_step(
             # kept only when points may disagree: at B = 1 holding them
             # would keep a second task_finish alive through the pass
             old = (task_finish, worker_finish, worker_task, worker_gm, worker_borrowed,
-                   view, inconsistencies, repartitions, messages) if B > 1 else None
+                   view, inconsistencies, repartitions, messages) + extra if B > 1 else None
             fpad2 = rt.finish_pad(task_finish)
             launched2 = rt.window_launched(fpad2, wtask, T)
             queued2 = ~launched2 & (wsubmit <= t3)
@@ -334,21 +358,31 @@ def make_megha_step(
             view = piggyback(view, truth, inval2_gl, adopt)
             batch2 = proposed.reshape(B, G, L, wpl).any(dim=-1)
             messages = messages + 2 * torch.sum(batch2, dim=(1, 2), dtype=torch.int32)
+            if telemetry:
+                extra = (extra[0] + torch.sum(launch, dim=-1, dtype=torch.int32),
+                         extra[1] + torch.sum(inval2_gl, dim=(1, 2), dtype=torch.int32)
+                         ) + extra[2:]
+            if provenance:
+                stale_pad = extra[-1].scatter_add(
+                    -1, torch.where(invalid, prop, T).reshape(B, -1).to(torch.int64),
+                    torch.ones((B, G * W), dtype=torch.int32, device=dev))
+                extra = extra[:-1] + (stale_pad,)
             if B > 1:
                 # a point that did not need the pass still proposed in it
                 # (its inconsistent proposals count): keep its old values
                 new = (task_finish, worker_finish, worker_task, worker_gm,
-                       worker_borrowed, view, inconsistencies, repartitions, messages)
+                       worker_borrowed, view, inconsistencies, repartitions,
+                       messages) + extra
                 (task_finish, worker_finish, worker_task, worker_gm,
-                 worker_borrowed, view, inconsistencies, repartitions, messages) = (
-                    torch.where(rt.lift(need_b, a), a, b) for a, b in zip(new, old))
+                 worker_borrowed, view, inconsistencies, repartitions, messages,
+                 *extra) = (torch.where(rt.lift(need_b, a), a, b) for a, b in zip(new, old))
 
         # -- 5. advance each GM's FIFO head past its launched prefix --------
         fpad3 = rt.finish_pad(task_finish)
         launched3 = rt.window_launched(fpad3, wtask, T)            # bool[B,G,C]
         head = torch.clamp(head0 + rt.launched_lead(launched3), max=tg)
 
-        return dict(
+        upd = dict(
             task_finish=task_finish,
             head=head,
             worker_finish=worker_finish,
@@ -360,8 +394,14 @@ def make_megha_step(
             repartitions=repartitions,
             messages=messages,
         )
+        if telemetry:
+            upd["telemetry"] = dict(launches=extra[0], view_repairs=extra[1])
+        if provenance:
+            upd["provenance"] = dict(attempt=prov_attempt, stale=extra[-1][:, :T],
+                                     authority=worker_gm)
+        return upd
 
-    step = rt.compose_step(cfg, tasks, dispatch, faults)
+    step = rt.compose_step(cfg, tasks, dispatch, faults, telemetry, provenance)
     step.borrow_rounds = 0
     step.point_borrow_rounds = None
     return step
@@ -374,8 +414,10 @@ def _build_step(
     *,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[MeghaState], MeghaState]:
-    return make_megha_step(cfg, tasks, draws["orders"], match_fn, faults)
+    return make_megha_step(cfg, tasks, draws["orders"], match_fn, faults, telemetry, provenance)
 
 
 RULE = rt.register_rule(

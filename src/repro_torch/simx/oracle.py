@@ -1,5 +1,5 @@
 """Omniscient centralized oracle — the global-knowledge lower bound (port
-of ``repro/simx/oracle.py``, without telemetry or provenance).
+of ``repro/simx/oracle.py``).
 
 One centralized scheduler with perfect, instant knowledge of every worker
 serves one global FIFO: each round every queued task in the head window is
@@ -32,6 +32,8 @@ def make_oracle_step(
     tasks: TaskArrays,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[OracleState], OracleState]:
     """Build the one-round transition function on ``tasks``' device, under
     the fault schedule ``faults`` if one is given.
@@ -41,7 +43,11 @@ def make_oracle_step(
     ``arange(T)``; the oracle matches against ground truth, so every
     proposal launches.  The window is at least W wide (capped at T), so a
     single round can fill the entire datacenter.  The step is batched over
-    grid points: one ``[B, W]`` match per round."""
+    grid points: one ``[B, W]`` match per round.
+
+    ``telemetry`` adds the per-round ``launches`` counter; ``provenance``
+    the extras ``attempt`` (the whole queued window was ranked) and
+    ``authority`` 0, the one omniscient scheduler."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -57,6 +63,8 @@ def make_oracle_step(
     submit = tasks.submit.reshape(-1, T)
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    if provenance:
+        no_authority = torch.zeros(cfg.num_workers, dtype=torch.int32, device=dev)
 
     def dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w):
         del comp
@@ -94,15 +102,23 @@ def make_oracle_step(
         launched2 = rt.window_launched(fpad2, wtask, T)
         head = torch.clamp(head0 + rt.launched_lead(launched2), max=T)
 
-        return dict(
+        upd = dict(
             task_finish=task_finish,
             worker_finish=worker_finish,
             worker_task=worker_task,
             head=head,
             messages=messages,
         )
+        if telemetry:
+            upd["telemetry"] = dict(launches=torch.sum(launch, dim=-1, dtype=torch.int32))
+        if provenance:
+            # written into a pad slot T that is cut off
+            attempt = torch.zeros((t.shape[0], T + 1), dtype=torch.bool, device=dev).scatter(
+                -1, torch.where(queued, wtask, T).to(torch.int64), True)[:, :T]
+            upd["provenance"] = dict(attempt=attempt, authority=no_authority)
+        return upd
 
-    return rt.compose_step(cfg, tasks, dispatch, faults)
+    return rt.compose_step(cfg, tasks, dispatch, faults, telemetry, provenance)
 
 
 def _build_step(
@@ -112,9 +128,11 @@ def _build_step(
     *,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable:
     del draws  # draws nothing
-    return make_oracle_step(cfg, tasks, match_fn, faults)
+    return make_oracle_step(cfg, tasks, match_fn, faults, telemetry, provenance)
 
 
 RULE = rt.register_rule(

@@ -1,6 +1,5 @@
 """Pigeon transition rule for the simx round-stepped backend (port of
-``repro/simx/pigeon.py``, without telemetry, provenance or the streaming
-layout).
+``repro/simx/pigeon.py``, without the streaming layout).
 
 Federated two-layer scheduling (paper §2.2.4) over dense per-group arrays:
 
@@ -67,6 +66,8 @@ def make_pigeon_step(
     tasks: TaskArrays,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[PigeonState], PigeonState]:
     """Build the one-round transition function on ``tasks``' device.
 
@@ -83,7 +84,12 @@ def make_pigeon_step(
     build swaps the submitted-prefix queue count for an explicit unlaunched
     mask and sorted FIFO positions, and advances heads past the launched
     prefix; without rollbacks both forms coincide, so an empty schedule is
-    bitwise the ``faults=None`` step."""
+    bitwise the ``faults=None`` step.
+
+    ``telemetry`` adds the per-round ``launches`` and ``reserve_hits``
+    (high tasks placed on reserved workers) counters; ``provenance`` the
+    extras ``attempt`` (the task sat in its group's queued window) and
+    ``authority`` (the group coordinator, static per worker)."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -104,6 +110,12 @@ def make_pigeon_step(
         rsv_np[g, : min(cfg.reserved_per_group, sizes[g])] = True
     wg = torch.from_numpy(wg_np).to(dev)[None]                # int64[1, NG, S]
     reserved = torch.from_numpy(rsv_np).to(dev)               # bool[NG, S]
+    if provenance:
+        # static worker -> group map (the provenance authority)
+        wgrp_np = np.zeros(W, np.int32)
+        for g in range(NG):
+            wgrp_np[wg_np[g][wg_np[g] < W]] = g
+        worker_group = torch.from_numpy(wgrp_np).to(dev)
     C = max(S, 1)  # window width: a group launches at most S tasks per round
     # -- exact static task -> group distribution, split by priority class
     gt = task_groups(cfg, tasks)
@@ -266,7 +278,7 @@ def make_pigeon_step(
             high_head = torch.clamp(high_head0 + lead_h, max=len_h)
             low_head = torch.clamp(low_head0 + lead_l, max=len_l)
 
-        return dict(
+        upd = dict(
             task_finish=task_finish,
             worker_finish=worker_finish,
             worker_task=worker_task,
@@ -275,8 +287,35 @@ def make_pigeon_step(
             since_low=since_low,
             messages=messages,
         )
+        if telemetry:
+            upd["telemetry"] = dict(
+                launches=torch.sum(launch, dim=(1, 2), dtype=torch.int32),
+                reserve_hits=torch.sum(n_high_r, dim=-1, dtype=torch.int32))
+        if provenance:
+            # attempt = the task sat in its group coordinator's queued
+            # window: the submitted prefix, or the explicit queued mask
+            # under fault rollbacks; written into a pad slot T, cut off
+            if faults is None:
+                col = torch.arange(C, dtype=torch.int32, device=dev)
+                att_h, att_l = col < qh[..., None], col < ql[..., None]
+            else:
+                fpad_a = rt.finish_pad(task_finish0)
+                tt3 = t[:, None, None]
 
-    return rt.compose_step(cfg, tasks, dispatch, faults)
+                def queued_at(w):
+                    wsub = torch.where(
+                        w >= T, float("inf"), rt.take(submit_pad, torch.clamp(w, max=T)))
+                    return torch.isinf(rt.take(fpad_a, w)) & (wsub <= tt3)
+
+                att_h, att_l = queued_at(wh), queued_at(wl)
+            idx = torch.cat([torch.where(att_h, wh, T).reshape(B, -1),
+                             torch.where(att_l, wl, T).reshape(B, -1)], -1).to(torch.int64)
+            attempt = torch.zeros((B, T + 1), dtype=torch.bool, device=dev).scatter(
+                -1, idx, True)[:, :T]
+            upd["provenance"] = dict(attempt=attempt, authority=worker_group)
+        return upd
+
+    return rt.compose_step(cfg, tasks, dispatch, faults, telemetry, provenance)
 
 
 def _build_step(
@@ -286,9 +325,11 @@ def _build_step(
     *,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable:
     del draws  # draws nothing
-    return make_pigeon_step(cfg, tasks, match_fn, faults)
+    return make_pigeon_step(cfg, tasks, match_fn, faults, telemetry, provenance)
 
 
 RULE = rt.register_rule(

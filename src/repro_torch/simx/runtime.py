@@ -12,11 +12,22 @@ only the dispatch in the middle differs.  ``compose_step`` assembles it:
      windowed-FIFO helpers (``slice_rows``, ``sorted_fifo``,
      ``window_launched``, ``launched_lead``) and the launch bookkeeping
      (``apply_launch``); returns the state-field updates as a dict.
-  4. **advance** — the runtime folds the updates into a new state and
+  4. **telemetry** (``compose_step(..., telemetry=True)``) — the runtime
+     pops the rule's per-round counters (``launches`` and rule extras) and
+     adds the new - old deltas of the shared state counters; the step
+     returns ``(state, counters)`` for the decimated collection loop
+     (``repro_torch.simx.telemetry``).
+  5. **provenance** (``compose_step(..., provenance=True)``) — the carry
+     becomes ``(state, Provenance)`` and the runtime derives each round's
+     per-task lifecycle transitions (``repro_torch.simx.provenance``),
+     folding in the rule's ``"provenance"`` extras.
+  6. **advance** — the runtime folds the updates into a new state and
      advances ``t``/``rnd`` and the crash-loss counter ``lost``.
 
-The reference's telemetry and provenance stages are a later slice of the
-port; ``compose_step`` refuses them for now.
+Stages 4 and 5 are decided in Python when the step is built: without the
+flags nothing of them is built, and the step issues the same operations
+as before them.  Callers read the state of a possibly-tuple carry with
+``carry_state``.
 
 ``jax.lax.scan`` becomes a Python loop (``scan_rounds``), and the
 reference's ``mode="drop"`` scatters become scatters into a padded slot
@@ -44,7 +55,7 @@ import torch
 
 from repro_torch.kernels import match, ref
 from repro_torch.simx.faults import FaultSchedule, apply_worker_faults
-from repro_torch.simx.state import SimxConfig, TaskArrays
+from repro_torch.simx.state import QueueState, SimxConfig, TaskArrays
 
 #: rank-and-select primitive: (avail bool[B, N], n int32[B]) -> ranks
 #: int32[B, N] (rank of each selected column, -1 where unselected).
@@ -127,6 +138,26 @@ def unbatch_state(state):
 def is_batched(state) -> bool:
     """A batched state's round clock ``t`` is ``float32[B]``."""
     return state.t.dim() == 1
+
+
+def carry_state(carry):
+    """The scheduler state of a round carry: under provenance the carry is
+    ``(state, Provenance)``, otherwise the state itself."""
+    return carry[0] if isinstance(carry, tuple) else carry
+
+
+def batch_carry(carry):
+    """``batch_state`` of every part of a carry."""
+    if isinstance(carry, tuple):
+        return tuple(batch_state(c) for c in carry)
+    return batch_state(carry)
+
+
+def unbatch_carry(carry):
+    """``unbatch_state`` of every part of a carry."""
+    if isinstance(carry, tuple):
+        return tuple(unbatch_state(c) for c in carry)
+    return unbatch_state(carry)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +300,17 @@ def fault_stage(
 #: lost_w) -> dict of state-field updates (everything except t/rnd/lost,
 #: which the runtime advances).  ``lost_w`` (bool[B, W], the workers whose
 #: in-flight task the fault stage lost) is None without a fault schedule.
+#: A dispatch built with telemetry adds a ``"telemetry"`` dict of per-round
+#: int32[B] counters (``launches`` and rule extras), one built with
+#: provenance a ``"provenance"`` dict (``repro_torch.simx.provenance``);
+#: the runtime pops both before folding the updates.
 DispatchFn = Callable[..., dict]
+
+#: The shared counters whose per-round deltas the telemetry stage derives
+#: itself: new - old of the carried ``CoreState`` counters, plus the
+#: ``QueueState`` health counters for reservation-queue rules.
+TELEMETRY_CORE_COUNTERS = ("messages", "probes", "inconsistencies", "lost")
+TELEMETRY_QUEUE_COUNTERS = ("res_overflow", "probe_lag")
 
 #: Round-index budget: ``rnd`` is int32, so a run may advance at most this
 #: many rounds before the counter would wrap.
@@ -295,40 +336,65 @@ def compose_step(
     provenance: bool = False,
 ) -> Callable:
     """Assemble one rule's round step: ``faults -> complete -> dispatch ->
-    advance``, on a batched state (an unbatched one is lifted to one point
-    and back).  ``faults`` (a ``FaultSchedule``, its leaves shared by every
-    point or with a leading point axis) adds the crash stage and the
-    ``lost`` counter; ``None`` leaves both out.  The telemetry and
-    provenance stages of the reference are not ported yet and raise
-    ``NotImplementedError``."""
-    if telemetry or provenance:
-        raise NotImplementedError(
-            "telemetry and provenance are not ported yet (ROADMAP.md queue 1, item 10)"
-        )
+    telemetry -> provenance -> advance``, on a batched carry (an unbatched
+    one is lifted to one point and back).  ``faults`` (a ``FaultSchedule``,
+    its leaves shared by every point or with a leading point axis) adds the
+    crash stage and the ``lost`` counter; ``None`` leaves both out.
+
+    With ``telemetry=True`` the step returns ``(carry, counters)``:
+    ``counters`` merges the rule's per-round ``"telemetry"`` dict with the
+    deltas of the shared state counters (``TELEMETRY_CORE_COUNTERS``, and
+    ``TELEMETRY_QUEUE_COUNTERS`` for a ``QueueState``), one int32 per
+    point.  With ``provenance=True`` the carry is ``(state, Provenance)``
+    and the runtime advances the lifecycle arrays after folding the
+    updates.  Both are decided here, in Python: without them the step is
+    the one without either stage."""
+    from repro_torch.simx.provenance import advance_provenance
+
     T = tasks.num_tasks
 
-    def step(s):
+    def step(carry):
+        s = carry[0] if provenance else carry
         if not is_batched(s):
-            return unbatch_state(step(batch_state(s)))
+            out = step(batch_carry(carry))
+            if telemetry:
+                return unbatch_carry(out[0]), {k: v[0] for k, v in out[1].items()}
+            return unbatch_carry(out)
         t = s.t
         task_finish0, worker_finish0, lost_w, n_lost = fault_stage(
             faults, t, cfg.dt, s.task_finish, s.worker_finish, s.worker_task, T
         )
         free, comp = completion_masks(worker_finish0, t, cfg.dt)
         updates = dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w)
+        tel = updates.pop("telemetry", None)
+        pv = updates.pop("provenance", None)
         if n_lost is not None:
             updates["lost"] = s.lost + n_lost
-        return s.replace(t=t + cfg.dt, rnd=s.rnd + 1, **updates)
+        new = s.replace(t=t + cfg.dt, rnd=s.rnd + 1, **updates)
+        out = new
+        if provenance:
+            out = (new, advance_provenance(carry[1], s, new, task_finish0, tasks, pv or {}))
+        if not telemetry:
+            return out
+        counters = dict(tel or {})
+        for f in TELEMETRY_CORE_COUNTERS:
+            counters[f] = getattr(new, f) - getattr(s, f)
+        if isinstance(new, QueueState):
+            for f in TELEMETRY_QUEUE_COUNTERS:
+                counters[f] = getattr(new, f) - getattr(s, f)
+        return out, counters
 
     return step
 
 
 def scan_rounds(step: Callable, state, num_rounds: int):
-    """Advance ``state`` by ``num_rounds`` rounds (``lax.scan`` as a loop).
-    An unbatched state is lifted to one point once, not every round."""
+    """Advance a carry (a state, or ``(state, Provenance)``) by
+    ``num_rounds`` rounds of a step built without telemetry (``lax.scan``
+    as a loop).  An unbatched carry is lifted to one point once, not every
+    round."""
     check_round_budget(num_rounds)
-    if not is_batched(state):
-        return unbatch_state(scan_rounds(step, batch_state(state), num_rounds))
+    if not is_batched(carry_state(state)):
+        return unbatch_carry(scan_rounds(step, batch_carry(state), num_rounds))
     for _ in range(num_rounds):
         state = step(state)
     return state
@@ -349,8 +415,9 @@ Draws = dict[str, torch.Tensor]
 class Rule:
     """One scheduler of the simx matrix.
 
-    ``build_step(cfg, tasks, draws, *, match_fn, faults)`` returns the
-    round step (``faults``: a ``FaultSchedule`` or None, see
+    ``build_step(cfg, tasks, draws, *, match_fn, faults, telemetry,
+    provenance)`` returns the round step (``faults``: a ``FaultSchedule``
+    or None; ``telemetry`` / ``provenance``: the optional stages, see
     ``compose_step``);
     ``init(cfg, tasks, batch)`` the fresh state on ``tasks``' device,
     unbatched for ``batch=None`` and with ``batch`` points else.
@@ -447,6 +514,8 @@ def simulate_fixed(
     num_rounds: int,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry=None,
+    provenance: bool = False,
 ):
     """Run any registered rule exactly ``num_rounds`` rounds from a fresh
     DC, with no done probe (the reference's ``simulate_fixed``), under the
@@ -459,18 +528,33 @@ def simulate_fixed(
     ``tasks`` carries per-point arrival times, the draws a point axis or
     the fault schedule a point axis (a Fig. 4 grid shares one trace, and
     pigeon and the oracle draw nothing), and returns a state with that
-    leading axis; otherwise the state is unbatched."""
+    leading axis; otherwise the state is unbatched.
+
+    ``telemetry`` (a ``repro_torch.simx.telemetry.TelemetryConfig``)
+    switches on the telemetry stage: the result becomes ``(state,
+    Timeline)``.  ``provenance=True`` makes the state the ``(state,
+    Provenance)`` carry (inside that tuple when both are on)."""
     rule = get_rule(name)
     draws = rule_draws(rule, cfg, tasks, draws)
     if faults is not None:
         faults = faults.to(tasks.device)
-    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn, faults=faults)
+    step = rule.build_step(cfg, tasks, draws, match_fn=match_fn, faults=faults,
+                           telemetry=telemetry is not None, provenance=provenance)
     batch = tasks.batch
     if batch is None:
         batch = draws_batch(rule, draws)
     if batch is None and faults is not None:
         batch = faults.batch
-    return scan_rounds(step, rule.init(cfg, tasks, batch), num_rounds)
+    state = rule.init(cfg, tasks, batch)
+    if provenance:
+        from repro_torch.simx.provenance import init_provenance
+
+        state = (state, init_provenance(tasks.num_tasks, tasks.device, batch))
+    if telemetry is None:
+        return scan_rounds(step, state, num_rounds)
+    from repro_torch.simx import telemetry as tlm  # runtime <- telemetry cycle guard
+
+    return tlm.scan_rounds_telemetry(step, state, num_rounds, telemetry, cfg, tasks, faults)
 
 
 # ---------------------------------------------------------------------------

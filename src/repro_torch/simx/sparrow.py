@@ -1,6 +1,5 @@
 """Sparrow transition rule for the simx round-stepped backend (port of
-``repro/simx/sparrow.py``, without telemetry, provenance or the streaming
-``ProbeLayout``).
+``repro/simx/sparrow.py``, without the streaming ``ProbeLayout``).
 
 Batch sampling + late binding (§2.2.2).  When a job of n tasks arrives it
 probes ``min(d * n, W)`` DISTINCT random workers, leaving a *reservation*
@@ -313,6 +312,20 @@ def queue_head_pick(
     return torch.where(torch.any(picked, dim=-1), head, num_jobs)
 
 
+def probe_attempt(
+    win_j: torch.Tensor, ins: torch.Tensor, orphan: torch.Tensor, job: torch.Tensor
+) -> torch.Tensor:
+    """bool[B, T] — the tasks whose job a scheduler acted on this round:
+    its probes were inserted (``ins`` masks the window's edges ``win_j``)
+    or it was orphan-rescued (``orphan`` bool[B, J]).  The reference's
+    dropped set over J + 1 slots, the last the pad of the edges left
+    out."""
+    B, J = orphan.shape
+    att_j = torch.zeros((B, J + 1), dtype=torch.bool, device=orphan.device).scatter(
+        -1, torch.where(ins, win_j, J).to(_I64), True)[:, :J] | orphan
+    return att_j[:, job.to(_I64)]
+
+
 def job_starts(tasks: TaskArrays) -> torch.Tensor:
     """int32[J] — each job's first task (tasks are exported contiguously
     per job)."""
@@ -326,6 +339,8 @@ def make_sparrow_step(
     targets: torch.Tensor,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[SparrowState], SparrowState]:
     """Build the one-round transition function on ``tasks``' device.
 
@@ -341,7 +356,12 @@ def make_sparrow_step(
     busy until recovery; a pending job whose every queue entry sits on a
     currently dead worker is orphaned and rescued like one whose probes
     were all dropped.  ``faults=None`` builds the fault-free step; an
-    empty schedule is bitwise the same run."""
+    empty schedule is bitwise the same run.
+
+    ``telemetry`` adds the per-round ``launches`` counter; ``provenance``
+    the extras ``attempt`` (a job's probes were inserted, or it was
+    orphan-rescued) and ``authority`` (the job's home scheduler, jobs
+    round-robin over ``num_gms`` schedulers)."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -398,7 +418,7 @@ def make_sparrow_step(
             task_finish0, worker_finish0, s.worker_task, T)
         messages = messages + 2 * torch.sum(launch, dim=-1, dtype=_I32)  # RPC + reply
 
-        return dict(
+        upd = dict(
             task_finish=task_finish,
             worker_finish=worker_finish,
             worker_task=worker_task,
@@ -409,8 +429,16 @@ def make_sparrow_step(
             probes=s.probes + lead,
             messages=messages,
         )
+        if telemetry:
+            upd["telemetry"] = dict(launches=torch.sum(launch, dim=-1, dtype=_I32))
+        if provenance:
+            upd["provenance"] = dict(
+                attempt=probe_attempt(win_j, ins, orphan, tasks.job),
+                authority=(tasks.job[torch.clamp(worker_task, max=T - 1).to(_I64)]
+                           % cfg.num_gms).to(_I32))
+        return upd
 
-    return rt.compose_step(cfg, tasks, dispatch, faults)
+    return rt.compose_step(cfg, tasks, dispatch, faults, telemetry, provenance)
 
 
 def draw(cfg: SimxConfig, tasks: TaskArrays, generator: torch.Generator) -> dict:
@@ -426,8 +454,11 @@ def _build_step(
     *,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
+    telemetry: bool = False,
+    provenance: bool = False,
 ) -> Callable[[SparrowState], SparrowState]:
-    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn, faults)
+    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn, faults,
+                             telemetry, provenance)
 
 
 RULE = rt.register_rule(

@@ -28,8 +28,11 @@ point its schedule, the trace is shared, and the F x S points again run
 as one batched state (point ``b`` is fraction ``b // S``, seed ``b % S``).
 
 Sparrow and eagle grids are guarded by the reference's probe-memory
-pre-flight (``check_probe_memory``).  Left out, with their slices:
-provenance columns (ROADMAP item 10) and the sharded executors (item 12).
+pre-flight (``check_probe_memory``).  ``sweep_grid(provenance=True)``
+carries each point's per-task lifecycle arrays through the grid and adds
+the delay-breakdown columns ``mean_<component>`` (``fault_sweep_grid``
+has no such flag, as in the reference).  Left out, with its slice: the
+sharded executors (ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from repro_torch.core.base import grid_workers
 from repro_torch.device import resolve_device
 from repro_torch.simx import engine, runtime
 from repro_torch.simx.faults import FaultSchedule, fault_grid_schedule
+from repro_torch.simx.provenance import COMPONENTS, decompose_delays, init_provenance
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import QueueState, SimxConfig, TaskArrays, export_workload
 from repro_torch.workload.synth import synthetic_trace
@@ -53,7 +57,13 @@ from repro_torch.workload.synth import synthetic_trace
 log = logging.getLogger(__name__)
 
 
-def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
+def point_summary(
+    state,
+    tasks: TaskArrays,
+    has_queues: Optional[bool] = None,
+    provenance=None,
+    dt: Optional[float] = None,
+) -> dict[str, torch.Tensor]:
     """Reduce a finished state to the Fig. 2 observables, on its device
     (the reference's ``point_summary``, same keys): p50/p95/mean job delay
     (Eq. 2, nan-excluding unfinished jobs, through the runtime's shared
@@ -68,7 +78,13 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
     exact in closed form: each launched task occupied its worker for
     ``clip(min(finish, t) - start, 0, duration)`` seconds.
     ``torch.nanquantile`` stands in for ``jnp.nanpercentile``; both
-    interpolate linearly."""
+    interpolate linearly.
+
+    ``has_queues`` gates the queue-counter reads (``Rule.has_queues``;
+    default: the state's class).  ``provenance`` (a ``Provenance``, with
+    ``dt``) adds the delay-breakdown columns ``mean_<component>``
+    (``repro_torch.simx.provenance.COMPONENTS``): per-component nanmeans
+    over completed jobs, summing to ``mean``."""
     t = runtime.lift(state.t, state.task_finish)
     done = state.task_finish <= t
     delays, job_finish = runtime.job_delays_from_state(state.task_finish, state.t, tasks)
@@ -82,9 +98,10 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
         tasks.duration,
     )
     W = state.worker_finish.shape[-1]
-    has_queues = isinstance(state, QueueState)
+    if has_queues is None:
+        has_queues = isinstance(state, QueueState)
     zero = torch.zeros_like(state.lost)
-    return {
+    out = {
         "p50": torch.nanquantile(delays, 0.5, dim=-1),
         "p95": torch.nanquantile(delays, 0.95, dim=-1),
         "mean": torch.nanmean(delays, dim=-1),
@@ -101,6 +118,13 @@ def point_summary(state, tasks: TaskArrays) -> dict[str, torch.Tensor]:
         "res_overflow": state.res_overflow if has_queues else zero,
         "probe_lag": state.probe_lag if has_queues else zero,
     }
+    if provenance is not None:
+        if dt is None:
+            raise ValueError("point_summary(provenance=...) needs dt")
+        comp = decompose_delays(provenance, state.task_finish, state.t, tasks, dt)
+        for key in COMPONENTS:
+            out[f"mean_{key}"] = torch.nanmean(comp[key], dim=-1)
+    return out
 
 
 def probe_memory_bytes(
@@ -233,10 +257,12 @@ def build_grid(
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
     draws: Optional[dict] = None,
+    provenance: bool = False,
 ):
     """The grid as one batched run, not yet advanced: ``(step, state,
     tasks)`` with B = L x S points, point ``b`` = (load ``b // S``, seed
-    ``b % S``), and ``tasks`` carrying each point's arrival times.
+    ``b % S``), and ``tasks`` carrying each point's arrival times; with
+    ``provenance`` the state is the ``(state, Provenance)`` carry.
 
     Seed ``s`` uses the rule's draws ``draws[k][s]`` (each ``[S, ...]``)
     when given, or megha's ``orders[s]`` (``int32[S, G, W]``), else the
@@ -256,8 +282,11 @@ def build_grid(
     # seeds repeat over loads: point b takes seed b % S
     draws = {k: v.to(tasks.device).repeat((L,) + (1,) * (v.dim() - 1))
              for k, v in draws.items()}
-    step = rule.build_step(cfg, point_tasks, draws, match_fn=match_fn)
-    return step, rule.init(cfg, point_tasks, B), point_tasks
+    step = rule.build_step(cfg, point_tasks, draws, match_fn=match_fn, provenance=provenance)
+    state = rule.init(cfg, point_tasks, B)
+    if provenance:
+        state = (state, init_provenance(tasks.num_tasks, tasks.device, B))
+    return step, state, point_tasks
 
 
 def grid_state(
@@ -271,12 +300,15 @@ def grid_state(
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
     draws: Optional[dict] = None,
+    provenance: bool = False,
 ):
     """Run the grid exactly ``num_rounds`` rounds from a fresh DC (each
     point is ``runtime.simulate_fixed`` of that point); returns ``(final
-    batched state, point tasks, step)``."""
+    batched state, point tasks, step)``, the state a ``(state,
+    Provenance)`` carry with ``provenance``."""
     step, state, point_tasks = build_grid(
-        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, match_fn, orders, draws)
+        scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, match_fn, orders, draws,
+        provenance)
     return runtime.scan_rounds(step, state, num_rounds), point_tasks, step
 
 
@@ -291,14 +323,21 @@ def sweep_grid(
     match_fn: MatchFn | None = None,
     orders: Optional[torch.Tensor] = None,
     draws: Optional[dict] = None,
+    provenance: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Run the whole (load x seed) grid as one batched program; returns the
-    ``point_summary`` fields as ``[L, S]`` tensors on the grid's device."""
+    ``point_summary`` fields as ``[L, S]`` tensors on the grid's device.
+    ``provenance=True`` carries the per-task lifecycle arrays through every
+    point and adds the ``mean_<component>`` delay-breakdown columns."""
     state, point_tasks, _ = grid_state(
         scheduler, cfg, tasks, submit_grid, job_submit_grid, seeds, num_rounds,
-        match_fn, orders, draws)
+        match_fn, orders, draws, provenance)
+    prov = None
+    if provenance:
+        state, prov = state
     L, S = submit_grid.shape[0], len(seeds)
-    return {k: v.reshape(L, S) for k, v in point_summary(state, point_tasks).items()}
+    summary = point_summary(state, point_tasks, provenance=prov, dt=cfg.dt)
+    return {k: v.reshape(L, S) for k, v in summary.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,6 +354,7 @@ class SweepPlan:
     num_rounds: int
     match_fn: MatchFn
     draws: Optional[dict]            # the rule's draws, each [S, ...], or None
+    provenance: bool                 # carry the lifecycle arrays, add mean_<component>
     annotate: dict                   # numpy extras merged into the result
 
 
@@ -334,6 +374,7 @@ def fig2_plan(
     draws: Optional[dict] = None,
     mem_limit_gb: Optional[float] = 16.0,
     device=None,
+    provenance: bool = False,
     **cfg_kwargs,
 ) -> SweepPlan:
     """Build the Fig. 2 grid inputs without running them: the load grid,
@@ -379,6 +420,7 @@ def fig2_plan(
         num_rounds=num_rounds,
         match_fn=default_match_fn(use_kernel),
         draws=runtime.orders_as_draws(orders, draws),
+        provenance=provenance,
         annotate={
             "loads": np.asarray(loads),
             "num_rounds": np.asarray(num_rounds),
@@ -403,6 +445,7 @@ def fig2_sweep(
     draws: Optional[dict] = None,
     mem_limit_gb: Optional[float] = 16.0,
     device=None,
+    provenance: bool = False,
     **cfg_kwargs,
 ) -> dict[str, np.ndarray]:
     """Build the load grid, size the round budget off the slowest point,
@@ -413,17 +456,19 @@ def fig2_sweep(
     one-second tasks).  ``use_kernel`` selects the rank-and-select kernel
     (the default) or its plain version; ``draws`` (the rule's draws, each
     ``[S, ...]``) or, for megha, ``orders`` (``int32[S, G, W]``) feed in
-    the seeds' random draws, e.g. the reference's."""
+    the seeds' random draws, e.g. the reference's.  ``provenance=True``
+    adds the ``mean_<component>`` delay-breakdown columns."""
     plan = fig2_plan(
         scheduler,
         loads=loads, num_seeds=num_seeds, num_workers=num_workers,
         num_jobs=num_jobs, tasks_per_job=tasks_per_job, dt=dt, slack=slack,
         trace_seed=trace_seed, use_kernel=use_kernel, orders=orders, draws=draws,
-        mem_limit_gb=mem_limit_gb, device=device, **cfg_kwargs,
+        mem_limit_gb=mem_limit_gb, device=device, provenance=provenance, **cfg_kwargs,
     )
     out = sweep_grid(
         plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
         plan.seeds, plan.num_rounds, match_fn=plan.match_fn, draws=plan.draws,
+        provenance=plan.provenance,
     )
     res = {k: v.cpu().numpy() for k, v in out.items()}
     res.update(plan.annotate)

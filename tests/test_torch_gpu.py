@@ -1,6 +1,7 @@
 """The port on a CUDA card: the hand-written kernels against their plain
 versions, and small runs of all five simx rules, Fig. 2 grids and
-serving-engine runs on the card against the same runs on the CPU.  Every test here carries the ``gpu`` marker and skips itself
+serving-engine runs on the card against the same runs on the CPU, with
+the telemetry and provenance stages on too.  Every test here carries the ``gpu`` marker and skips itself
 without a card.  This file imports no ``jax`` (the card's machine has
 none); run it there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 
@@ -12,7 +13,18 @@ import torch
 
 from repro_torch.kernels import match, ref
 from repro_torch.serve.engine import MeghaServeEngine, Request
-from repro_torch.simx import SimxConfig, convert, runtime, simulate_workload, sweep
+from repro_torch.simx import (
+    COMPONENTS,
+    decompose_delays,
+    FaultPlan,
+    SimxConfig,
+    TelemetryConfig,
+    WorkerFailure,
+    convert,
+    runtime,
+    simulate_workload,
+    sweep,
+)
 from repro_torch.workload import traces
 from repro_torch.workload.synth import synthetic_trace
 
@@ -407,3 +419,91 @@ def test_cuda_kernel_at_fig4_shapes(rows, lanes, n):
                                                     generator=gen).tolist())
     else:
         _batched_matches_plain(avail, [n] * rows)
+
+
+def _tel_run(name: str, device: str, use_kernel: bool = True, flags: bool = True):
+    """A small run under a crash wave with telemetry and provenance on (or
+    both off), in chunks of whole telemetry windows, so that both read the
+    done probe after the same rounds; returns (run, launches)."""
+    wl = synthetic_trace(num_jobs=12, tasks_per_job=32, load=0.9, num_workers=128, seed=4)
+    plan = FaultPlan(worker_failures=tuple(WorkerFailure(w, 1.0 + 0.01 * w, 3.0)
+                                           for w in range(0, 128, 5)))
+    before = match.match_ranks_batched.launches
+    run = simulate_workload(name, wl, 128, num_gms=4, num_lms=4, heartbeat_interval=1.0,
+                            dt=0.05, faults=plan, use_kernel=use_kernel, device=device,
+                            chunk=250,
+                            telemetry=TelemetryConfig(stride=5) if flags else None,
+                            provenance=flags)
+    return run, match.match_ranks_batched.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_telemetry_and_provenance_on_the_card_are_bitwise_plain_and_cpu(name):
+    """A run with both stages on, under crashes: the kernel path, the plain
+    path on the card and the CPU run agree bitwise in state, Timeline and
+    Provenance; the stages add no kernel launch and change no state."""
+    _need_card()
+    card, launches = _tel_run(name, "cuda")
+    plain, plain_launches = _tel_run(name, "cuda", use_kernel=False)
+    cpu, _ = _tel_run(name, "cpu")
+    off, off_launches = _tel_run(name, "cuda", flags=False)
+    assert launches == off_launches > 0 and plain_launches == 0
+    want = [convert.state_to_numpy(cpu.state), convert.state_to_numpy(cpu.provenance),
+            {k: v.numpy() for k, v in cpu.timeline.series.items()}
+            | {"t": cpu.timeline.t.numpy(), "delay_hist": cpu.timeline.delay_hist.numpy()}]
+    for run in (card, plain):
+        got = [convert.state_to_numpy(run.state), convert.state_to_numpy(run.provenance),
+               {k: v.cpu().numpy() for k, v in run.timeline.series.items()}
+               | {"t": run.timeline.t.cpu().numpy(),
+                  "delay_hist": run.timeline.delay_hist.cpu().numpy()}]
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), k
+    a, b = convert.state_to_numpy(off.state), want[0]
+    for k in b:
+        assert np.array_equal(a[k], b[k]), k
+    assert int(card.provenance.requeue_count.sum()) == card.lost_tasks > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_breakdown_grid_on_the_card_is_bitwise_plain_and_cpu(name):
+    """The small grid with provenance: kernel path, plain path and CPU
+    bitwise in state, Provenance and every job's delay components; the
+    breakdown columns bitwise kernel = plain, and card = CPU within the
+    sweep tolerance (rtol 1e-5: ``nanmean`` sums in another order on the
+    card); the launches those of the grid without provenance."""
+    _need_card()
+    loads = SMALL_GRID["loads"]
+    kw = {k: v for k, v in SMALL_GRID.items() if k != "loads"}
+    cfg = SimxConfig(**SMALL_CFG)
+    out = {}
+    for dev, use_kernel in (("cuda", True), ("cuda", False), ("cpu", True)):
+        tasks, sub, jsub = sweep.make_load_grid(loads, device=dev, **kw)
+        before = match.match_ranks_batched.launches
+        (state, prov), ptasks, _ = sweep.grid_state(
+            name, cfg, tasks, sub, jsub, (0, 1), GRID_ROUNDS,
+            match_fn=runtime.default_match_fn(use_kernel), provenance=True)
+        launches = match.match_ranks_batched.launches - before
+        dec = decompose_delays(prov, state.task_finish, state.t, ptasks, cfg.dt)
+        arrays = (convert.state_to_numpy(state) | {f"prov.{k}": v for k, v in
+                                                   convert.state_to_numpy(prov).items()}
+                  | {f"dec.{k}": v.cpu().numpy() for k, v in dec.items()})
+        summary = {k: v.cpu().numpy() for k, v in
+                   sweep.point_summary(state, ptasks, provenance=prov, dt=cfg.dt).items()}
+        out[dev, use_kernel] = arrays, summary, launches
+    _, _, off_launches = _grid(name, "cuda")
+    assert out["cuda", True][2] == off_launches > 0 and out["cuda", False][2] == 0
+    want, want_summary, _ = out["cpu", True]
+    assert {f"mean_{c}" for c in COMPONENTS} <= set(want_summary)
+    for key in (("cuda", True), ("cuda", False)):
+        got = out[key][0]
+        for k in want:
+            assert got[k].dtype == want[k].dtype and np.array_equal(
+                got[k], want[k], equal_nan=True), k
+    card, plain = out["cuda", True][1], out["cuda", False][1]
+    for k, v in want_summary.items():
+        assert np.array_equal(card[k], plain[k], equal_nan=True), k
+        np.testing.assert_allclose(card[k], v, rtol=1e-5, atol=1e-6, err_msg=k)

@@ -104,3 +104,16 @@ def test_walk_covers_the_fault_modules():
     assert new <= set(MODULES)
     assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
             for m in new} <= set(SOURCES)
+
+
+def test_walk_covers_the_telemetry_and_provenance_modules():
+    """The walk covers the telemetry and provenance stages and the modules
+    their slice touched: the runtime, the five rules' extras, the engine,
+    the sweep's breakdown columns and the event backend's metrics."""
+    new = {"repro_torch.simx.telemetry", "repro_torch.simx.provenance",
+           "repro_torch.simx.runtime", "repro_torch.simx.engine", "repro_torch.simx.sweep",
+           "repro_torch.core.metrics"} | {
+        f"repro_torch.simx.{r}" for r in ("megha", "sparrow", "eagle", "pigeon", "oracle")}
+    assert new <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in new} <= set(SOURCES)

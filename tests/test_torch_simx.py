@@ -355,10 +355,10 @@ def test_entry_points_refuse_what_is_not_ported(monkeypatch):
     assert len(m.job_delays()) == 2
     with pytest.raises(ValueError, match="implements"):
         simulate_workload("omega", wl, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        rt.compose_step(SimxConfig(num_workers=64), None, lambda *a: {}, provenance=True)
-    with pytest.raises(NotImplementedError):
-        rt.compose_step(SimxConfig(num_workers=64), None, lambda *a: {}, telemetry=True)
+    # telemetry and provenance are ported: the run carries both results
+    run = simulate_workload("oracle", wl, 64, telemetry=True, provenance=True, device="cpu")
+    assert run.timeline.num_samples > 0 and run.provenance is not None
+    assert len(run.delay_decomposition()["delays"]) == 2
     # the default device is the card; without one the entry point raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
