@@ -12,12 +12,15 @@ against its plain PyTorch version on the card, drives the paths —
 workers and 480,000 tasks, the Fig. 2 sweep (``fig2_sweep``'s grid of 3
 loads x 2 seeds as one batched program) for megha, pigeon, the oracle,
 sparrow and eagle at that size, the Fig. 4 availability grid (``fig4_sweep``'s
-4 crash fractions x 2 seeds) for the same five rules at that size, eagle's
+4 crash fractions x 2 seeds) for the same five rules at that size, the
+streaming engine (``run_steady_state``) for the five rules at 50,000
+workers, eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
 200,000 requests, and the fast path's SDPS loop — and prints one JSON line
 per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
+               (match.cu, match_tasks.cu, p2_sketch.cu)
   kernel       the batched kernel (both designs: wide rows split over blocks,
                narrow rows one warp each) against its plain version over a
                sweep of widths (tile and narrow-threshold edges among them),
@@ -42,6 +45,27 @@ per phase:
   megha_profile  torch.profiler over a steady window: device busy/idle,
                the batched kernel's µs per launch and share of device time
   oracle       the oracle on the same trace, and megha's gap above it
+  stream       the streaming engine: (a) megha's and the oracle's replay of
+               that trace through a window of its full size (480 jobs,
+               480,000 tasks, 64 rounds a refill), sorted delays bitwise
+               the fixed runs'; (b) all five rules under open-loop Poisson
+               arrivals of 1,000-task jobs at 40 a second (load 0.8 at
+               50,000 workers) for 30 simulated seconds through a window
+               of 192 jobs / 196,608 tasks, 32 rounds a refill: the ledger
+               balanced at every refill, nothing lost, match launches =
+               rounds x the rule's matches + megha's borrow rounds, one P²
+               launch per refill; wall and its refill / segment split,
+               tasks per wall second, admission lag, sketch p50 / p95 /
+               p99 / p999, mean utilisation, state bytes, peak memory;
+               (c) megha and eagle with the plain versions, bitwise; (d)
+               megha to 15 s, the same state bytes; (e) megha's (b) run
+               driven segment by segment (held bitwise to it): the P²
+               kernel against its plain version after every absorb, both
+               timed, and the kernel's walk timed in-kernel (its chain
+               bound); (f) segment 5 of that run and of sparrow's, run
+               twice from the same inputs, timed and under
+               torch.profiler: device busy and idle share a round over
+               the segment's own wall, the refill's host time
   sweep        the Fig. 2 grid (loads 0.2 / 0.5 / 0.8 x seeds 0 / 1) for
                megha, pigeon, the oracle, sparrow and eagle as one batched
                run each: every point completes, kernel and plain final
@@ -129,15 +153,22 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.core import fastpath as FP  # noqa: E402
-from repro_torch.kernels import build, match, ops, ref  # noqa: E402
+from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
-from repro_torch.simx import convert, runtime, simulate_workload, sweep  # noqa: E402
+from repro_torch.simx import convert, runtime, simulate_workload, stream, sweep  # noqa: E402
+from repro_torch.simx import megha as simx_megha  # noqa: E402
 from repro_torch.simx import telemetry as tlm  # noqa: E402
 from repro_torch.simx.faults import FaultSchedule  # noqa: E402
 from repro_torch.simx.provenance import COMPONENTS, decompose_delays  # noqa: E402
 from repro_torch.simx.state import SimxConfig, export_workload  # noqa: E402
-from repro_torch.workload.synth import google_like_trace, synthetic_trace  # noqa: E402
+from repro_torch.workload.synth import (  # noqa: E402
+    PoissonArrivals,
+    ReplayArrivals,
+    fixed_job_factory,
+    google_like_trace,
+    synthetic_trace,
+)
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor FP32
 #: operations/s, at the full 700 W power limit.
@@ -264,6 +295,29 @@ SINGLE_SHAPES = (
 )
 SDPS_WORKERS = (10_000, 50_000)
 
+#: The streaming engine (``stream.run_steady_state``).  (a) replays the
+#: megha phase's trace through a window of its full size; (b) streams
+#: open-loop Poisson arrivals of the paper's job (1,000 one-second tasks)
+#: at 40 jobs a second, load 0.8 by Eq. 6 at 50,000 workers, for 30
+#: simulated seconds, through a window of 192 jobs and 196,608 task slots
+#: (>= 2 W); (d) runs megha again to half the horizon.
+STREAM_REPLAY = dict(window_jobs=480, window_tasks=480_000, rounds_per_refill=64)
+STREAM_RATE = 40.0
+STREAM_WINDOW = dict(window_jobs=192, window_tasks=196_608, rounds_per_refill=32)
+STREAM_HORIZON = 30.0
+STREAM_RULES = ("megha", "sparrow", "eagle", "pigeon", "oracle")
+#: kernel launches a round under a layout: eagle's central [1, W] match
+#: always runs beside its pick; megha's borrow rounds add one each
+STREAM_PER_ROUND = {"megha": 1, "sparrow": 1, "eagle": 2, "pigeon": 2, "oracle": 1}
+#: the profiled segment of the (f) runs (megha to 30 s, 19 segments;
+#: sparrow to 10 s, 7 segments)
+STREAM_PROFILE_SEGMENT = 5
+STREAM_PROFILE_HORIZON = 10.0
+#: the P² absorb's floating-point operations per observation and quantile
+#: (compares, adds, multiplies, divides, two fused multiply-adds per
+#: interior marker), for its throughput bound; its chain bound is timed
+P2_OPS_PER_UPDATE = 100
+
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
@@ -325,11 +379,12 @@ def completed(metrics) -> int:
 def phase_build() -> dict:
     """Both sources at once, one nvcc each, then load and bind them."""
     t0 = time.perf_counter()
-    names = ("match", "match_tasks")
+    names = ("match", "match_tasks", "p2_sketch")
     with ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(build.build, names))
     match._batched_fns()  # load each library and bind its C signature
     match._single_fns()
+    p2._library_fns()
     out = dict(
         phase="build", seconds=time.perf_counter() - t0,
         kernels=[dict(name=i.name, library=i.library.name,
@@ -337,7 +392,8 @@ def phase_build() -> dict:
                  for i in infos],
     )
     for name, i in zip(names, infos):
-        check(len(i.ptxas) == 6, f"ptxas reports 3 dtypes x 2 kernels of {name}.cu")
+        want = 2 if name == "p2_sketch" else 6
+        check(len(i.ptxas) == want, f"ptxas reports {want} kernel(s) of {name}.cu")
     check(all(k["spill_bytes"] == 0 for i in infos for k in i.ptxas),
           "no register spills")
     emit(out)
@@ -1156,6 +1212,298 @@ def phase_fault_provenance(fig4: dict, plans: dict) -> dict:
     return out
 
 
+def _stream_run(name: str, arrivals, use_kernel: bool = True, horizon: float | None = STREAM_HORIZON,
+                window: dict = STREAM_WINDOW, orders=None):
+    """One ``run_steady_state`` on the card: (run, wall seconds, match
+    launches, P² launches, peak bytes).  The counts are set to 0 just
+    before the run and read just after it."""
+    match.match_ranks_batched.launches = 0
+    p2.p2_absorb.launches = 0
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    run = stream.run_steady_state(
+        name, arrivals, WORKERS, dt=DT, horizon=horizon, use_kernel=use_kernel,
+        orders=orders, device=DEVICE, **window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (run, wall, match.match_ranks_batched.launches, p2.p2_absorb.launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _stream_arrivals():
+    return PoissonArrivals(rate=STREAM_RATE, job_factory=fixed_job_factory(1000, 1.0), seed=7)
+
+
+def _runs_bitwise(a, b) -> bool:
+    """Two streamed runs agree bitwise: delays, series, refills, sketch."""
+    return (np.array_equal(a.delays, b.delays) and a.refills == b.refills
+            and set(a.series) == set(b.series)
+            and all(np.array_equal(a.series[k], b.series[k], equal_nan=True) for k in a.series)
+            and np.array_equal(a.quantile_estimates, b.quantile_estimates, equal_nan=True))
+
+
+def _stream_by_segment(name: str, horizon: float, orders=None, record: list | None = None,
+                       profile_segment: int | None = None) -> dict:
+    """``run_steady_state``'s loop (no telemetry or provenance), driven
+    segment by segment from ``simx/stream.py``'s own window and
+    ``_segment_core`` on the (b) configuration, so that (e) can record
+    every absorb's inputs and (f) can profile one segment.  ``record``
+    collects ``(sketch, values, mask, result)`` of each absorb.  Segment
+    ``profile_segment`` runs twice from the same inputs: timed, then under
+    torch.profiler; the two must agree.  Returns the retired delays, the
+    per-refill sketch quantiles and host walls, and the profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r = runtime.get_rule(name)
+    cfg = stream.stream_config(name, WORKERS, window_tasks=STREAM_WINDOW["window_tasks"], dt=DT)
+    win = stream._StreamWindow(_stream_arrivals(), cfg, name, STREAM_WINDOW["window_jobs"],
+                               STREAM_WINDOW["window_tasks"], 0, torch.device(DEVICE))
+    win_tasks = win.tasks()
+    megha_orders = None
+    if name == "megha":
+        draws = runtime.orders_as_draws(orders, None)
+        megha_orders = runtime.rule_draws(r, cfg, win_tasks, draws)["orders"].to(DEVICE)
+    state = runtime.batch_state(r.init(cfg, win_tasks))
+    sketch = tlm.sketch_init(device=DEVICE)
+    recording = [record is not None]
+
+    def absorb(sk, values, mask):
+        out = p2.p2_absorb(sk, values, mask)
+        if recording[0]:
+            record.append((sk, values.clone(), mask.clone(), out))
+        return out
+
+    seg = stream._segment_core(name, cfg, STREAM_WINDOW["rounds_per_refill"],
+                               runtime.default_match_fn(True), megha_orders, absorb=absorb)
+    queues = r.has_queues
+
+    def advance(state, sketch):
+        state, sketch, _, _, _ = seg(state, win_tasks, win.layout(), sketch)
+        head = [state.probe_head.double()] if queues else []
+        scal = torch.cat([state.t.double(), state.lost.double(), *head,
+                          tlm.sketch_quantiles(sketch).double()]).cpu().numpy()
+        return state, sketch, scal
+
+    quantiles, seg_ms, refill_ms, prof = [], [], [], None
+    while True:
+        t0 = time.perf_counter()
+        new_state, new_sketch, scal = advance(state, sketch)
+        seg_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(seg_ms) - 1 == profile_segment:
+            recording[0] = False
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                again, _, scal_again = advance(state, sketch)
+                prof_ms = (time.perf_counter() - t0) * 1e3
+            recording[0] = record is not None
+            check(np.array_equal(scal_again, scal, equal_nan=True)
+                  and torch.equal(again.task_finish, new_state.task_finish),
+                  f"{name} stream: the profiled segment repeats the timed one")
+            prof = (p, prof_ms)
+        state, sketch = new_state, new_sketch
+        t1 = time.perf_counter()
+        t_now = float(np.float32(scal[0]))
+        state, _, _ = win.refill(state, t_now, int(scal[1]), int(scal[2]) if queues else 0)
+        quantiles.append(np.float32(scal[3 if queues else 2:]))
+        stop = win.drained or t_now >= horizon
+        if not stop:
+            win_tasks = win.tasks()
+        refill_ms.append((time.perf_counter() - t1) * 1e3)
+        if stop:
+            break
+    return dict(delays=np.asarray(win.retired_delays, np.float64),
+                quantiles=np.stack(quantiles), segment_ms=seg_ms, refill_ms=refill_ms,
+                profile=prof)
+
+
+def _segment_profile(name: str, by_seg: dict) -> dict:
+    """(f): the profiled segment's device busy time over its own wall
+    without the profiler (the timed pass of the same segment, same
+    inputs), and over its wall under the profiler; the refill after it."""
+    prof, prof_ms = by_seg["profile"]
+    i = STREAM_PROFILE_SEGMENT
+    seg_rounds = STREAM_WINDOW["rounds_per_refill"]
+    busy_us, spans, by_name = _device_busy(prof)
+    seg_ms = by_seg["segment_ms"][i]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        segment=i, rounds=seg_rounds, segments=len(by_seg["segment_ms"]),
+        device_busy_ms_per_round=busy_us / 1e3 / seg_rounds,
+        device_ops_per_round=len(spans) / seg_rounds,
+        segment_wall_ms=seg_ms, segment_wall_ms_per_round=seg_ms / seg_rounds,
+        profiled_segment_wall_ms=prof_ms,
+        device_idle_share=1.0 - busy_us / 1e3 / seg_ms,
+        device_idle_share_profiled=1.0 - busy_us / 1e3 / prof_ms,
+        refill_host_ms=by_seg["refill_ms"][i],
+        refill_host_ms_mean=float(np.mean(by_seg["refill_ms"])),
+        p2_kernel_ms=sum(v for k, v in by_name.items() if "p2_absorb" in k),
+        top_device_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_stream(wl) -> dict:
+    """The streaming engine at the paper's size: (a) replay parity, (b)
+    all five rules under open-loop load, (c) kernel = plain, (d) the state
+    bytes independent of the span, (e) the P² kernel against its plain
+    version, (f) one segment under the profiler."""
+    t_phase = time.perf_counter()
+    out = dict(phase="stream", workers=WORKERS, megha_workers=GRID_WORKERS,
+               arrival_rate=STREAM_RATE, horizon=STREAM_HORIZON, dt=DT, **STREAM_WINDOW)
+    cfg = SimxConfig(num_workers=GRID_WORKERS, dt=DT)
+    orders = simx_megha.gm_orders(torch.Generator().manual_seed(0), cfg)
+    offered = _stream_arrivals().offered_load(WORKERS)
+    out["offered_load"] = offered
+    check(abs(offered - 0.8) < 1e-12, "the Poisson stream offers load 0.8 (Eq. 6)")
+
+    # (a) replay parity: the full-size window IS the fixed trace
+    out["replay"] = {}
+    jobs = wl.sorted_jobs()
+    for name in ("megha", "oracle"):
+        kw = dict(orders=orders) if name == "megha" else {}
+        fixed = simulate_workload(name, wl, WORKERS, dt=DT, device=DEVICE, **kw)
+        jf = fixed.job_finish_times()
+        want = np.sort([float(np.float32(jf[p])) - float(j.submit_time) - float(j.ideal_jct)
+                        for p, j in enumerate(jobs)])
+        run, wall, launches, p2_launches, peak = _stream_run(
+            name, ReplayArrivals(wl), horizon=None, window=STREAM_REPLAY,
+            orders=orders if name == "megha" else None)
+        got = np.sort(run.delays)
+        out["replay"][name] = dict(
+            tasks=run.tasks_completed, jobs=run.jobs_completed, refills=len(run.refills),
+            rounds=run.rounds, fixed_rounds=int(fixed.state.rnd), wall_s=wall,
+            delays_bitwise_fixed=bool(got.shape == want.shape and np.array_equal(got, want)),
+            match_launches=launches, p2_launches=p2_launches,
+            max_memory_allocated=peak)
+        check(run.tasks_completed == wl.num_tasks, f"{name} replay: every task completes")
+        check(out["replay"][name]["delays_bitwise_fixed"],
+              f"{name} replay: sorted delays bitwise the fixed run's")
+        del fixed
+
+    # (b) every rule under open-loop Poisson load, 30 simulated seconds
+    out["rules"], runs = {}, {}
+    for name in STREAM_RULES:
+        run, wall, launches, p2_launches, peak = _stream_run(
+            name, _stream_arrivals(), orders=orders if name == "megha" else None)
+        runs[name] = run
+        balanced = all(s["admitted"] == s["completed"] + s["running"] + s["pending"]
+                       + s["unarrived"] + s["lost"] for s in run.refills)
+        want_launches = STREAM_PER_ROUND[name] * run.rounds + run.borrow_rounds
+        lag = run.series["admission_lag"]
+        r = out["rules"][name] = dict(
+            workers=run.cfg.num_workers, wall_s=wall, rounds=run.rounds,
+            refills=len(run.refills), end_time=run.end_time,
+            jobs_admitted=run.jobs_admitted, jobs_completed=run.jobs_completed,
+            tasks_admitted=run.tasks_admitted, tasks_completed=run.tasks_completed,
+            tasks_per_wall_s=run.tasks_completed / wall,
+            segment_s=run.segment_seconds, refill_s=run.refill_seconds,
+            refill_share=run.refill_seconds / wall,
+            admission_lag_max=float(lag.max()), admission_lag_last=float(lag[-1]),
+            p50=run.quantile(0.5), p95=run.quantile(0.95), p99=run.quantile(0.99),
+            p999=run.quantile(0.999), exact_p50=float(np.quantile(run.delays, 0.5)),
+            exact_p99=float(np.quantile(run.delays, 0.99)),
+            mean_utilization=run.mean_utilization, state_bytes=run.state_bytes,
+            max_memory_allocated=peak, lost=run.lost, messages=run.messages,
+            probes=run.probes, borrow_rounds=run.borrow_rounds,
+            ledger_balanced_every_refill=balanced,
+            kernel_launches=launches, expected_launches=want_launches,
+            p2_launches=p2_launches)
+        check(balanced, f"{name} stream: ledger balanced at every refill")
+        check(run.lost == 0, f"{name} stream: nothing lost")
+        check(run.end_time >= STREAM_HORIZON, f"{name} stream: reached the horizon")
+        check(launches == want_launches, f"{name} stream: match launches = rounds x "
+              f"{STREAM_PER_ROUND[name]} + borrow rounds")
+        check(p2_launches == len(run.refills), f"{name} stream: one P² launch per refill")
+        check(run.jobs_completed > 0 and run.mean_utilization > 0.1,
+              f"{name} stream: jobs retire and workers are busy")
+
+    # (c) kernel = plain, for megha (wide + borrow) and eagle (pick + central)
+    out["plain"] = {}
+    for name in ("megha", "eagle"):
+        run, wall, launches, p2_launches, _ = _stream_run(
+            name, _stream_arrivals(), use_kernel=False,
+            orders=orders if name == "megha" else None)
+        same = _runs_bitwise(run, runs[name])
+        out["plain"][name] = dict(wall_s=wall, bitwise_kernel=same,
+                                  match_launches=launches, p2_launches=p2_launches)
+        check(same, f"{name} stream: kernel = plain bitwise")
+        check(launches == 0 and p2_launches == 0, f"{name} plain stream launches nothing")
+
+    # (d) the O(W + window) claim: half the span, the same carried bytes
+    half, _, _, _, _ = _stream_run("megha", _stream_arrivals(), horizon=STREAM_HORIZON / 2,
+                                   orders=orders)
+    out["state_bytes"] = dict(horizon_15=half.state_bytes,
+                              horizon_30=runs["megha"].state_bytes)
+    check(half.state_bytes == runs["megha"].state_bytes,
+          "megha stream: state bytes equal at 15 s and 30 s")
+
+    # (e) the P² kernel against its plain version on every segment's
+    # delays of megha's (b) run, driven segment by segment (which also
+    # profiles its segment 5 for (f)); the driven loop is held bitwise to
+    # the entry point's run
+    p2_log: list = []
+    by_seg = {"megha": _stream_by_segment("megha", STREAM_HORIZON, orders, record=p2_log,
+                                          profile_segment=STREAM_PROFILE_SEGMENT)}
+    qkeys = [f"q{q}" for q in tlm.DEFAULT_QUANTILES]
+    want_q = np.stack([runs["megha"].series[k] for k in qkeys], axis=1).astype(np.float32)
+    check(np.array_equal(by_seg["megha"]["delays"], runs["megha"].delays)
+          and np.array_equal(by_seg["megha"]["quantiles"], want_q, equal_nan=True),
+          "megha stream: the driven segments are bitwise the entry point's run")
+    bitwise, n_obs = True, []
+    cycles = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    walk_cycles = []
+    for sk, values, mask, got in p2_log:
+        kern = p2.p2_absorb(sk, values, mask, cycles=cycles)
+        walk_cycles.append(int(cycles))
+        plain = tlm.sketch_absorb(sk, values, mask)
+        for f in ("q", "n", "npd", "buf", "count"):
+            bitwise &= torch.equal(getattr(kern, f), getattr(plain, f))
+            bitwise &= torch.equal(getattr(got, f), getattr(plain, f))
+        n_obs.append(int(mask.sum()))
+    mid = len(p2_log) // 2
+    sk, values, mask, _ = p2_log[mid]
+    p2_ms = device_ms(lambda: p2.p2_absorb(sk, values, mask), iters=200)
+    p2_plain_ms = device_ms(lambda: tlm.sketch_absorb(sk, values, mask), iters=3)
+    hz = p2.clock_hz(DEVICE)
+    n_q, n_v, n_valid = sk.q.shape[0], values.numel(), int(mask.sum())
+    p2_bytes = 5 * n_v + 4 * (4 * n_q * 5 + 6) + 4 * (3 * n_q * 5 + 6)
+    p2_ops = P2_OPS_PER_UPDATE * n_q * n_valid
+    out["p2"] = dict(
+        absorbs=len(p2_log), bitwise_every_absorb=bitwise, observations=n_obs,
+        timed_absorb=dict(index=mid, values=n_v, valid=n_valid, quantiles=n_q),
+        ms=p2_ms, plain_ms=p2_plain_ms, us_per_absorb=p2_ms * 1e3,
+        plain_us_per_absorb=p2_plain_ms * 1e3,
+        bytes=p2_bytes, ops=p2_ops,
+        bytes_ms=p2_bytes / HBM_BYTES_PER_S * 1e3, ops_ms=p2_ops / SCALAR_OPS_PER_S * 1e3,
+        # the dependent chain: the kernel's walk over the valid values,
+        # timed in-kernel (clock64, no launch, no global load) on this
+        # absorb's data, in seconds at the clock measured by the probe
+        sm_clock_hz=hz, walk_cycles=walk_cycles,
+        cycles_per_update=sum(walk_cycles) / max(sum(n_obs), 1),
+        chain_ms=walk_cycles[mid] / hz * 1e3)
+    out["p2"]["bound_ms"] = max(out["p2"]["bytes_ms"], out["p2"]["ops_ms"], out["p2"]["chain_ms"])
+    out["p2"]["bound_by"] = "bytes" if out["p2"]["bound_ms"] == out["p2"]["bytes_ms"] else "operations"
+    check(len(p2_log) == len(runs["megha"].refills), "the P² log holds every megha absorb")
+    check(bitwise, "P² kernel bitwise its plain version after every absorb")
+
+    # (f) one mid-run segment under the profiler: megha's from (e), and
+    # sparrow's of a 10 s run driven the same way
+    by_seg["sparrow"] = _stream_by_segment("sparrow", STREAM_PROFILE_HORIZON,
+                                           profile_segment=STREAM_PROFILE_SEGMENT)
+    n_del = len(by_seg["sparrow"]["delays"])
+    want_q = np.stack([runs["sparrow"].series[k] for k in qkeys], axis=1).astype(np.float32)
+    n_seg = len(by_seg["sparrow"]["quantiles"])
+    check(np.array_equal(by_seg["sparrow"]["delays"], runs["sparrow"].delays[:n_del])
+          and np.array_equal(by_seg["sparrow"]["quantiles"], want_q[:n_seg], equal_nan=True),
+          "sparrow stream: the driven segments are bitwise the entry point's run")
+    out["profile"] = {}
+    for name in ("megha", "sparrow"):
+        out["profile"][name] = _segment_profile(name, by_seg[name])
+        check(out["profile"][name]["device_ops_per_round"] > 0,
+              f"{name} stream: the profiler saw device work")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def phase_eagle_long() -> dict:
     """Eagle's SSS and central long match, which the synthetic trace never
     reaches: ``google_like_trace()`` at 13,000 workers until 50 s, first
@@ -1637,6 +1985,7 @@ def main() -> int:
     emit(megha)
     phase_megha_profile(wl)
     orc = phase_oracle(wl, megha)
+    strm = phase_stream(wl)
     tel = phase_telemetry(wl)
     phase_telemetry_profile(wl)
     swp = phase_sweep(megha)
@@ -1675,7 +2024,8 @@ def main() -> int:
             telemetry_by_rule={k: r["kernel_launches"] for k, r in tel["rules"].items()},
             breakdown=sum(r["kernel_launches"] for r in brk["rules"].values()),
             breakdown_by_rule={k: r["kernel_launches"] for k, r in brk["rules"].items()},
-            fault_provenance=fprov["kernel_launches"]),
+            fault_provenance=fprov["kernel_launches"],
+            stream_by_rule={k: r["kernel_launches"] for k, r in strm["rules"].items()}),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],
@@ -1706,6 +2056,19 @@ def main() -> int:
         by_shape=[{k: r[k] for k in ("caller", "shape", "ms", "plain_ms", "library_ms",
                                      "bound_ms", "ranks_ms", "ranks_bound_ms")}
                   for r in single["rows"]],
+    ), dict(
+        name="p2_sketch", route="cuda",
+        source="src/repro_torch/kernels/csrc/p2_sketch.cu",
+        replaces="src/repro/simx/telemetry.py:440 (sketch_absorb's lax.scan; not a TPU kernel)",
+        launches=sum(r["p2_launches"] for r in strm["rules"].values()),
+        launches_by_path=dict(stream_by_rule={k: r["p2_launches"]
+                                              for k, r in strm["rules"].items()}),
+        max_abs_err=0.0 if strm["p2"]["bitwise_every_absorb"] else None,
+        shape=[strm["p2"]["timed_absorb"]["values"]], ms=strm["p2"]["ms"],
+        plain_ms=strm["p2"]["plain_ms"], bound_ms=strm["p2"]["bound_ms"],
+        bound_by=strm["p2"]["bound_by"],
+        bound_parts_ms={k: strm["p2"][k] for k in ("bytes_ms", "ops_ms", "chain_ms")},
+        library_ms=None,
     )]})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

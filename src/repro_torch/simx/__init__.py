@@ -11,7 +11,10 @@ whole Fig. 2 (load x seed) grid as one batched program with
 ``FaultSchedule`` (``faults=``); telemetry (``TelemetryConfig`` ->
 ``SimxRun.timeline``) and delay provenance (``provenance=True`` ->
 ``SimxRun.provenance``, ``mean_<component>`` sweep columns) are optional
-stages of the same runs.
+stages of the same runs.  ``run_steady_state`` streams an open-loop
+arrival process (``repro_torch.workload.synth``) through a ring-buffer
+trace window for any rule, with a P² sketch of the job delays on the
+device (``simx/stream.py``).
 """
 
 from repro_torch.simx.engine import (
@@ -66,6 +69,7 @@ from repro_torch.simx.state import (
     init_sparrow_state,
     probe_edge_layout,
 )
+from repro_torch.simx.stream import SteadyRun, run_steady_state, state_nbytes, stream_config
 from repro_torch.simx.sweep import (
     SweepPlan,
     check_probe_memory,
@@ -105,6 +109,7 @@ __all__ = [
     "EagleState",
     "OracleState",
     "PigeonState",
+    "SteadyRun",
     "SweepPlan",
     "check_probe_memory",
     "compose_step",
@@ -132,9 +137,12 @@ __all__ = [
     "probe_memory_bytes",
     "register_rule",
     "rule_draws",
+    "run_steady_state",
     "run_to_completion",
     "scan_rounds",
     "simulate_fixed",
     "simulate_workload",
+    "state_nbytes",
+    "stream_config",
     "sweep_grid",
 ]

@@ -1,5 +1,5 @@
 """Eagle transition rule for the simx round-stepped backend (port of
-``repro/simx/eagle.py``, without the streaming ``EagleLayout``).
+``repro/simx/eagle.py``, with the streaming engine's ``EagleLayout``).
 
 Hybrid scheduling with Succinct State Sharing (SSS) and sticky batch
 probing (paper §2.2.3), over dense tensors:
@@ -31,11 +31,16 @@ The reference draws the probe targets and the two re-route rotations
 (``off1``, ``off2``) with ``jax.random`` when it builds the step; here
 they are the rule's draws, an argument, drawn from a ``torch.Generator``
 (``draw``) when not fed in.  Every step is batched over grid points.
+Under the streaming engine (``repro_torch.simx.stream``) the edge list,
+the rotations and the central FIFO are an argument (``EagleLayout``),
+sampled on the host per job at admission, and SSS and the central match
+are always built in (a refill may bring long jobs into any window).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -44,6 +49,7 @@ from repro_torch.simx import runtime as rt
 from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.sparrow import (
+    ProbeLayout,
     build_probe_edges,
     compact_queues,
     insert_probes,
@@ -61,6 +67,7 @@ from repro_torch.simx.state import (
     TaskArrays,
     init_eagle_state,
     probe_edge_layout,
+    spec,
 )
 
 _I32, _I64 = torch.int32, torch.int64
@@ -74,14 +81,35 @@ def eagle_probe_mask(targets: torch.Tensor, cfg: SimxConfig, tasks: TaskArrays) 
     return probe_mask(targets, cfg, tasks) & short[:, None]
 
 
+@dataclass(frozen=True)
+class EagleLayout:
+    """The streaming window's layout (the reference's ``EagleLayout``):
+    the short-path probe edges (a ``ProbeLayout``; long jobs get no edges),
+    the per-job SSS re-route rotations (sampled on the host per *global*
+    job id at admission, so carried jobs keep them across refills) and the
+    central long FIFO.  ``long_fifo`` lists the window's long task ids in
+    submit order padded with the window sentinel ``T``; ``n_long`` (a
+    tensor: it changes at every refill) clamps the central head;
+    ``long_window`` is the static central match window CL the FIFO was
+    padded for."""
+
+    probes: ProbeLayout
+    off1: torch.Tensor = spec("int32[J]")
+    off2: torch.Tensor = spec("int32[J]")
+    long_fifo: torch.Tensor = spec("int32[?]")  # T_cap + long_window ids
+    n_long: torch.Tensor = spec("int32[]")
+    long_window: int = 1
+
+
 def make_eagle_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
-    draws: dict,
+    draws: dict | None,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[EagleLayout] = None,
 ) -> Callable[[EagleState], EagleState]:
     """Build the one-round transition function on ``tasks``' device, under
     the fault schedule ``faults`` if one is given.
@@ -109,16 +137,34 @@ def make_eagle_step(
     counters; ``provenance`` the extras ``attempt`` (short-path probes
     inserted or orphan-rescued, or the long task in the central queued
     window) and ``authority`` (the job's home scheduler, ``job % num_gms``,
-    for short jobs, entity ``num_gms`` for the central scheduler)."""
+    for short jobs, entity ``num_gms`` for the central scheduler).
+
+    ``layout`` (an ``EagleLayout``, the streaming window's) replaces the
+    draws (pass None) and the central FIFO derived from ``tasks``; SSS and
+    the central match are then always built in, and the central head is
+    clamped by the layout's ``n_long``.  It does not compose with a fault
+    schedule."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
     W, T, J = cfg.num_workers, tasks.num_tasks, tasks.num_jobs
     R = cfg.short_reserved
-    edge_job, edge_worker, edge_end, _, C = build_probe_edges(
-        draws["targets"], cfg, tasks, short_only=True)
-    off1 = draws["off1"].to(device=dev, dtype=_I32)
-    off2 = draws["off2"].to(device=dev, dtype=_I32)
+    if layout is None:
+        edge_job, edge_worker, edge_end, _, C = build_probe_edges(
+            draws["targets"], cfg, tasks, short_only=True)
+        off1 = draws["off1"].to(device=dev, dtype=_I32)
+        off2 = draws["off2"].to(device=dev, dtype=_I32)
+    else:
+        if faults is not None:
+            raise NotImplementedError(
+                "streaming layout does not compose with fault schedules"
+            )
+        pl = layout.probes
+        edge_job, edge_worker, edge_end = (
+            pl.edge_job.to(dev), pl.edge_worker.to(dev), pl.edge_end.to(dev))
+        C = pl.window
+        off1 = layout.off1.to(device=dev, dtype=_I32)
+        off2 = layout.off2.to(device=dev, dtype=_I32)
     short_job = tasks.job_est < cfg.long_threshold                     # bool[J]
     long_task = torch.cat([~short_job[tasks.job.to(_I64)],
                            torch.zeros(1, dtype=torch.bool, device=dev)])   # bool[T+1]
@@ -133,18 +179,26 @@ def make_eagle_step(
     j_idx = torch.arange(J, dtype=_I32, device=dev)
     job_start = job_starts(tasks)
     job64 = tasks.job.to(_I64)
-    # central FIFO: long task ids in submit (== task id) order, + CL sentinels
-    long_ids = np.nonzero(
-        tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()] >= cfg.long_threshold)[0]
-    NL = int(long_ids.size)
-    CL = min(max(NL, 1), max(W - R, 64))
-    long_fifo = torch.from_numpy(
-        np.concatenate([long_ids, np.full(CL, T)]).astype(np.int32)).to(dev)
-    # structural, as in the reference: a trace with no long job has no
-    # central queue, and no SSS rejections unless dead workers bounce
-    # probes, so those stages are left out
-    use_sss = bool(NL) or faults is not None
-    use_central = bool(NL)
+    if layout is None:
+        # central FIFO: long task ids in submit (== task id) order, + CL sentinels
+        long_ids = np.nonzero(
+            tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()] >= cfg.long_threshold)[0]
+        NL = int(long_ids.size)
+        CL = min(max(NL, 1), max(W - R, 64))
+        long_fifo = torch.from_numpy(
+            np.concatenate([long_ids, np.full(CL, T)]).astype(np.int32)).to(dev)
+        # structural, as in the reference: a trace with no long job has no
+        # central queue, and no SSS rejections unless dead workers bounce
+        # probes, so those stages are left out
+        use_sss = bool(NL) or faults is not None
+        use_central = bool(NL)
+    else:
+        long_fifo = layout.long_fifo.to(dev)
+        CL = layout.long_window
+        # a refill may bring long jobs into any window: both long-path
+        # stages stay built in, clamped by the window's real count
+        use_sss = use_central = True
+        NL = layout.n_long.to(dev)
     long_partition = w_row >= R
     if faults is not None:
         # task -> central-FIFO position for crash-loss head rollback

@@ -1,5 +1,5 @@
 """Megha transition rule for the simx round-stepped backend (port of
-``repro/simx/megha.py``, without the streaming layout).
+``repro/simx/megha.py``, with the streaming engine's ``MeghaLayout``).
 
 One round advances the whole datacenter by ``cfg.dt`` simulated seconds:
 
@@ -31,11 +31,16 @@ The reference enters the borrow pass through ``lax.cond``; here it is a
 Python ``if`` on a device scalar, one host sync per round.  The step runs
 a batch of grid points at once (see ``make_megha_step``); a single run is
 a batch of one.
+
+Under the streaming engine (``repro_torch.simx.stream``) the per-GM FIFO
+layout of the window is an argument (``MeghaLayout``) rather than derived
+from the trace when the step is built.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -48,7 +53,13 @@ from repro_torch.simx.faults import (
     gm_recovered_now,
 )
 from repro_torch.simx.runtime import MatchFn, default_match_fn
-from repro_torch.simx.state import MeghaState, SimxConfig, TaskArrays, init_megha_state
+from repro_torch.simx.state import (
+    MeghaState,
+    SimxConfig,
+    TaskArrays,
+    init_megha_state,
+    spec,
+)
 
 
 def gm_orders(generator: torch.Generator, cfg: SimxConfig) -> torch.Tensor:
@@ -72,6 +83,20 @@ def gm_orders(generator: torch.Generator, cfg: SimxConfig) -> torch.Tensor:
     return torch.stack(rows)
 
 
+@dataclass(frozen=True)
+class MeghaLayout:
+    """The streaming window's per-GM task layout (the reference's
+    ``MeghaLayout``).  ``gm_tasks`` rows list each GM's window-task ids in
+    submit order (GM = global job id % G, so a carried job keeps its GM
+    across refills), padded with the window sentinel ``T``; ``gm_len``
+    holds the real row lengths for the head clamp.  ``window`` is the
+    static match window C the rows were padded for."""
+
+    gm_tasks: torch.Tensor = spec("int32[G, ?]")  # rows: T_cap + window
+    gm_len: torch.Tensor = spec("int32[G]")
+    window: int = 1
+
+
 def make_megha_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
@@ -80,6 +105,7 @@ def make_megha_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[MeghaLayout] = None,
 ) -> Callable[[MeghaState], MeghaState]:
     """Build the one-round transition function on ``tasks``' device, under
     the fault schedule ``faults`` (leaves shared or one per point) if one
@@ -120,9 +146,18 @@ def make_megha_step(
     (every queued task of a GM window), ``stale`` (invalid proposals per
     task) and ``authority`` (the launching GM).  The borrow pass's share of
     each reaches only the points that needed the pass, through the same
-    select as the state."""
+    select as the state.
+
+    ``layout`` (a ``MeghaLayout``, the streaming window's) replaces the
+    per-GM layout derived from ``tasks``: its rows, window and row lengths
+    (the head clamp) come in as tensors, and nothing of the trace is read
+    to the host.  It does not compose with a fault schedule."""
     if match_fn is None:
         match_fn = default_match_fn()
+    if layout is not None and faults is not None:
+        raise NotImplementedError(
+            "streaming layout does not compose with fault schedules"
+        )
     cfg.validate_megha_grid()
     dev = tasks.device
     G, L, W = cfg.num_gms, cfg.num_lms, cfg.num_workers
@@ -144,18 +179,24 @@ def make_megha_step(
     inv_int = torch.argsort(int_ord.reshape(-1, G * wi), dim=-1)  # [Bo, W] -> (g, i)
     lm_int = (int_ord // wpl).to(torch.int32)          # int32[Bo, G, wi]
 
-    # compact per-GM task partition (jobs round-robin over GMs)
-    task_gm = tasks.job.cpu().numpy() % G
-    tg = max(1, int(np.max(np.bincount(task_gm, minlength=G))))
-    C = min(max(W // G, 64), tg)
-    # pad with C sentinels so the head window never leaves the row
-    gm_tasks_np = np.full((G, tg + C), T, np.int32)
-    task_pos_np = np.zeros(T + 1, np.int32)            # task -> window position
-    for g in range(G):
-        mine = np.nonzero(task_gm == g)[0]
-        gm_tasks_np[g, : mine.size] = mine
-        task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
-    gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
+    if layout is None:
+        # compact per-GM task partition (jobs round-robin over GMs)
+        task_gm = tasks.job.cpu().numpy() % G
+        tg = max(1, int(np.max(np.bincount(task_gm, minlength=G))))
+        C = min(max(W // G, 64), tg)
+        # pad with C sentinels so the head window never leaves the row
+        gm_tasks_np = np.full((G, tg + C), T, np.int32)
+        task_pos_np = np.zeros(T + 1, np.int32)        # task -> window position
+        for g in range(G):
+            mine = np.nonzero(task_gm == g)[0]
+            gm_tasks_np[g, : mine.size] = mine
+            task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
+        gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
+        gm_len = tg
+    else:
+        gm_tasks = layout.gm_tasks.to(dev)[None]       # int32[1, G, T_cap+C]
+        C = layout.window
+        gm_len = layout.gm_len.to(dev)                 # int32[G]
     if faults is not None:
         # task -> (gm row, FIFO position) for crash-loss head rollback;
         # the T pad routes to the pad row G, which is cut off
@@ -380,7 +421,7 @@ def make_megha_step(
         # -- 5. advance each GM's FIFO head past its launched prefix --------
         fpad3 = rt.finish_pad(task_finish)
         launched3 = rt.window_launched(fpad3, wtask, T)            # bool[B,G,C]
-        head = torch.clamp(head0 + rt.launched_lead(launched3), max=tg)
+        head = torch.clamp(head0 + rt.launched_lead(launched3), max=gm_len)
 
         upd = dict(
             task_finish=task_finish,

@@ -1,5 +1,5 @@
 """Pigeon transition rule for the simx round-stepped backend (port of
-``repro/simx/pigeon.py``, without the streaming layout).
+``repro/simx/pigeon.py``, with the streaming engine's ``PigeonLayout``).
 
 Federated two-layer scheduling (paper §2.2.4) over dense per-group arrays:
 
@@ -27,12 +27,16 @@ groups have idle workers (the pathology Megha fixes).  Pigeon draws no
 random numbers, so the port's runs are bitwise the reference's.  Both
 matches of a round (unreserved and reserved workers) go through the
 rank-and-select primitive over ``[B * NG, S]`` rows: at the paper's 50,000
-workers, 1,250 groups of 40.
+workers, 1,250 groups of 40.  Under the streaming engine
+(``repro_torch.simx.stream``) the per-group class FIFOs of the window are
+an argument (``PigeonLayout``), built on the host from the persistent
+distributor counters, rather than derived from the trace.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -40,7 +44,13 @@ import torch
 from repro_torch.simx import runtime as rt
 from repro_torch.simx.faults import FaultSchedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
-from repro_torch.simx.state import PigeonState, SimxConfig, TaskArrays, init_pigeon_state
+from repro_torch.simx.state import (
+    PigeonState,
+    SimxConfig,
+    TaskArrays,
+    init_pigeon_state,
+    spec,
+)
 
 
 def task_groups(cfg: SimxConfig, tasks: TaskArrays) -> np.ndarray:
@@ -61,6 +71,22 @@ def task_groups(cfg: SimxConfig, tasks: TaskArrays) -> np.ndarray:
     return out
 
 
+@dataclass(frozen=True)
+class PigeonLayout:
+    """The streaming window's per-group FIFOs (the reference's
+    ``PigeonLayout``).  Rows list each group's window-task ids per priority
+    class in submit order (the group of a task comes from the persistent
+    distributor round-robin counters, so a refill never re-distributes a
+    task), padded with the window sentinel ``T`` and by the window C =
+    max(S, 1); ``len_high`` / ``len_low`` hold the real row lengths for the
+    head clamps (tensors: they change at every refill)."""
+
+    high_fifo: torch.Tensor = spec("int32[NG, ?]")  # rows: L_cap + C
+    low_fifo: torch.Tensor = spec("int32[NG, ?]")
+    len_high: torch.Tensor = spec("int32[NG]")
+    len_low: torch.Tensor = spec("int32[NG]")
+
+
 def make_pigeon_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
@@ -68,6 +94,7 @@ def make_pigeon_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[PigeonLayout] = None,
 ) -> Callable[[PigeonState], PigeonState]:
     """Build the one-round transition function on ``tasks``' device.
 
@@ -89,9 +116,17 @@ def make_pigeon_step(
     ``telemetry`` adds the per-round ``launches`` and ``reserve_hits``
     (high tasks placed on reserved workers) counters; ``provenance`` the
     extras ``attempt`` (the task sat in its group's queued window) and
-    ``authority`` (the group coordinator, static per worker)."""
+    ``authority`` (the group coordinator, static per worker).
+
+    ``layout`` (a ``PigeonLayout``, the streaming window's) replaces the
+    class FIFOs derived from ``tasks``; its row lengths clamp the heads.  It
+    does not compose with a fault schedule."""
     if match_fn is None:
         match_fn = default_match_fn()
+    if layout is not None and faults is not None:
+        raise NotImplementedError(
+            "streaming layout does not compose with fault schedules"
+        )
     dev = tasks.device
     W = cfg.num_workers
     T = tasks.num_tasks
@@ -117,25 +152,30 @@ def make_pigeon_step(
             wgrp_np[wg_np[g][wg_np[g] < W]] = g
         worker_group = torch.from_numpy(wgrp_np).to(dev)
     C = max(S, 1)  # window width: a group launches at most S tasks per round
-    # -- exact static task -> group distribution, split by priority class
-    gt = task_groups(cfg, tasks)
-    high_task = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
-                 < cfg.long_threshold)
-    task_pos_np = np.zeros(T + 1, np.int32)  # task -> position in its FIFO
+    if layout is None:
+        # -- exact static task -> group distribution, split by priority class
+        gt = task_groups(cfg, tasks)
+        high_task = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
+                     < cfg.long_threshold)
+        task_pos_np = np.zeros(T + 1, np.int32)  # task -> position in its FIFO
 
-    def class_layout(mask: np.ndarray) -> torch.Tensor:
-        length = int(np.max(np.bincount(gt[mask], minlength=NG))) if mask.any() else 0
-        rows = np.full((NG, length + C), T, np.int32)
-        for g in range(NG):
-            mine = np.nonzero(mask & (gt == g))[0]
-            rows[g, : mine.size] = mine
-            task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
-        return torch.from_numpy(rows).to(dev)[None]
+        def class_layout(mask: np.ndarray) -> torch.Tensor:
+            length = int(np.max(np.bincount(gt[mask], minlength=NG))) if mask.any() else 0
+            rows = np.full((NG, length + C), T, np.int32)
+            for g in range(NG):
+                mine = np.nonzero(mask & (gt == g))[0]
+                rows[g, : mine.size] = mine
+                task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
+            return torch.from_numpy(rows).to(dev)[None]
 
-    high_fifo = class_layout(high_task)  # int32[1, NG, Lh+C], ascending = FIFO
-    low_fifo = class_layout(~high_task)  # int32[1, NG, Ll+C]
-    len_h = high_fifo.shape[-1] - C
-    len_l = low_fifo.shape[-1] - C
+        high_fifo = class_layout(high_task)  # int32[1, NG, Lh+C], ascending = FIFO
+        low_fifo = class_layout(~high_task)  # int32[1, NG, Ll+C]
+        len_h = high_fifo.shape[-1] - C
+        len_l = low_fifo.shape[-1] - C
+    else:
+        high_fifo = layout.high_fifo.to(dev)[None]
+        low_fifo = layout.low_fifo.to(dev)[None]
+        len_h, len_l = layout.len_high.to(dev), layout.len_low.to(dev)
     # one row of submit times per grid point (or one shared row)
     submit = tasks.submit.reshape(-1, T)                       # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)

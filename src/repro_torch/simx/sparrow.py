@@ -1,5 +1,5 @@
 """Sparrow transition rule for the simx round-stepped backend (port of
-``repro/simx/sparrow.py``, without the streaming ``ProbeLayout``).
+``repro/simx/sparrow.py``, with the streaming engine's ``ProbeLayout``).
 
 Batch sampling + late binding (§2.2.2).  When a job of n tasks arrives it
 probes ``min(d * n, W)`` DISTINCT random workers, leaving a *reservation*
@@ -21,7 +21,10 @@ the step; here they are an argument (``targets``, the rule's draws), drawn
 from a ``torch.Generator`` by ``probe_targets`` when not fed in, so a run
 agrees with the reference's bitwise when given the reference's table and
 in distribution otherwise.  Every step is batched over grid points
-(``runtime``'s point axis); a single run is B = 1.
+(``runtime``'s point axis); a single run is B = 1.  Under the streaming
+engine (``repro_torch.simx.stream``) the edge list is an argument
+(``ProbeLayout``), built on the host from targets drawn per job at
+admission, and no target table is drawn.
 
 The reference's ``mode="drop"`` scatters become scatters into a pad slot
 that is cut off; only the pad slot ever receives repeated indices, so
@@ -30,8 +33,9 @@ every scatter is deterministic on the card.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -44,6 +48,7 @@ from repro_torch.simx.state import (
     TaskArrays,
     init_sparrow_state,
     probe_edge_layout,
+    spec,
 )
 
 _I32, _I64 = torch.int32, torch.int64
@@ -333,14 +338,32 @@ def job_starts(tasks: TaskArrays) -> torch.Tensor:
     return torch.cat([csum.new_zeros(1), csum[:-1]])
 
 
+@dataclass(frozen=True)
+class ProbeLayout:
+    """The streaming window's probe edge list (the reference's
+    ``ProbeLayout``).  Targets are sampled on the host per *global* job id
+    at admission, so a job carried across refills keeps its probed
+    workers.  Pad edges past the window's real edge count carry ``edge_job
+    == J`` (the pad job never arrives, so the ready prefix and the
+    probe/message counters stay exact); ``edge_end`` of jobs without probes
+    (and of the pad job slot) points past every real edge.  ``window`` is
+    the static insertion width C the lists were padded for."""
+
+    edge_job: torch.Tensor = spec("int32[?]")     # P_cap + window edges
+    edge_worker: torch.Tensor = spec("int32[?]")  # same length as edge_job
+    edge_end: torch.Tensor = spec("int32[J]")
+    window: int = 1
+
+
 def make_sparrow_step(
     cfg: SimxConfig,
     tasks: TaskArrays,
-    targets: torch.Tensor,
+    targets: torch.Tensor | None,
     match_fn: MatchFn | None = None,
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[ProbeLayout] = None,
 ) -> Callable[[SparrowState], SparrowState]:
     """Build the one-round transition function on ``tasks``' device.
 
@@ -361,12 +384,25 @@ def make_sparrow_step(
     ``telemetry`` adds the per-round ``launches`` counter; ``provenance``
     the extras ``attempt`` (a job's probes were inserted, or it was
     orphan-rescued) and ``authority`` (the job's home scheduler, jobs
-    round-robin over ``num_gms`` schedulers)."""
+    round-robin over ``num_gms`` schedulers).
+
+    ``layout`` (a ``ProbeLayout``, the streaming window's) replaces the edge
+    list built from ``targets``, which is then not used (pass None).  It
+    does not compose with a fault schedule."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
     T, J = tasks.num_tasks, tasks.num_jobs
-    edge_job, edge_worker, edge_end, _, C = build_probe_edges(targets, cfg, tasks)
+    if layout is None:
+        edge_job, edge_worker, edge_end, _, C = build_probe_edges(targets, cfg, tasks)
+    else:
+        if faults is not None:
+            raise NotImplementedError(
+                "streaming layout does not compose with fault schedules"
+            )
+        edge_job, edge_worker, edge_end = (
+            layout.edge_job.to(dev), layout.edge_worker.to(dev), layout.edge_end.to(dev))
+        C = layout.window
     # one row of arrival times per grid point (or one shared row)
     submit = tasks.submit.reshape(-1, T)
     job_submit = tasks.job_submit.reshape(-1, J)

@@ -1,0 +1,900 @@
+"""Streaming steady-state engine: open-loop arrivals over a trace window
+(port of ``repro/simx/stream.py``).
+
+Every other simx entry point runs a fixed, fully materialised trace until
+it drains.  This module runs any registered rule against an open-loop
+*arrival process* (``repro_torch.workload.synth``'s ``ArrivalProcess``
+family) through a **ring-buffer trace window**:
+
+  * The device only ever holds a window of ``window_jobs`` job slots and
+    ``window_tasks`` task slots (plus one pad-job slot that owns the unused
+    task slots, keeping tasks contiguous per job, as ``late_bind`` needs).
+    Carried state is O(W + window), whatever the simulated span.
+  * Between ``rounds_per_refill``-round segments the host **refills** the
+    window: jobs whose every task finished retire (their exact delays are
+    collected, and the segment absorbed them into the P² sketch on the
+    device), the carried jobs compact to the front in submit order (task
+    index order is FIFO order), and new arrivals are admitted into the
+    freed slots with their original submit times (a job that waits for a
+    slot accrues the wait as queueing delay, which is what makes overload
+    observable).  Task and job indices shift, so the host remaps
+    ``task_finish``, ``worker_task`` (retired -> sentinel), the
+    reservation queues' job ids (retired -> empty), and recomputes every
+    FIFO head as the launched prefix of its rebuilt window FIFO.
+  * Each rule's window-dependent layout (megha's per-GM FIFOs, the
+    sparrow/eagle probe edge lists, eagle's central long FIFO, pigeon's
+    per-group class FIFOs) enters the step as tensors (the ``layout=``
+    argument of each ``make_*_step``) with static capacities.  Per-job
+    random quantities (probe targets, SSS re-route rotations) are drawn on
+    the host per *global* job id at admission with numpy, exactly as the
+    reference draws them, so a carried job keeps them and the streamed
+    sparrow and eagle are bitwise the reference's streamed runs.
+
+Within a window the round dynamics are exactly the fixed path's.
+
+**What differs from the reference.**  PyTorch runs eagerly, so there is
+no compiled segment to memoise (the reference's ``lru_cache`` of one
+``jax.jit`` per rule and config): the step is rebuilt at every refill from
+the new window's tensors and layout, which costs no host read and a few
+small device ops (the layout replaces the trace-derived numpy work of
+the ``make_*_step`` functions).  The state carries the port's leading point axis (B = 1) throughout.
+The round loop reads nothing to the host inside a segment; a refill reads
+the scalars it needs (clock, losses, gauges, sketch quantiles) in one host
+read, then the arrays the remap needs.  Pigeon's FIFO rows are as wide as
+one group can fill (``window_tasks // groups + window_jobs``, capped at
+``window_tasks``) rather than the reference's ``window_tasks``: the rows'
+width is a capacity, no result depends on it, and at 50,000 workers the
+reference's width is 1,250 x 196,608 slots per class.  The step takes one
+``match_fn`` (the port has no ``pick_fn``), and the sketch absorb runs the
+``p2_sketch`` kernel when ``use_kernel``.
+
+Reporting is streaming too: per-job delays feed the P² sketch
+(``telemetry.QuantileSketch``) on the device, plus windowed utilisation /
+pending gauges sampled at every refill.  ``run_steady_state`` returns a
+``SteadyRun`` with the sketch quantiles, the gauge series, per-refill
+conservation stats, and the measured carried-state bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.base import grid_workers
+from repro_torch.device import resolve_device
+from repro_torch.kernels import p2
+from repro_torch.simx import eagle as _eagle
+from repro_torch.simx import megha as _megha
+from repro_torch.simx import oracle as _oracle
+from repro_torch.simx import pigeon as _pigeon
+from repro_torch.simx import runtime as rt
+from repro_torch.simx import sparrow as _sparrow
+from repro_torch.simx import telemetry as tlm
+from repro_torch.simx.provenance import COMPONENTS, UNSET, Provenance, init_provenance
+from repro_torch.simx.state import SimxConfig, TaskArrays
+from repro_torch.workload.synth import ArrivalProcess
+from repro_torch.workload.traces import Job
+
+
+@dataclass
+class _WinJob:
+    """One admitted job riding in the window (host bookkeeping)."""
+
+    gid: int                  # global job id (stream-wide, admission order)
+    submit: float
+    durations: np.ndarray     # float32[n]
+    est: float
+    ideal: float
+    # rule extras, drawn once at admission from the (seed, gid) stream:
+    targets: Optional[np.ndarray] = None   # int32[k] probe targets
+    off1: int = 0                          # eagle SSS re-route rotations
+    off2: int = 0
+    groups: Optional[np.ndarray] = None    # int32[n] pigeon task -> group
+
+    @property
+    def ntasks(self) -> int:
+        return int(self.durations.size)
+
+
+def _prefix_rows(rows: np.ndarray, lens: np.ndarray, tf: np.ndarray) -> np.ndarray:
+    """int32 per row: the launched prefix of each window FIFO row (the
+    reference's ``_prefix``, over all rows at once) — where its head
+    restarts.  ``rows [N, L]`` of task ids (the sentinel past each row's
+    ``lens``), ``tf`` the remapped finish times."""
+    n = int(lens.max(initial=0))
+    if n == 0:
+        return np.zeros(rows.shape[0], np.int32)
+    ids = rows[:, :n]
+    tf_pad = np.append(tf, np.float32(np.inf))
+    col = np.arange(n)[None, :]
+    holes = np.isinf(tf_pad[np.minimum(ids, tf.size)]) & (col < lens[:, None])
+    return np.where(holes.any(axis=1), holes.argmax(axis=1), lens).astype(np.int32)
+
+
+class _StreamWindow:
+    """Host side of the ring buffer: admission, retirement, compaction,
+    per-rule layout construction, and FIFO-head recomputation."""
+
+    def __init__(
+        self,
+        arrivals: ArrivalProcess,
+        cfg: SimxConfig,
+        rule: str,
+        window_jobs: int,
+        window_tasks: int,
+        seed: int,
+        device: torch.device,
+        provenance: bool = False,
+        breakdown_bins: int = 32,
+        breakdown_max: float = 60.0,
+    ):
+        if window_jobs < 1 or window_tasks < 1:
+            raise ValueError("window capacities must be positive")
+        self.cfg = cfg
+        self.rule = rule
+        self.device = device
+        self.window_jobs = int(window_jobs)        # real job slots
+        self.J_cap = int(window_jobs) + 1          # + the pad-job slot
+        self.T_cap = int(window_tasks)
+        self.seed = int(seed)
+        self.jobs: list[_WinJob] = []
+        self._it: Iterator[Job] = arrivals.jobs()
+        self._next: Optional[Job] = None           # pulled but unadmitted
+        self.exhausted = False
+        # pigeon's persistent per-distributor round-robin counters
+        self._rr = np.zeros(cfg.num_distributors, np.int64)
+        # cumulative stream accounting
+        self.jobs_admitted = 0
+        self.tasks_admitted = 0
+        self.jobs_retired = 0
+        self.tasks_retired = 0
+        self.retired_delays: list[float] = []
+        self._last_t = 0.0  # previous refill boundary (busy accounting)
+        # harvest-at-retirement delay decomposition: bounded host state,
+        # a per-component histogram and running sums, no per-job storage
+        self.provenance = bool(provenance)
+        if provenance:
+            self.breakdown_bins = int(breakdown_bins)
+            self.breakdown_max = float(breakdown_max)
+            self.prov_hist = {c: np.zeros(self.breakdown_bins, np.int64) for c in COMPONENTS}
+            self.prov_sum = {c: 0.0 for c in COMPONENTS}
+            self.prov_jobs = 0
+        self.admit(float("-inf"))
+        self._export()
+
+    # -- admission -------------------------------------------------------
+
+    def _admit_one(self, job: Job) -> None:
+        cfg = self.cfg
+        wj = _WinJob(
+            gid=self.jobs_admitted,
+            submit=float(job.submit_time),
+            durations=np.asarray(job.durations, np.float32),
+            est=float(job.estimated_duration),
+            ideal=float(job.ideal_jct),
+        )
+        n = wj.ntasks
+        if self.rule in ("sparrow", "eagle"):
+            rng = np.random.default_rng((self.seed, 7, wj.gid))
+            k = min(cfg.probe_ratio * n, cfg.num_workers)
+            if self.rule == "eagle":
+                if wj.est >= cfg.long_threshold:
+                    k = 0
+                wj.off1 = int(rng.integers(cfg.num_workers))
+                wj.off2 = int(rng.integers(max(cfg.short_reserved, 1)))
+            wj.targets = rng.choice(cfg.num_workers, size=k, replace=False).astype(np.int32)
+        elif self.rule == "pigeon":
+            d = wj.gid % cfg.num_distributors
+            wj.groups = ((self._rr[d] + np.arange(n)) % cfg.num_groups).astype(np.int32)
+            self._rr[d] += n
+        self.jobs.append(wj)
+        self.jobs_admitted += 1
+        self.tasks_admitted += n
+
+    def admit(self, t: float) -> None:
+        """Pull arrivals into free window capacity (eagerly: a job whose
+        submit lies in the future just sits unarrived in its slot)."""
+        del t  # admission is capacity-bound, not time-bound
+        used = sum(wj.ntasks for wj in self.jobs)
+        while True:
+            if self._next is None:
+                if self.exhausted:
+                    return
+                try:
+                    self._next = next(self._it)
+                except StopIteration:
+                    self.exhausted = True
+                    return
+            n = self._next.num_tasks
+            if n > self.T_cap:
+                raise ValueError(f"job with {n} tasks exceeds window_tasks={self.T_cap}")
+            if len(self.jobs) >= self.window_jobs or used + n > self.T_cap:
+                return
+            self._admit_one(self._next)
+            used += n
+            self._next = None
+
+    @property
+    def drained(self) -> bool:
+        return self.exhausted and self._next is None and not self.jobs
+
+    @property
+    def next_submit(self) -> float:
+        """Submit time of the first unadmitted arrival (inf when none is
+        waiting): ``t - next_submit > 0`` means admission is backlogged."""
+        return float("inf") if self._next is None else float(self._next.submit_time)
+
+    # -- window export ---------------------------------------------------
+
+    def _export(self) -> None:
+        """Rebuild the window's task arrays and rule layout (host numpy,
+        then the layout's tensors on the device)."""
+        J_cap, T_cap = self.J_cap, self.T_cap
+        job = np.full(T_cap, J_cap - 1, np.int32)
+        dur = np.zeros(T_cap, np.float32)
+        sub = np.full(T_cap, np.inf, np.float32)
+        job_sub = np.full(J_cap, np.inf, np.float32)
+        job_ideal = np.zeros(J_cap, np.float32)
+        job_nt = np.zeros(J_cap, np.int32)
+        job_est = np.zeros(J_cap, np.float32)
+        starts = np.zeros(len(self.jobs), np.int32)
+        k = 0
+        for p, wj in enumerate(self.jobs):
+            n = wj.ntasks
+            starts[p] = k
+            job[k : k + n] = p
+            dur[k : k + n] = wj.durations
+            sub[k : k + n] = wj.submit
+            job_sub[p] = wj.submit
+            job_ideal[p] = wj.ideal
+            job_nt[p] = n
+            job_est[p] = wj.est
+            k += n
+        job_nt[J_cap - 1] = T_cap - k   # the pad job owns the spare slots
+        self.T_real = k
+        self.starts = starts
+        self._np = dict(
+            job=job, duration=dur, submit=sub, job_submit=job_sub,
+            job_ideal=job_ideal, job_ntasks=job_nt, job_est=job_est,
+        )
+        self._build_layout()
+
+    def tasks(self) -> TaskArrays:
+        return TaskArrays(**{k: torch.from_numpy(v).to(self.device) for k, v in self._np.items()})
+
+    # -- per-rule layouts ------------------------------------------------
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _task_rows(self, task_row: np.ndarray, n_rows: int, width: int) -> tuple:
+        """``[n_rows, width]`` FIFO rows (sentinel ``T_cap``) listing the
+        window's real tasks by row in ascending task id (== submit order),
+        and the row lengths: one stable sort by row, not a loop over jobs."""
+        tids = np.nonzero(task_row >= 0)[0].astype(np.int32)
+        rows_of = task_row[tids]
+        order = np.argsort(rows_of, kind="stable")
+        lens = np.bincount(rows_of, minlength=n_rows).astype(np.int32)
+        first = np.cumsum(lens) - lens
+        r = rows_of[order]
+        rows = np.full((n_rows, width), self.T_cap, np.int32)
+        rows[r, np.arange(r.size) - first[r]] = tids[order]
+        return rows, lens
+
+    def _per_task(self, per_job: np.ndarray, fill) -> np.ndarray:
+        """A per-window-job value spread over the job's tasks (``fill`` on
+        the spare slots)."""
+        out = np.full(self.T_cap, fill, per_job.dtype)
+        if self.jobs:
+            out[: self.T_real] = np.repeat(per_job, [wj.ntasks for wj in self.jobs])
+        return out
+
+    def _probe_layout(self) -> _sparrow.ProbeLayout:
+        """Flat edge list over the window's real jobs (admission-order
+        targets), padded to the static ``P_cap + C`` capacity."""
+        cfg = self.cfg
+        P_cap = cfg.probe_ratio * self.T_cap
+        C = cfg.insert_window(P_cap, 0)
+        ks = np.array([wj.targets.size for wj in self.jobs], np.int64)
+        ends = np.zeros(self.J_cap, np.int32)
+        ends[: ks.size] = np.cumsum(ks)
+        p = int(ks.sum())
+        ends[ks.size :] = p   # empty slots + the pad job: no edges
+        edge_job = np.full(P_cap + C, self.J_cap, np.int32)
+        edge_worker = np.zeros(P_cap + C, np.int32)
+        if p:
+            edge_job[:p] = np.repeat(np.arange(ks.size, dtype=np.int32), ks)
+            edge_worker[:p] = np.concatenate([wj.targets for wj in self.jobs])
+        self._edge_start = (ends[: ks.size] - ks).astype(np.int64)
+        self._edge_count = p
+        return _sparrow.ProbeLayout(
+            edge_job=self._dev(edge_job), edge_worker=self._dev(edge_worker),
+            edge_end=self._dev(ends), window=C,
+        )
+
+    def _build_layout(self) -> None:
+        cfg = self.cfg
+        T_cap = self.T_cap
+        if self.rule == "oracle":
+            self._layout = None
+        elif self.rule == "megha":
+            G = cfg.num_gms
+            C = min(max(cfg.num_workers // G, 64), T_cap)
+            gm_of_job = np.array([wj.gid % G for wj in self.jobs], np.int64)
+            rows, lens = self._task_rows(self._per_task(gm_of_job, -1), G, T_cap + C)
+            self._gm_rows, self._gm_len = rows, lens
+            self._layout = _megha.MeghaLayout(
+                gm_tasks=self._dev(rows), gm_len=self._dev(lens), window=C)
+        elif self.rule == "sparrow":
+            self._layout = self._probe_layout()
+        elif self.rule == "eagle":
+            probes = self._probe_layout()
+            off1 = np.zeros(self.J_cap, np.int32)
+            off2 = np.zeros(self.J_cap, np.int32)
+            long_job = np.zeros(len(self.jobs), np.int64)
+            for p, wj in enumerate(self.jobs):
+                off1[p], off2[p] = wj.off1, wj.off2
+                long_job[p] = 0 if wj.est >= cfg.long_threshold else -1
+            CL = min(max(T_cap, 1), max(cfg.num_workers - cfg.short_reserved, 64))
+            rows, lens = self._task_rows(self._per_task(long_job, -1), 1, T_cap + CL)
+            self._long_row, self._n_long = rows[0], int(lens[0])
+            self._layout = _eagle.EagleLayout(
+                probes=probes, off1=self._dev(off1), off2=self._dev(off2),
+                long_fifo=self._dev(self._long_row),
+                n_long=torch.tensor(self._n_long, dtype=torch.int32, device=self.device),
+                long_window=CL,
+            )
+        elif self.rule == "pigeon":
+            NG = cfg.num_groups
+            sizes = np.full(NG, cfg.group_size, np.int64)
+            sizes[-1] = cfg.num_workers - (NG - 1) * cfg.group_size
+            C = max(int(sizes.max()), 1)
+            # a job spreads its n tasks round-robin over the groups, so one
+            # group holds at most ceil(n / NG) of each: T_cap // NG plus one
+            # per window job
+            width = min(T_cap, T_cap // NG + self.window_jobs) + C
+            groups = (np.concatenate([wj.groups for wj in self.jobs])
+                      if self.jobs else np.zeros(0, np.int32))
+            task_group = np.full(T_cap, -1, np.int64)
+            task_group[: self.T_real] = groups
+            high = self._per_task(
+                np.array([wj.est < cfg.long_threshold for wj in self.jobs], bool), False)
+            self._pg_rows, self._pg_len = {}, {}
+            for cls, mask in (("high", high), ("low", ~high)):
+                rows, lens = self._task_rows(np.where(mask, task_group, -1), NG, width)
+                self._pg_rows[cls], self._pg_len[cls] = rows, lens
+            self._layout = _pigeon.PigeonLayout(
+                high_fifo=self._dev(self._pg_rows["high"]),
+                low_fifo=self._dev(self._pg_rows["low"]),
+                len_high=self._dev(self._pg_len["high"]),
+                len_low=self._dev(self._pg_len["low"]),
+            )
+        else:  # pragma: no cover - registry and stream rules move together
+            raise ValueError(f"no streaming layout for rule {self.rule!r}")
+
+    def layout(self):
+        return self._layout
+
+    # -- refill ----------------------------------------------------------
+
+    def _harvest(self, wj: _WinJob, sl: slice, tf: np.ndarray, pv: dict) -> None:
+        """Decompose one retiring job's delay and fold it into the bounded
+        per-component histograms: the host mirror of
+        ``provenance.decompose_delays`` for a single finished job, run at
+        the only moment its lifecycle rows are about to leave the window.
+        ``pv`` is the provenance arrays as host numpy."""
+        dt = self.cfg.dt
+        tf_sl = tf[sl]
+        jf = float(tf_sl.max())
+        d = jf - wj.submit - wj.ideal
+        # critical task: highest index achieving the job finish
+        ci = int(sl.start) + int(np.nonzero(tf_sl == tf_sl.max())[0].max())
+        start = float(tf[ci]) - float(self._np["duration"][ci])
+        attempt_t = float(pv["first_attempt_round"][ci]) * dt
+        anchor = np.clip(attempt_t, wj.submit, max(start, wj.submit))
+        eligible = float(np.clip(anchor - wj.submit, 0.0, d))
+        retry = float(np.clip(float(pv["stale_retry_count"][ci]) * dt, 0.0, d - eligible))
+        rework = float(np.clip(
+            float(pv["launch_round"][ci] - pv["first_launch_round"][ci]) * dt,
+            0.0, d - eligible - retry,
+        ))
+        comps = {
+            "eligible_wait": eligible,
+            "placement_wait": d - (eligible + retry + rework),
+            "inconsistency_retry": retry,
+            "fault_rework": rework,
+        }
+        width = self.breakdown_max / self.breakdown_bins
+        for c, v in comps.items():
+            b = int(np.clip(v / width, 0, self.breakdown_bins - 1))
+            self.prov_hist[c][b] += 1
+            self.prov_sum[c] += v
+        self.prov_jobs += 1
+
+    def refill(self, state, t: float, lost: int, probe_head: int = 0,
+               collect_delays: bool = True, prov=None):
+        """Retire / compact / admit / remap between segments.
+
+        ``state`` is the batched (B = 1) state after a segment, ``t``,
+        ``lost`` and ``probe_head`` its scalars, already read to the host.
+        Returns ``(state, stats, prov)``: ``state`` with every task/job
+        index remapped to the new window and every FIFO head recomputed;
+        ``stats`` the conservation counts at this boundary (taken before
+        retirement, over the admitted stream so far); ``prov`` the remapped
+        lifecycle arrays (None round-trips).  With ``prov``, each retiring
+        job's delay decomposition is harvested first."""
+        tf = state.task_finish[0].cpu().numpy()
+        # -- conservation snapshot over the whole admitted stream ---------
+        real = self._np["job"] < self.J_cap - 1
+        done_mask = real & (tf <= t)
+        run_mask = real & np.isfinite(tf) & (tf > t)
+        pend_mask = real & np.isinf(tf) & (self._np["submit"] <= t)
+        wait_mask = real & np.isinf(tf) & (self._np["submit"] > t)
+        # exact busy-seconds this segment: durations of tasks that finished
+        # in (last_t, t], each counted once
+        seg_done = done_mask & (tf > self._last_t)
+        stats = dict(
+            t=t,
+            span=t - self._last_t,
+            admitted=self.tasks_admitted,
+            completed=self.tasks_retired + int(done_mask.sum()),
+            running=int(run_mask.sum()),
+            pending=int(pend_mask.sum()),
+            unarrived=int(wait_mask.sum()),
+            lost=int(lost),
+            window_jobs=len(self.jobs),
+            busy=float(self._np["duration"][seg_done].sum()),
+        )
+        self._last_t = t
+        # -- retire completed jobs, compact the carried ones --------------
+        queues = self.rule in ("sparrow", "eagle")
+        task_map = np.full(self.T_cap + 1, self.T_cap, np.int32)
+        job_map = np.full(self.J_cap + 1, self.J_cap, np.int32)
+        pv = None
+        if prov is not None:
+            fields = [f.name for f in dataclasses.fields(Provenance)]
+            pv = {f: getattr(prov, f)[0].cpu().numpy() for f in fields}
+        carried: list[_WinJob] = []
+        new_probe_head = 0
+        k = 0
+        for p, wj in enumerate(self.jobs):
+            n = wj.ntasks
+            sl = slice(int(self.starts[p]), int(self.starts[p]) + n)
+            if np.all(tf[sl] <= t):
+                self.jobs_retired += 1
+                self.tasks_retired += n
+                if collect_delays:
+                    self.retired_delays.append(float(tf[sl].max()) - wj.submit - wj.ideal)
+                if pv is not None and self.provenance:
+                    self._harvest(wj, sl, tf, pv)
+                continue
+            if queues:
+                new_probe_head += int(np.clip(probe_head - self._edge_start[p], 0,
+                                              wj.targets.size))
+            job_map[p] = len(carried)
+            task_map[sl] = np.arange(k, k + n, dtype=np.int32)
+            carried.append(wj)
+            k += n
+        # carried tasks move to their new slots (kept order); the rest of
+        # the window reads unlaunched, and its lifecycle rows unset
+        keep = np.nonzero(task_map[: self.T_cap] < self.T_cap)[0]
+        new_tf = np.full(self.T_cap, np.inf, np.float32)
+        new_tf[task_map[keep]] = tf[keep]
+        self.jobs = carried
+        self.admit(t)
+        self._export()
+        # -- remap the carried device state -------------------------------
+        dev = self.device
+        wt = state.worker_task[0].cpu().numpy()
+        upd = dict(
+            task_finish=self._dev(new_tf)[None],
+            worker_task=self._dev(task_map[wt])[None],
+        )
+        if queues:
+            resq = state.resq[0].cpu().numpy()
+            upd["resq"] = self._dev(job_map[resq])[None]
+            upd["probe_head"] = torch.tensor([new_probe_head], dtype=torch.int32, device=dev)
+        if self.rule == "oracle":
+            row = np.arange(self.T_cap, dtype=np.int32)[None]
+            head = _prefix_rows(row, np.array([self.T_real]), new_tf)
+            upd["head"] = self._dev(head)
+        elif self.rule == "megha":
+            upd["head"] = self._dev(_prefix_rows(self._gm_rows, self._gm_len, new_tf))[None]
+        elif self.rule == "eagle":
+            head = _prefix_rows(self._long_row[None], np.array([self._n_long]), new_tf)
+            upd["long_head"] = self._dev(head)
+        elif self.rule == "pigeon":
+            for cls, fld in (("high", "high_head"), ("low", "low_head")):
+                upd[fld] = self._dev(
+                    _prefix_rows(self._pg_rows[cls], self._pg_len[cls], new_tf))[None]
+        if prov is not None:
+            remapped = {}
+            for f, v in pv.items():
+                unset = 0 if f in ("requeue_count", "stale_retry_count") else UNSET
+                out = np.full(self.T_cap, unset, np.int32)
+                out[task_map[keep]] = v[keep]
+                remapped[f] = self._dev(out)[None]
+            prov = prov.replace(**remapped)
+        return state.replace(**upd), stats, prov
+
+
+# ---------------------------------------------------------------------------
+# the segment
+# ---------------------------------------------------------------------------
+
+
+def _segment_core(rule: str, cfg: SimxConfig, num_rounds: int, match_fn, orders=None,
+                  telemetry: Optional[tlm.TelemetryConfig] = None, stride: int = 1,
+                  provenance: bool = False, absorb: Callable = tlm.sketch_absorb):
+    """One ``num_rounds``-round advance ``seg(carry, win_tasks, layout,
+    sketch)``: builds the rule's step from the window's tensors and layout,
+    runs the rounds, absorbs the segment's completed-job delays into the
+    sketch (``absorb``: the ``p2_sketch`` kernel or its plain version) and
+    computes the gauges, all on the device.  Returns ``(carry, sketch,
+    gauges, blocks, borrow_rounds)``; ``blocks`` holds the telemetry
+    windows' ``[1, K]`` series (empty without telemetry)."""
+    tele = telemetry is not None
+    if tele and num_rounds % stride:
+        raise ValueError("telemetry stride must divide rounds_per_refill")
+
+    def build_step(win_tasks, layout):
+        kw = dict(telemetry=tele, provenance=provenance, layout=layout)
+        if rule == "megha":
+            return _megha.make_megha_step(cfg, win_tasks, orders, match_fn, **kw)
+        if rule == "sparrow":
+            return _sparrow.make_sparrow_step(cfg, win_tasks, None, match_fn, **kw)
+        if rule == "eagle":
+            return _eagle.make_eagle_step(cfg, win_tasks, None, match_fn, **kw)
+        if rule == "pigeon":
+            return _pigeon.make_pigeon_step(cfg, win_tasks, match_fn, **kw)
+        if rule == "oracle":
+            return _oracle.make_oracle_step(cfg, win_tasks, match_fn, telemetry=tele,
+                                            provenance=provenance)
+        raise ValueError(f"no streaming segment for rule {rule!r}")
+
+    W = cfg.num_workers
+
+    def seg(carry, win_tasks, layout, sketch):
+        step = build_step(win_tasks, layout)
+        if tele:
+            sample_fn = tlm.default_sample_fn(cfg, win_tasks, None)
+            carry, blocks = tlm.scan_blocks(step, carry, num_rounds // stride, stride, sample_fn)
+        else:
+            carry = rt.scan_rounds(step, carry, num_rounds)
+            blocks = {}
+        state = rt.carry_state(carry)
+        # jobs completed THIS segment: every refill retires completed jobs,
+        # so a finite delay here is new, absorbed exactly once
+        delays, _ = rt.job_delays_from_state(state.task_finish, state.t, win_tasks)
+        delays = delays[0]
+        fin = torch.isfinite(delays)
+        sketch = absorb(sketch, torch.where(fin, delays, 0.0), fin)
+        t = state.t[0]
+        tf = state.task_finish[0]
+        gauges = dict(
+            utilization=torch.sum(state.worker_finish[0] > t, dtype=torch.float32) / W,
+            pending=torch.sum(torch.isinf(tf) & (win_tasks.submit <= t), dtype=torch.int32),
+            running=torch.sum(torch.isfinite(tf) & (tf > t), dtype=torch.int32),
+        )
+        return carry, sketch, gauges, blocks, getattr(step, "borrow_rounds", 0)
+
+    return seg
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SteadyRun:
+    """A finished (or horizon-capped) streaming run."""
+
+    rule: str
+    cfg: SimxConfig
+    quantile_targets: tuple
+    quantile_estimates: np.ndarray   # float32[Q] — sketch estimates
+    series: dict                     # per-refill gauge trajectories
+    refills: list                    # per-boundary conservation stats
+    delays: Optional[np.ndarray]     # exact retired-job delays (host)
+    jobs_admitted: int
+    jobs_completed: int
+    tasks_admitted: int
+    tasks_completed: int
+    lost: int
+    messages: int
+    probes: int
+    rounds: int
+    end_time: float
+    state_bytes: int                 # carried device state (O(W + window))
+    timeline: Optional[tlm.Timeline] = None   # merged in-scan telemetry
+    breakdown: Optional[dict] = None          # harvested delay decomposition
+    borrow_rounds: int = 0           # megha's rounds that ran the borrow pass
+    segment_seconds: float = 0.0     # host wall in segments (to their sync)
+    refill_seconds: float = 0.0      # host wall in refills
+
+    def quantile(self, q: float) -> float:
+        """Sketch estimate for target quantile ``q`` (one of
+        ``quantile_targets``)."""
+        return float(self.quantile_estimates[self.quantile_targets.index(q)])
+
+    @property
+    def mean_utilization(self) -> float:
+        """Exact time-averaged worker utilisation over the run: total busy
+        resource-seconds (every completed task's duration, counted at its
+        finishing segment) / (workers x simulated span)."""
+        busy = sum(s["busy"] for s in self.refills)
+        cap = self.cfg.num_workers * self.end_time
+        return busy / cap if cap > 0 else 0.0
+
+
+def stream_config(
+    rule: str,
+    num_workers: int,
+    *,
+    window_tasks: int,
+    num_gms: int = 8,
+    num_lms: int = 8,
+    **kw,
+) -> SimxConfig:
+    """A ``SimxConfig`` for streaming: shave the worker count to the GM x
+    LM grid for grid rules, and pin the auto-sized reservation-queue knobs
+    (``reserve_cap`` / ``probe_window``) to window-derived values so queue
+    shapes cannot drift between refills."""
+    r = rt.get_rule(rule)
+    if r.needs_grid:
+        num_workers = grid_workers(num_workers, num_gms, num_lms)
+    cfg = SimxConfig(num_workers=num_workers, num_gms=num_gms, num_lms=num_lms, **kw)
+    if r.has_queues:
+        p_cap = cfg.probe_ratio * int(window_tasks)
+        if cfg.reserve_cap == 0:
+            cfg = dataclasses.replace(cfg, reserve_cap=cfg.queue_cap(p_cap))
+        if cfg.probe_window == 0:
+            cfg = dataclasses.replace(cfg, probe_window=int(min(p_cap, max(256, p_cap // 32))))
+    return cfg
+
+
+def _leaves(obj):
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _leaves(getattr(obj, f.name))
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _leaves(v)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _leaves(v)
+
+
+def state_nbytes(*trees) -> int:
+    """Total bytes of the tensors (and numpy arrays) in the given
+    dataclasses, dicts and tuples: the measured carried-state footprint the
+    O(W + window) claim is held to."""
+    return int(sum(
+        leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor) else leaf.nbytes
+        for tree in trees for leaf in _leaves(tree)
+    ))
+
+
+def run_steady_state(
+    rule: str,
+    arrivals: ArrivalProcess,
+    num_workers: int,
+    *,
+    cfg: Optional[SimxConfig] = None,
+    window_jobs: int = 256,
+    window_tasks: Optional[int] = None,
+    rounds_per_refill: int = 64,
+    horizon: Optional[float] = None,
+    max_rounds: int = 2_000_000,
+    quantiles: tuple = tlm.DEFAULT_QUANTILES,
+    collect_delays: bool = True,
+    match_fn: rt.MatchFn | None = None,
+    use_kernel: bool = True,
+    num_gms: int = 8,
+    num_lms: int = 8,
+    dt: float = 0.05,
+    seed: int = 0,
+    orders: torch.Tensor | None = None,
+    draws: dict | None = None,
+    telemetry: tlm.TelemetryConfig | bool | None = None,
+    provenance: bool = False,
+    breakdown_bins: int = 32,
+    breakdown_max: float = 60.0,
+    device: str | torch.device | None = None,
+    **cfg_kw,
+) -> SteadyRun:
+    """Stream ``arrivals`` through ``rule`` until the stream drains, the
+    ``horizon`` (simulated seconds) passes, or ``max_rounds`` trips.
+
+    Works for every registered rule, on ``device`` (None: the CUDA card,
+    raising without one; tests pass ``"cpu"``).  ``window_jobs`` /
+    ``window_tasks`` size the ring buffer (defaults: 256 jobs, 16 tasks
+    each); ``rounds_per_refill`` is the segment length: the host reads the
+    device only at refills, so longer segments amortise more but retire
+    jobs (and admit backlogged arrivals) less promptly.  Extra keyword
+    arguments land on ``SimxConfig``; pass a prebuilt ``cfg`` to bypass
+    (its queue knobs must be pinned, see ``stream_config``).  ``seed``
+    seeds the per-job probe targets and rotations (numpy, as the
+    reference draws them) and, when megha's ``orders=`` / ``draws=`` are
+    not given, a ``torch.Generator`` for megha's GM orders (the reference
+    draws those with ``jax.random``; parity runs feed them in).
+
+    ``match_fn`` is every match of the rule (default: the kernel wrapper,
+    or its plain version with ``use_kernel=False``); the sketch's
+    per-segment absorb is the ``p2_sketch`` kernel's wrapper, or its plain
+    version with ``use_kernel=False``.
+
+    ``collect_delays=True`` keeps every retired job's exact delay on the
+    host (O(completed jobs) host memory); switch it off for unbounded runs
+    and read the sketch instead.  ``telemetry`` (a ``TelemetryConfig``, or
+    ``True`` for the defaults) collects each segment's windows and merges
+    them across refills into one ``Timeline`` on ``SteadyRun.timeline``;
+    the stride is shrunk to the largest divisor of ``rounds_per_refill``.
+    ``provenance=True`` carries the per-task lifecycle arrays through every
+    segment (remapped at refill) and harvests each retiring job's delay
+    decomposition into bounded per-component histograms
+    (``breakdown_bins`` x ``breakdown_max``) on ``SteadyRun.breakdown``."""
+    name = rule.lower()
+    r = rt.get_rule(name)
+    dev = resolve_device(device)
+    rt.check_round_budget(max_rounds, "run_steady_state(max_rounds=...)")
+    if horizon is not None:
+        # the horizon is enforced in rounds via the int32 round clock, so
+        # it shares the same overflow budget
+        rt.check_round_budget(int(math.ceil(horizon / (dt if cfg is None else cfg.dt))),
+                              "run_steady_state(horizon=...)")
+    if window_tasks is None:
+        window_tasks = window_jobs * 16
+    if cfg is None:
+        cfg = stream_config(name, num_workers, window_tasks=window_tasks,
+                            num_gms=num_gms, num_lms=num_lms, dt=dt, **cfg_kw)
+    if telemetry is True:
+        telemetry = tlm.TelemetryConfig()
+    stride = 1
+    if telemetry is not None:
+        stride = min(telemetry.stride, rounds_per_refill)
+        while rounds_per_refill % stride:
+            stride -= 1
+    if match_fn is None:
+        match_fn = rt.default_match_fn(use_kernel)
+    win = _StreamWindow(
+        arrivals, cfg, name, window_jobs, window_tasks, seed, dev,
+        provenance=provenance, breakdown_bins=breakdown_bins, breakdown_max=breakdown_max,
+    )
+    win_tasks = win.tasks()
+    megha_orders = None
+    draws = rt.orders_as_draws(orders, draws)
+    if name == "megha":
+        megha_orders = rt.rule_draws(r, cfg, win_tasks, seed if draws is None else draws)["orders"]
+        megha_orders = megha_orders.to(dev)
+    elif draws is not None:
+        raise ValueError(f"{name} draws its per-job quantities at admission: pass no draws")
+    state = rt.batch_state(r.init(cfg, win_tasks))
+    prov = init_provenance(win.T_cap, dev, 1) if provenance else None
+    sketch = tlm.sketch_init(quantiles, device=dev)
+    seg = _segment_core(
+        name, cfg, rounds_per_refill, match_fn, megha_orders,
+        telemetry=telemetry, stride=stride, provenance=provenance,
+        absorb=p2.p2_absorb if use_kernel else tlm.sketch_absorb,
+    )
+    series: dict[str, list] = {
+        k: [] for k in (
+            "t", "utilization", "busy_util", "pending", "running",
+            "window_jobs", "admission_lag",
+        )
+    }
+    for q in quantiles:
+        series[f"q{q}"] = []
+    refills: list[dict] = []
+    tel_blocks: list[dict] = []
+    rounds = borrow_rounds = 0
+    seg_s = refill_s = 0.0
+    queues = r.has_queues
+    while True:
+        t0 = time.perf_counter()
+        carry = (state, prov) if provenance else state
+        carry, sketch, gauges, blocks, nb = seg(carry, win_tasks, win.layout(), sketch)
+        state, prov = carry if provenance else (carry, None)
+        # the refill's scalars, gauges and sketch quantiles: one host read
+        head = [state.probe_head.double()] if queues else []
+        scal = torch.cat([
+            state.t.double(), state.lost.double(),
+            gauges["utilization"].double()[None], gauges["pending"].double()[None],
+            gauges["running"].double()[None], *head,
+            tlm.sketch_quantiles(sketch).double(),
+        ]).cpu().numpy()
+        t1 = time.perf_counter()
+        borrow_rounds += nb
+        if telemetry is not None:
+            tel_blocks.append(blocks)
+        rounds += rounds_per_refill
+        t_now = float(np.float32(scal[0]))
+        lag = max(0.0, t_now - win.next_submit)
+        state, stats, prov = win.refill(
+            state, t_now, int(scal[1]), int(scal[5]) if queues else 0,
+            collect_delays=collect_delays, prov=prov)
+        refills.append(stats)
+        series["t"].append(stats["t"])
+        series["utilization"].append(float(np.float32(scal[2])))
+        series["busy_util"].append(
+            stats["busy"] / (cfg.num_workers * stats["span"]) if stats["span"] > 0 else 0.0)
+        series["pending"].append(int(scal[3]))
+        series["running"].append(int(scal[4]))
+        series["window_jobs"].append(stats["window_jobs"])
+        series["admission_lag"].append(lag)
+        qs = scal[6 if queues else 5:]
+        for i, q in enumerate(quantiles):
+            series[f"q{q}"].append(float(np.float32(qs[i])))
+        stop = (win.drained or (horizon is not None and t_now >= horizon)
+                or rounds >= max_rounds)
+        if not stop:
+            win_tasks = win.tasks()
+        refill_s += time.perf_counter() - t1
+        seg_s += t1 - t0
+        if stop:
+            break
+    end = torch.cat([state.task_finish[0].double(),
+                     torch.stack([state.t[0].double(), state.lost[0].double(),
+                                  state.messages[0].double(), state.probes[0].double()])]
+                    ).cpu().numpy()
+    tf, (t_end, lost, messages, probes) = end[: win.T_cap].astype(np.float32), end[win.T_cap:]
+    t_end = float(np.float32(t_end))
+    in_window_done = int(np.sum((win._np["job"] < win.J_cap - 1) & (tf <= t_end)))
+    timeline = None
+    if telemetry is not None and tel_blocks:
+        merged = {key: torch.cat([b[key][0] for b in tel_blocks]) for key in tel_blocks[0]}
+        t_axis = merged.pop("t", torch.zeros(0, dtype=torch.float32, device=dev))
+        # streamed delay histogram: retired jobs live on the host, so the
+        # exact delays (when collected) bin directly; otherwise empty
+        hist = np.zeros(telemetry.delay_bins, np.int32)
+        if collect_delays and win.retired_delays:
+            b = np.clip((np.asarray(win.retired_delays) / telemetry.bin_width).astype(int),
+                        0, telemetry.delay_bins - 1)
+            hist = np.bincount(b, minlength=telemetry.delay_bins).astype(np.int32)
+        timeline = tlm.Timeline(
+            t=t_axis, series=merged, delay_hist=torch.from_numpy(hist).to(dev),
+            stride=stride, dt=cfg.dt, delay_max=telemetry.delay_max,
+        )
+    breakdown = None
+    if provenance:
+        n = max(win.prov_jobs, 1)
+        breakdown = {
+            "jobs": win.prov_jobs,
+            "bin_edges": np.linspace(0.0, win.breakdown_max, win.breakdown_bins + 1),
+            "hist": {c: h.copy() for c, h in win.prov_hist.items()},
+            "sum": dict(win.prov_sum),
+            "mean": {c: s / n for c, s in win.prov_sum.items()},
+        }
+    return SteadyRun(
+        rule=name,
+        cfg=cfg,
+        quantile_targets=tuple(quantiles),
+        quantile_estimates=tlm.sketch_quantiles(sketch).cpu().numpy(),
+        series={k: np.asarray(v) for k, v in series.items()},
+        refills=refills,
+        delays=np.asarray(win.retired_delays, np.float64) if collect_delays else None,
+        jobs_admitted=win.jobs_admitted,
+        jobs_completed=win.jobs_retired,
+        tasks_admitted=win.tasks_admitted,
+        tasks_completed=win.tasks_retired + in_window_done,
+        lost=int(lost),
+        messages=int(messages),
+        probes=int(probes),
+        rounds=rounds,
+        end_time=t_end,
+        state_bytes=state_nbytes(state, win._np, win.layout(), sketch),
+        timeline=timeline,
+        breakdown=breakdown,
+        borrow_rounds=borrow_rounds,
+        segment_seconds=seg_s,
+        refill_seconds=refill_s,
+    )

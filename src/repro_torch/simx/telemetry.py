@@ -22,9 +22,12 @@ ends: the collection adds no host read to the round loop.  The reference's
 
 **The P² sketch** (``QuantileSketch``, Jain & Chlamtac 1985): one
 5-marker cell per target quantile, O(Q) state however many observations
-it absorbed.  It is the streaming engine's (ROADMAP item 11); here it is
-plain PyTorch, one observation at a time, in the reference's float32
-order, and runs on the CPU.
+it absorbed.  The streaming engine (``repro_torch.simx.stream``) absorbs
+each segment's retired-job delays into it.  The sketch lives on the run's
+device (``sketch_init(device=)``) and its functions read nothing to the
+host.  ``sketch_absorb`` here is the plain version, one observation at a
+time in the reference's float32 order; the hand-written kernel of the
+same recursion is ``repro_torch.kernels.p2.p2_absorb``.
 """
 
 from __future__ import annotations
@@ -300,21 +303,23 @@ class QuantileSketch:
     targets: tuple = DEFAULT_QUANTILES
 
 
-def sketch_init(targets: tuple = DEFAULT_QUANTILES) -> QuantileSketch:
-    """A fresh sketch for ``targets`` (quantiles in (0, 1)); marker
-    positions start at their bootstrap values, so the update is defined
-    while the warm-up buffer fills."""
+def sketch_init(targets: tuple = DEFAULT_QUANTILES, device=None) -> QuantileSketch:
+    """A fresh sketch for ``targets`` (quantiles in (0, 1)) on ``device``
+    (None: the CPU, torch's default); marker positions start at their
+    bootstrap values, so the update is defined while the warm-up buffer
+    fills."""
     if not targets or min(targets) <= 0.0 or max(targets) >= 1.0:
         raise ValueError("quantile targets must lie strictly in (0, 1)")
     fr = _marker_fracs(tuple(targets))
     qn = fr.shape[0]
+    f32 = dict(dtype=torch.float32, device=device)
     return QuantileSketch(
-        q=torch.zeros((qn, 5), dtype=torch.float32),
-        n=torch.arange(1.0, 6.0, dtype=torch.float32).expand(qn, 5).clone(),
-        npd=torch.from_numpy((1.0 + 4.0 * fr).astype(np.float32)),
-        dn=torch.from_numpy(fr.astype(np.float32)),
-        buf=torch.zeros(5, dtype=torch.float32),
-        count=torch.tensor(0, dtype=_I32),
+        q=torch.zeros((qn, 5), **f32),
+        n=torch.arange(1.0, 6.0, **f32).expand(qn, 5).clone(),
+        npd=torch.from_numpy((1.0 + 4.0 * fr).astype(np.float32)).to(device),
+        dn=torch.from_numpy(fr.astype(np.float32)).to(device),
+        buf=torch.zeros(5, **f32),
+        count=torch.zeros((), dtype=_I32, device=device),
         targets=tuple(targets),
     )
 
@@ -337,7 +342,7 @@ def _p2_markers(q, n, npd, dn, x):
     q[:, 4] = torch.maximum(q[:, 4], x)                    # new maximum
     # cell index k in [0, 3]: number of markers <= x, shifted/clipped
     k = torch.clamp(torch.sum(q <= x, dim=1) - 1, 0, 3)
-    n = n + (torch.arange(5)[None, :] > k[:, None]).to(torch.float32)  # shift suffix
+    n = n + (torch.arange(5, device=q.device)[None, :] > k[:, None]).to(torch.float32)
     npd = npd + dn
     # the three interior markers in order: marker i's move sees i - 1's
     # updated position
@@ -372,13 +377,13 @@ def _p2_markers(q, n, npd, dn, x):
 
 def sketch_update(sk: QuantileSketch, x, valid) -> QuantileSketch:
     """Absorb one observation ``x`` when ``valid``; otherwise the state
-    passes through untouched."""
-    x = torch.as_tensor(x, dtype=torch.float32)
+    passes through untouched.  Nothing is read to the host: the warm-up
+    buffer's write is a select on its slot ``count`` (no slot matches once
+    the buffer is full)."""
+    dev = sk.q.device
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     cnt = sk.count
-    buf = sk.buf
-    if int(cnt) < 5:
-        buf = buf.clone()
-        buf[int(cnt)] = x
+    buf = torch.where(torch.arange(5, device=dev) == cnt, x, sk.buf)
     # bootstrap (exactly at the 5th observation): sorted buffer -> markers
     boot_q = torch.sort(buf).values.expand(sk.q.shape)
     q2, n2, npd2 = _p2_markers(sk.q, sk.n, sk.npd, sk.dn, x)
@@ -391,7 +396,7 @@ def sketch_update(sk: QuantileSketch, x, valid) -> QuantileSketch:
         buf,
         cnt + 1,
     )
-    valid = torch.as_tensor(valid)
+    valid = torch.as_tensor(valid, device=dev)
     q, n, npd, buf, count = (torch.where(valid, a, b) for a, b in zip(
         new, (sk.q, sk.n, sk.npd, sk.buf, sk.count)))
     return QuantileSketch(q=q, n=n, npd=npd, dn=sk.dn, buf=buf, count=count.to(_I32),
@@ -400,9 +405,11 @@ def sketch_update(sk: QuantileSketch, x, valid) -> QuantileSketch:
 
 def sketch_absorb(sk: QuantileSketch, values, mask) -> QuantileSketch:
     """Absorb a batch: ``values[i]`` is observed iff ``mask[i]`` (the
-    reference's ``lax.scan`` over the batch, as a loop)."""
-    values = torch.as_tensor(values, dtype=torch.float32)
-    mask = torch.as_tensor(mask)
+    reference's ``lax.scan`` over the batch, as a loop).  The plain version
+    of the ``p2_sketch`` kernel: about 80 small ops per value."""
+    dev = sk.q.device
+    values = torch.as_tensor(values, dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
     for x, v in zip(values, mask):
         sk = sketch_update(sk, x, v)
     return sk
@@ -412,9 +419,9 @@ def sketch_quantiles(sk: QuantileSketch) -> torch.Tensor:
     """float32[Q] — the current estimates (P² center markers; exact order
     statistics of the warm-up buffer below 5 observations; NaN with none)."""
     cnt = sk.count
-    p = torch.tensor(sk.targets, dtype=torch.float32)
+    p = sk.dn[:, 2]                 # the targets as float32 (frac column p)
     # small-sample path: nearest rank on the sorted valid prefix of buf
-    pad = torch.where(torch.arange(5) < cnt, sk.buf, float("inf"))
+    pad = torch.where(torch.arange(5, device=cnt.device) < cnt, sk.buf, float("inf"))
     rank = torch.clamp(torch.round(p * (cnt - 1)).to(_I32), 0, 4)
     small = torch.sort(pad).values[rank.to(_I64)]
     est = torch.where(cnt >= 5, sk.q[:, 2], small)

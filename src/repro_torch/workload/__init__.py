@@ -2,7 +2,15 @@
 pure-Python parts, so the port imports nothing of the reference)."""
 
 from repro_torch.workload.synth import (
+    ArrivalProcess,
+    DiurnalArrivals,
+    MMPPArrivals,
+    PhasedArrivals,
+    PoissonArrivals,
+    ReplayArrivals,
+    bimodal_job_factory,
     downsampled,
+    fixed_job_factory,
     google_like_trace,
     synthetic_trace,
     yahoo_like_trace,
@@ -10,10 +18,18 @@ from repro_torch.workload.synth import (
 from repro_torch.workload.traces import Job, Task, Workload
 
 __all__ = [
+    "ArrivalProcess",
+    "DiurnalArrivals",
     "Job",
+    "MMPPArrivals",
+    "PhasedArrivals",
+    "PoissonArrivals",
+    "ReplayArrivals",
     "Task",
     "Workload",
+    "bimodal_job_factory",
     "downsampled",
+    "fixed_job_factory",
     "google_like_trace",
     "synthetic_trace",
     "yahoo_like_trace",

@@ -507,3 +507,105 @@ def test_breakdown_grid_on_the_card_is_bitwise_plain_and_cpu(name):
     for k, v in want_summary.items():
         assert np.array_equal(card[k], plain[k], equal_nan=True), k
         np.testing.assert_allclose(card[k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the streaming engine and the P² sketch kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 3, 5, 6, 1000, 5000])
+@pytest.mark.parametrize("split", [1, 3])
+def test_p2_kernel_is_bitwise_its_plain_version(n, split):
+    """The P² absorb kernel against the plain recursion on the card, on a
+    seeded bimodal stream with a random mask, absorbed in ``split`` calls:
+    every marker, position, buffer entry and the count bitwise after each,
+    one launch per call."""
+    _need_card()
+    from repro_torch.kernels import p2
+    from repro_torch.simx import telemetry as tlm
+
+    rng = np.random.default_rng(n + 7 * split)
+    vals = np.concatenate([rng.lognormal(0.0, 0.6, n - n // 3), 4.0 + rng.lognormal(0.0, 0.4, n // 3)])
+    rng.shuffle(vals)
+    vals = torch.from_numpy(vals.astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.random(n) < 0.8).cuda()
+    kern = plain = tlm.sketch_init(device="cuda")
+    for part in np.array_split(np.arange(n), split):
+        idx = torch.from_numpy(part).cuda()
+        before = p2.p2_absorb.launches
+        kern = p2.p2_absorb(kern, vals[idx], mask[idx])
+        assert p2.p2_absorb.launches == before + 1
+        plain = tlm.sketch_absorb(plain, vals[idx], mask[idx])
+        torch.cuda.synchronize()
+        for f in ("q", "n", "npd", "buf", "count"):
+            assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    assert int(kern.count) == int(mask.sum())
+    assert torch.equal(tlm.sketch_quantiles(kern), tlm.sketch_quantiles(plain)) or n == 0
+
+
+@pytest.mark.gpu
+def test_p2_kernel_many_quantiles_and_walk_cycles():
+    """Forty target quantiles (two blocks of one warp) over 5,000 values in
+    three tiles of staged values: bitwise the plain version; the kernel's
+    walk reports its SM cycles, and the clock probe a plausible clock."""
+    _need_card()
+    from repro_torch.kernels import p2
+    from repro_torch.simx import telemetry as tlm
+
+    rng = np.random.default_rng(40)
+    vals = torch.from_numpy(rng.lognormal(0.0, 0.8, 5000).astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.random(5000) < 0.9).cuda()
+    targets = tuple(float(q) for q in np.linspace(0.02, 0.98, 40))
+    sk = tlm.sketch_init(targets, device="cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    kern = p2.p2_absorb(sk, vals, mask, cycles=cycles)
+    plain = tlm.sketch_absorb(sk, vals, mask)
+    for f in ("q", "n", "npd", "buf", "count"):
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    assert int(cycles) > 0
+    assert 5e8 < p2.clock_hz("cuda", spin=20_000_000) < 3e9
+
+
+def _stream_run(name: str, device: str, use_kernel: bool = True):
+    """A small stream (the CPU tests' configuration: 128 workers, the small
+    window) of bimodal Poisson arrivals to a horizon, telemetry and
+    provenance on; returns (run, match launches, P² launches)."""
+    from repro_torch.kernels import p2
+    from repro_torch.simx import stream
+    from repro_torch.workload.synth import PoissonArrivals, bimodal_job_factory
+
+    arr = PoissonArrivals(rate=3.0, job_factory=bimodal_job_factory(8), seed=5, num_jobs=24)
+    m0, p0 = match.match_ranks_batched.launches, p2.p2_absorb.launches
+    run = stream.run_steady_state(name, arr, 128, window_jobs=8, window_tasks=80,
+                                  rounds_per_refill=16, horizon=12.0, num_gms=4, num_lms=4,
+                                  telemetry=True, provenance=True, use_kernel=use_kernel,
+                                  device=device)
+    return run, match.match_ranks_batched.launches - m0, p2.p2_absorb.launches - p0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_stream_on_the_card_is_bitwise_plain_and_cpu(name):
+    """The streamed run on the card with the kernels, with their plain
+    versions, and on the CPU: delays, series, refills, sketch estimates,
+    counters, Timeline and breakdown bitwise; one P² launch per refill."""
+    _need_card()
+    card, launches, p2_launches = _stream_run(name, "cuda")
+    plain, plain_launches, plain_p2 = _stream_run(name, "cuda", use_kernel=False)
+    cpu, _, _ = _stream_run(name, "cpu")
+    assert launches > 0 and plain_launches == 0 and plain_p2 == 0
+    assert p2_launches == len(card.refills)
+    for run in (card, plain):
+        assert np.array_equal(run.delays, cpu.delays)
+        for k in cpu.series:
+            assert np.array_equal(run.series[k], cpu.series[k], equal_nan=True), k
+        assert run.refills == cpu.refills
+        assert np.array_equal(run.quantile_estimates, cpu.quantile_estimates, equal_nan=True)
+        for f in ("tasks_completed", "messages", "probes", "rounds", "end_time",
+                  "state_bytes", "borrow_rounds"):
+            assert getattr(run, f) == getattr(cpu, f), f
+        for k, v in cpu.timeline.series.items():
+            assert np.array_equal(run.timeline.series[k].cpu().numpy(), v.numpy()), k
+        assert run.breakdown["sum"] == cpu.breakdown["sum"]

@@ -117,3 +117,12 @@ def test_walk_covers_the_telemetry_and_provenance_modules():
     assert new <= set(MODULES)
     assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
             for m in new} <= set(SOURCES)
+
+
+def test_walk_covers_the_stream_modules():
+    """The walk covers the streaming engine, the P² kernel's wrapper and
+    the arrival processes it streams."""
+    new = {"repro_torch.simx.stream", "repro_torch.kernels.p2", "repro_torch.workload.synth"}
+    assert new <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in new} <= set(SOURCES)
