@@ -14,7 +14,8 @@ loads x 2 seeds as one batched program) for megha, pigeon, the oracle,
 sparrow and eagle at that size, the Fig. 4 availability grid (``fig4_sweep``'s
 4 crash fractions x 2 seeds) for the same five rules at that size, the
 streaming engine (``run_steady_state``) for the five rules at 50,000
-workers, eagle's
+workers, the sharded executors (``simx/shard.py``: the grids on a mesh and
+the lane-batched load curve of every rule), eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
 200,000 requests, and the fast path's SDPS loop — and prints one JSON line
 per phase:
@@ -28,10 +29,13 @@ per phase:
                shapes, the narrow [50000, 64], the sparrow/eagle
                head-of-queue picks (n = 1: [300000, 40], [50000, 40],
                [13000, 64]), eagle's central matches ([1, 13000],
-               [6, 50000]) and the Fig. 4 grid's shapes at B = 8
+               [6, 50000]), the Fig. 4 grid's shapes at B = 8
                ([64, 49984], [64, 6248], [8, 50000], [10000, 40] and the
-               n = 1 pick [400000, 40]): error, time, plain time,
-               torch.cumsum time, bytes and the byte bound
+               n = 1 pick [400000, 40]) and the 4-lane curve's ([32, 6248],
+               [32, 49984], [4, 50000], [5000, 40] and the n = 1 pick
+               [200000, 16]): error, time, plain time, torch.cumsum time,
+               bytes and the byte bound; then the P² kernel at the curve's
+               [4, 193], bitwise its plain version, timed with its bound
   kernel_single  the single-row kernel (both entry points, match_ranks and
                the fused match_tasks) likewise, at the serving and SDPS
                shapes
@@ -123,6 +127,27 @@ per phase:
                SDPS loop's gm_round likewise
   sdps         the fast path's scheduling decisions per second at 9,984 and
                49,984 workers, kernel and plain; the event backend's megha
+  shard        the sharded executors (``repro_torch.simx.shard``): (a)
+               ``sharded_fig2_sweep`` on ``sweep_mesh()`` (the one card) for
+               the five rules' paper-scale grids and ``sharded_fig4_sweep``
+               for megha's, bitwise the sweep and fig4 phases' grids, with
+               their launches; (b) the reference test's indivisible
+               15-point grid on a mesh naming the card twice, bitwise the
+               one-entry mesh's (megha, sparrow); (c) every rule's 4-lane
+               ``sharded_steady_state`` curve (the stream phase's Poisson
+               stream at 25 / 35 / 40 / 45 jobs a second, loads 0.5-0.9,
+               30 s; pigeon and the oracle 15 s): each lane bitwise its
+               serial ``run_steady_state`` (lane 0.8 at 30 s is the stream
+               phase's (b) run), wall against the four serial walls,
+               segment / refill split, tasks per wall second, one P²
+               launch a segment, match launches, sketch p50 / p99 / p999,
+               admission lag, utilisation, state bytes, peak memory per
+               lane; (d) megha's curve with the plain
+               versions to 10 s, bitwise the first 7 segments of (c)'s;
+               (e) megha's and sparrow's curve to 10 s driven segment by
+               segment (bitwise (c)'s first segments), segment 5 run again
+               under torch.profiler: device busy and idle share a round
+               over the segment's own wall
   cpu_parity   the port on the CPU against the port on the card, bitwise
                (megha, the oracle, the serving engine, the five rules'
                sweep grids at bench_simx.py's default size, and eagle with
@@ -156,7 +181,7 @@ from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
-from repro_torch.simx import convert, runtime, simulate_workload, stream, sweep  # noqa: E402
+from repro_torch.simx import convert, runtime, shard, simulate_workload, stream, sweep  # noqa: E402
 from repro_torch.simx import megha as simx_megha  # noqa: E402
 from repro_torch.simx import telemetry as tlm  # noqa: E402
 from repro_torch.simx.faults import FaultSchedule  # noqa: E402
@@ -313,6 +338,40 @@ STREAM_PER_ROUND = {"megha": 1, "sparrow": 1, "eagle": 2, "pigeon": 2, "oracle":
 #: sparrow to 10 s, 7 segments)
 STREAM_PROFILE_SEGMENT = 5
 STREAM_PROFILE_HORIZON = 10.0
+#: The sharded executors (phase ``shard``): (b)'s indivisible grid is the
+#: reference test's (5 loads x 3 seeds = 15 points, small widths), on a
+#: mesh naming the card twice; (c)'s curve is four lanes of (b)'s Poisson
+#: stream at 25 / 35 / 40 / 45 jobs a second, loads 0.5 / 0.7 / 0.8 / 0.9 by
+#: Eq. 6 at 50,000 workers, through the stream phase's window to 30 s
+SHARD_PAD_GRID = dict(loads=(0.35, 0.55, 0.7, 0.85, 0.95), num_seeds=3, num_workers=64,
+                      num_jobs=6, tasks_per_job=8, dt=DT, num_gms=2, num_lms=2)
+SHARD_RATES = (25.0, 35.0, 40.0, 45.0)
+#: (c)'s span for pigeon and the oracle, cut from 30 s to keep the script
+#: inside its time limit: their four serial runs (lane 0.8 too) run to the
+#: same 15 s
+SHARD_CURVE_HORIZON = {"pigeon": 15.0, "oracle": 15.0}
+#: (d)'s plain curve and (e)'s driven curves run to 10 s (7 segments, the
+#: profiled one is segment 5) and are held to the first segments of (c)'s
+#: 30 s curve: the plain P² absorb alone costs ~2 s a segment for 4 lanes
+SHARD_SHORT_HORIZON = 10.0
+SHARD_PROFILE_SEGMENT = 5
+#: the lane-batched match shapes of the curve (4 lanes): megha internal and
+#: borrow, the oracle's and eagle's central match (n = W, wide), pigeon's
+#: groups (narrow), then the sparrow/eagle pick (n = 1, R = 16)
+SHARD_LANES = len(SHARD_RATES)
+SHARD_SHAPES = (
+    ("shard_megha_internal", SHARD_LANES * 8, GRID_WORKERS // 8),
+    ("shard_megha_borrow", SHARD_LANES * 8, GRID_WORKERS),
+    ("shard_central", SHARD_LANES, WORKERS),
+    ("shard_pigeon", SHARD_LANES * (WORKERS // 40), 40),
+)
+SHARD_PICK_SHAPES = (
+    ("shard_queue_pick", SHARD_LANES * WORKERS, 16),
+)
+#: the P² kernel's lane-batched shape: 4 lanes of the window's 193 job
+#: slots, 57 valid a lane (the stream's timed absorb), after 300 values
+SHARD_P2 = dict(lanes=SHARD_LANES, values=193, valid=57, warm=300)
+
 #: the P² absorb's floating-point operations per observation and quantile
 #: (compares, adds, multiplies, divides, two fused multiply-adds per
 #: interior marker), for its throughput bound; its chain bound is timed
@@ -328,12 +387,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def device_ms(fn, iters: int = 200) -> float:
+def device_ms(fn, iters: int = 200, warm: int = 10) -> float:
     """Device time of one call of ``fn``, from CUDA events around
-    ``iters`` warm calls.  A spin kernel holds the stream while the calls
-    are enqueued, so the events time the device's work back to back and
-    not the host's launch overhead."""
-    for _ in range(10):
+    ``iters`` calls after ``warm`` ones.  A spin kernel holds the stream
+    while the calls are enqueued, so the events time the device's work
+    back to back and not the host's launch overhead."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -446,9 +505,11 @@ def phase_kernel(gen: torch.Generator) -> dict:
     # bool views as the main path passes them; n = w per row, so every
     # wide row is scanned to its end (no early exit) and the bound counts
     # every byte; the narrow picks at their own n = 1 (no early exit there)
-    shapes = ([(c, g, w, w) for c, g, w in MAIN_SHAPES + CENTRAL_SHAPES + FIG4_SHAPES]
+    shapes = ([(c, g, w, w) for c, g, w in MAIN_SHAPES + CENTRAL_SHAPES + FIG4_SHAPES
+               + SHARD_SHAPES]
               + [(*NARROW_SHAPE, 1)]
-              + [(c, g, w, 1) for c, g, w in PICK_SHAPES + FIG4_PICK_SHAPES])
+              + [(c, g, w, 1) for c, g, w in PICK_SHAPES + FIG4_PICK_SHAPES
+                 + SHARD_PICK_SHAPES])
     for caller, g, w, n_row in shapes:
         avail = (torch.rand((g, w), generator=gen) < 0.5).to(DEVICE)
         n = torch.full((g,), n_row, dtype=torch.int32, device=DEVICE)
@@ -468,7 +529,48 @@ def phase_kernel(gen: torch.Generator) -> dict:
         )
         emit(r)
         rows.append(r)
-    return dict(sweep_cases=cases, sweep_err=worst, rows=rows)
+    return dict(sweep_cases=cases, sweep_err=worst, rows=rows, p2_lanes=_p2_lane_case(gen))
+
+
+def _p2_lane_case(gen: torch.Generator) -> dict:
+    """The P² kernel at the curve's lane-batched shape: four sketches,
+    each warmed with its own values, then one absorb of ``[4, 193]``
+    values (57 valid a lane): bitwise its plain version lane by lane,
+    timed against it, with its bound (the larger of bytes, operations and
+    lane 0's dependent chain, timed in-kernel)."""
+    L, N, V, warm = (SHARD_P2[k] for k in ("lanes", "values", "valid", "warm"))
+    vals = torch.rand((L, warm), generator=gen).to(DEVICE) * 2.0
+    sk = p2.p2_absorb(tlm.sketch_init(device=DEVICE, lanes=L), vals,
+                      torch.ones_like(vals, dtype=torch.bool))
+    values = (torch.rand((L, N), generator=gen) * 3.0).to(DEVICE)
+    keep = torch.argsort(torch.rand((L, N), generator=gen), dim=1)[:, :V]
+    mask = torch.zeros((L, N), dtype=torch.bool).scatter(1, keep, True).to(DEVICE)
+    cycles = torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    got = p2.p2_absorb(sk, values, mask, cycles=cycles)
+    plain = tlm.sketch_absorb(sk, values, mask)
+    lane_1d = [p2.p2_absorb(runtime.tree_map(lambda x, i=i: x[i], sk), values[i], mask[i])
+               for i in range(L)]
+    bitwise = all(torch.equal(getattr(got, f), getattr(plain, f))
+                  and torch.equal(getattr(got, f), torch.stack([getattr(x, f) for x in lane_1d]))
+                  for f in ("q", "n", "npd", "buf", "count"))
+    check(bitwise, "P² kernel at [4, 193]: bitwise its plain version and its 1-D calls")
+    hz = p2.clock_hz(DEVICE)
+    n_q = sk.q.shape[-2]
+    nbytes = 5 * L * N + L * (4 * (4 * n_q * 5 + 6) + 4 * (3 * n_q * 5 + 6))
+    ops = P2_OPS_PER_UPDATE * n_q * L * V
+    r = dict(phase="kernel", kernel="p2_sketch", shape=[L, N], valid_per_lane=V,
+             max_abs_err=0.0 if bitwise else None, bitwise=bitwise,
+             ms=device_ms(lambda: p2.p2_absorb(sk, values, mask)),
+             one_lane_ms=device_ms(lambda: p2.p2_absorb(lane_1d[0], values[0], mask[0])),
+             plain_ms=device_ms(lambda: tlm.sketch_absorb(sk, values, mask), iters=1, warm=1),
+             library_ms=None, bytes=nbytes, ops=ops, sm_clock_hz=hz,
+             walk_cycles_lane0=int(cycles),
+             bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / SCALAR_OPS_PER_S * 1e3,
+             chain_ms=int(cycles) / hz * 1e3)
+    r["bound_ms"] = max(r["bytes_ms"], r["ops_ms"], r["chain_ms"])
+    r["bound_by"] = "bytes" if r["bound_ms"] == r["bytes_ms"] else "operations"
+    emit(r)
+    return r
 
 
 def _reset_peak_memory() -> None:
@@ -873,6 +975,7 @@ def phase_fig4() -> dict:
         load=FIG4_FULL["load"], jobs=FIG4_FULL["num_jobs"],
         tasks_per_job=FIG4_FULL["tasks_per_job"], dt=DT),
         plan_build_s=plan_s, rules={})
+    summaries = {}
     for name in SWEEP_RULES:
         plan = plans[name]
         draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
@@ -926,8 +1029,10 @@ def phase_fig4() -> dict:
         check(r["zero_fraction_bitwise_fault_free"],
               f"fig4 {name}: the fraction-0 point is bitwise its fault-free run")
         out["rules"][name] = r
+        summaries[name] = summary
     emit(out)
     out["_plans"] = plans
+    out["_summaries"] = summaries
     return out
 
 
@@ -1264,7 +1369,7 @@ def _stream_by_segment(name: str, horizon: float, orders=None, record: list | No
         draws = runtime.orders_as_draws(orders, None)
         megha_orders = runtime.rule_draws(r, cfg, win_tasks, draws)["orders"].to(DEVICE)
     state = runtime.batch_state(r.init(cfg, win_tasks))
-    sketch = tlm.sketch_init(device=DEVICE)
+    sketch = tlm.sketch_init(device=DEVICE, lanes=1)
     recording = [record is not None]
 
     def absorb(sk, values, mask):
@@ -1281,7 +1386,7 @@ def _stream_by_segment(name: str, horizon: float, orders=None, record: list | No
         state, sketch, _, _, _ = seg(state, win_tasks, win.layout(), sketch)
         head = [state.probe_head.double()] if queues else []
         scal = torch.cat([state.t.double(), state.lost.double(), *head,
-                          tlm.sketch_quantiles(sketch).double()]).cpu().numpy()
+                          tlm.sketch_quantiles(sketch)[0].double()]).cpu().numpy()
         return state, sketch, scal
 
     quantiles, seg_ms, refill_ms, prof = [], [], [], None
@@ -1463,7 +1568,7 @@ def phase_stream(wl) -> dict:
     p2_ms = device_ms(lambda: p2.p2_absorb(sk, values, mask), iters=200)
     p2_plain_ms = device_ms(lambda: tlm.sketch_absorb(sk, values, mask), iters=3)
     hz = p2.clock_hz(DEVICE)
-    n_q, n_v, n_valid = sk.q.shape[0], values.numel(), int(mask.sum())
+    n_q, n_v, n_valid = sk.q.shape[-2], values.numel(), int(mask.sum())
     p2_bytes = 5 * n_v + 4 * (4 * n_q * 5 + 6) + 4 * (3 * n_q * 5 + 6)
     p2_ops = P2_OPS_PER_UPDATE * n_q * n_valid
     out["p2"] = dict(
@@ -1499,6 +1604,226 @@ def phase_stream(wl) -> dict:
         out["profile"][name] = _segment_profile(name, by_seg[name])
         check(out["profile"][name]["device_ops_per_round"] > 0,
               f"{name} stream: the profiler saw device work")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    out["_runs"] = runs
+    return out
+
+
+def _np_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+
+
+def _shard_arrivals(rate: float):
+    return PoissonArrivals(rate=rate, job_factory=fixed_job_factory(1000, 1.0), seed=7)
+
+
+def _runs_prefix_bitwise(short, long) -> bool:
+    """A run cut at an earlier horizon is bitwise the first refills of the
+    longer run of the same stream: delays, series, refills, and its final
+    sketch estimates those of the longer run's refill at its end."""
+    n, k = len(short.refills), len(short.delays)
+    qk = [f"q{q}" for q in short.quantile_targets]
+    return (short.refills == long.refills[:n] and np.array_equal(short.delays, long.delays[:k])
+            and all(np.array_equal(short.series[key], long.series[key][:n], equal_nan=True)
+                    for key in short.series)
+            and np.array_equal(short.quantile_estimates,
+                               np.float32([long.series[q][n - 1] for q in qk]), equal_nan=True))
+
+
+def _curve(name: str, orders, use_kernel: bool = True, horizon: float = STREAM_HORIZON):
+    """One sharded curve on the one-card mesh: (runs, wall, match launches,
+    P² launches, peak bytes), the counts set to 0 just before the run and
+    read just after it."""
+    match.match_ranks_batched.launches = 0
+    p2.p2_absorb.launches = 0
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    runs = shard.sharded_steady_state(
+        name, [_shard_arrivals(r) for r in SHARD_RATES], WORKERS, mesh=shard.sweep_mesh(),
+        dt=DT, horizon=horizon, use_kernel=use_kernel,
+        orders=orders if name == "megha" else None, **STREAM_WINDOW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (runs, wall, match.match_ranks_batched.launches, p2.p2_absorb.launches,
+            torch.cuda.max_memory_allocated())
+
+
+def _curve_profile(name: str, orders, want: list) -> dict:
+    """(e): the curve driven segment by segment from the engine's own
+    host loop (``stream._SteadyLoop``) to ``SHARD_SHORT_HORIZON`` (held
+    bitwise to the first refills of the entry point's 30 s runs
+    ``want``); segment
+    ``SHARD_PROFILE_SEGMENT`` runs again from the same inputs under
+    torch.profiler: device busy and idle share a round over the segment's
+    own wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    curve = stream._SteadyLoop(
+        name, [_shard_arrivals(r) for r in SHARD_RATES], WORKERS, devices=shard.sweep_mesh(),
+        dt=DT, horizon=SHARD_SHORT_HORIZON, orders=orders if name == "megha" else None,
+        **STREAM_WINDOW)
+    seg_ms, refill_ms, prof = [], [], None
+    while not curve.done:
+        seg = curve.segment()
+        seg_ms.append(seg["seconds"] * 1e3)
+        if len(seg_ms) - 1 == SHARD_PROFILE_SEGMENT:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+                again = curve.segment()
+            check(np.array_equal(again["scal"], seg["scal"], equal_nan=True)
+                  and torch.equal(again["state"].task_finish, seg["state"].task_finish),
+                  f"{name} curve: the profiled segment repeats the timed one")
+            prof = (p, again["seconds"] * 1e3)
+        t0 = time.perf_counter()
+        curve.refill(seg)
+        refill_ms.append((time.perf_counter() - t0) * 1e3)
+    runs = curve.runs()
+    check(all(_runs_prefix_bitwise(a, b) for a, b in zip(runs, want)),
+          f"{name} curve: the driven segments are bitwise the entry point's runs")
+    p, prof_ms = prof
+    busy_us, spans, by_name = _device_busy(p)
+    rounds = STREAM_WINDOW["rounds_per_refill"]
+    i = SHARD_PROFILE_SEGMENT
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        segment=i, segments=len(seg_ms), lanes=SHARD_LANES, rounds=rounds,
+        device_busy_ms_per_round=busy_us / 1e3 / rounds,
+        device_ops_per_round=len(spans) / rounds,
+        segment_wall_ms=seg_ms[i], segment_wall_ms_per_round=seg_ms[i] / rounds,
+        profiled_segment_wall_ms=prof_ms,
+        device_idle_share=1.0 - busy_us / 1e3 / seg_ms[i],
+        device_idle_share_profiled=1.0 - busy_us / 1e3 / prof_ms,
+        refill_host_ms=refill_ms[i], refill_host_ms_mean=float(np.mean(refill_ms)),
+        p2_kernel_ms=sum(v for k, v in by_name.items() if "p2_absorb" in k),
+        top_device_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
+    """The sharded executors at the paper's size: (a) the Fig. 2 grids of
+    all five rules and megha's Fig. 4 grid on the one-card mesh, bitwise
+    the sweep and fig4 phases' grids; (b) the indivisible 15-point grid on
+    a mesh naming the card twice, bitwise the one-entry mesh's; (c) every
+    rule's 4-lane curve, each lane bitwise its serial run; (d) megha's
+    curve with the plain versions, bitwise; (e) one segment of megha's and
+    sparrow's curve under the profiler."""
+    t_phase = time.perf_counter()
+    mesh = shard.sweep_mesh()
+    out = dict(phase="shard", mesh=[str(d) for d in mesh], rates=list(SHARD_RATES),
+               loads=[_shard_arrivals(r).offered_load(WORKERS) for r in SHARD_RATES],
+               horizon=STREAM_HORIZON, workers=WORKERS, megha_workers=GRID_WORKERS,
+               **STREAM_WINDOW)
+    check(len(mesh) == 1, "sweep_mesh() is the one card")
+
+    # (a) the paper-scale grids on the one-card mesh
+    out["fig2"] = {}
+    for name in SWEEP_RULES:
+        match.match_ranks_batched.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = shard.sharded_fig2_sweep(name, mesh=mesh, device=DEVICE, **SWEEP_FULL)
+        wall = time.perf_counter() - t0
+        launches = match.match_ranks_batched.launches
+        want = swp["rules"][name]
+        same = all(_np_equal(res[k].reshape(-1), v) for k, v in want["summary"].items())
+        out["fig2"][name] = dict(wall_s=wall, serial_wall_s=want["wall_s"],
+                                 kernel_launches=launches,
+                                 serial_launches=want["kernel_launches"],
+                                 n_devices=int(res["n_devices"]), bitwise_serial=same)
+        check(same, f"shard {name}: the sharded Fig. 2 grid is bitwise the sweep phase's")
+        check(launches == want["kernel_launches"],
+              f"shard {name}: the sharded grid launches as the serial grid does")
+    match.match_ranks_batched.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = shard.sharded_fig4_sweep("megha", mesh=mesh, device=DEVICE, **FIG4_FULL)
+    wall = time.perf_counter() - t0
+    want = fig4["_summaries"]["megha"]
+    same = all(_np_equal(res[k], v) for k, v in want.items())
+    out["fig4_megha"] = dict(wall_s=wall, serial_wall_s=fig4["rules"]["megha"]["wall_s"],
+                             kernel_launches=match.match_ranks_batched.launches,
+                             serial_launches=fig4["rules"]["megha"]["kernel_launches"],
+                             bitwise_serial=same)
+    check(same, "shard megha: the sharded Fig. 4 grid is bitwise the fig4 phase's")
+    check(out["fig4_megha"]["kernel_launches"] == out["fig4_megha"]["serial_launches"],
+          "shard megha: the sharded Fig. 4 grid launches as the serial grid does")
+
+    # (b) 15 points on a mesh naming the card twice (pads to 16)
+    out["padded"] = {}
+    twice = shard.Mesh((mesh[0], mesh[0]))
+    for name in ("megha", "sparrow"):
+        one = shard.sharded_fig2_sweep(name, mesh=mesh, **SHARD_PAD_GRID)
+        two = shard.sharded_fig2_sweep(name, mesh=twice, **SHARD_PAD_GRID)
+        same = all(_np_equal(two[k], one[k]) for k in one if k != "n_devices")
+        out["padded"][name] = dict(points=15, entries=len(twice), bitwise=same,
+                                   shape=list(two["p50"].shape))
+        check(same and two["p50"].shape == (5, 3),
+              f"shard {name}: the 15-point grid on two entries is bitwise one entry's")
+
+    # (c) every rule's 4-lane curve against its serial runs; (d) megha plain
+    cfg = SimxConfig(num_workers=GRID_WORKERS, dt=DT)
+    orders = simx_megha.gm_orders(torch.Generator().manual_seed(0), cfg)
+    out["curve"] = {}
+    curves = {}
+    for name in STREAM_RULES:
+        horizon = SHARD_CURVE_HORIZON.get(name, STREAM_HORIZON)
+        serial, walls = [], []
+        for rate in SHARD_RATES:
+            if rate == STREAM_RATE and horizon == STREAM_HORIZON:
+                serial.append(strm["_runs"][name])
+                walls.append(strm["rules"][name]["wall_s"])
+                continue
+            run, wall, _, _, _ = _stream_run(name, _shard_arrivals(rate), horizon=horizon,
+                                             orders=orders if name == "megha" else None)
+            serial.append(run)
+            walls.append(wall)
+        runs, wall, launches, p2_launches, peak = _curve(name, orders, horizon=horizon)
+        curves[name] = runs
+        segments = max(len(r.refills) for r in runs)
+        base = STREAM_PER_ROUND[name] * segments * STREAM_WINDOW["rounds_per_refill"]
+        borrow = [r.borrow_rounds for r in runs]
+        bitwise = [_runs_bitwise(a, b) and all(
+            getattr(a, f) == getattr(b, f) for f in (
+                "rounds", "tasks_completed", "lost", "messages", "probes", "end_time",
+                "state_bytes", "borrow_rounds")) for a, b in zip(runs, serial)]
+        tasks = sum(r.tasks_completed for r in runs)
+        out["curve"][name] = dict(
+            workers=runs[0].cfg.num_workers, horizon=horizon, wall_s=wall,
+            segment_s=runs[0].segment_seconds,
+            refill_s=sum(r.refill_seconds for r in runs),
+            refill_share=sum(r.refill_seconds for r in runs) / wall,
+            segments=segments, tasks_completed=tasks, tasks_per_wall_s=tasks / wall,
+            serial_walls_s=walls, wall_over_serial_sum=wall / sum(walls),
+            kernel_launches=launches, base_launches=base, borrow_rounds_by_lane=borrow,
+            p2_launches=p2_launches,
+            p50=[r.quantile(0.5) for r in runs], p99=[r.quantile(0.99) for r in runs],
+            p999=[r.quantile(0.999) for r in runs],
+            admission_lag_max=[float(r.series["admission_lag"].max()) for r in runs],
+            mean_utilization=[r.mean_utilization for r in runs],
+            state_bytes=[r.state_bytes for r in runs], max_memory_allocated=peak,
+            lost=[r.lost for r in runs], bitwise_serial=bitwise)
+        check(all(bitwise), f"shard {name}: every lane of the curve is bitwise its serial run")
+        check(all(r.end_time >= horizon for r in runs),
+              f"shard {name}: every lane reached the horizon")
+        check(all(r.lost == 0 for r in runs), f"shard {name}: nothing lost")
+        check(p2_launches == segments, f"shard {name}: one P² launch a segment for all lanes")
+        check(base + max(borrow) <= launches <= base + sum(borrow),
+              f"shard {name}: match launches = segments' rounds x "
+              f"{STREAM_PER_ROUND[name]} + the rounds any lane borrowed in")
+    runs, wall, launches, p2_launches, _ = _curve("megha", orders, use_kernel=False,
+                                                  horizon=SHARD_SHORT_HORIZON)
+    same = all(_runs_prefix_bitwise(a, b) for a, b in zip(runs, curves["megha"]))
+    out["plain_megha"] = dict(wall_s=wall, horizon=SHARD_SHORT_HORIZON,
+                              segments=len(runs[0].refills), bitwise_kernel=same,
+                              match_launches=launches, p2_launches=p2_launches)
+    check(same, "shard megha: the plain curve is bitwise the kernel curve")
+    check(launches == 0 and p2_launches == 0, "shard megha: the plain curve launches nothing")
+
+    # (e) one segment of megha's and sparrow's curve under the profiler
+    out["profile"] = {name: _curve_profile(name, orders, curves[name])
+                      for name in ("megha", "sparrow")}
+    for name, r in out["profile"].items():
+        check(r["device_ops_per_round"] > 0, f"{name} curve: the profiler saw device work")
     out["phase_wall_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
@@ -1998,6 +2323,9 @@ def main() -> int:
     phase_fig4_profile(fig4_plans)
     fprov = phase_fault_provenance(fig4, fig4_plans)
     del fig4_plans
+    shd = phase_shard(swp, fig4, strm)
+    strm.pop("_runs")
+    fig4.pop("_summaries")
     elong = phase_eagle_long()
     serve = phase_serve()
     phase_serve_profile()
@@ -2025,7 +2353,12 @@ def main() -> int:
             breakdown=sum(r["kernel_launches"] for r in brk["rules"].values()),
             breakdown_by_rule={k: r["kernel_launches"] for k, r in brk["rules"].items()},
             fault_provenance=fprov["kernel_launches"],
-            stream_by_rule={k: r["kernel_launches"] for k, r in strm["rules"].items()}),
+            stream_by_rule={k: r["kernel_launches"] for k, r in strm["rules"].items()},
+            shard=dict(
+                fig2_by_rule={k: r["kernel_launches"] for k, r in shd["fig2"].items()},
+                fig4_megha=shd["fig4_megha"]["kernel_launches"],
+                curve_by_rule={k: r["kernel_launches"] for k, r in shd["curve"].items()},
+                curve_plain_megha=shd["plain_megha"]["match_launches"])),
         max_abs_err=max(kern["sweep_err"], *(r["max_abs_err"] for r in kern["rows"])),
         shape=borrow["shape"], ms=borrow["ms"], plain_ms=borrow["plain_ms"],
         bound_ms=borrow["bound_ms"], bound_by=borrow["bound_by"],
@@ -2061,14 +2394,19 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/p2_sketch.cu",
         replaces="src/repro/simx/telemetry.py:440 (sketch_absorb's lax.scan; not a TPU kernel)",
         launches=sum(r["p2_launches"] for r in strm["rules"].values()),
-        launches_by_path=dict(stream_by_rule={k: r["p2_launches"]
-                                              for k, r in strm["rules"].items()}),
+        launches_by_path=dict(
+            stream_by_rule={k: r["p2_launches"] for k, r in strm["rules"].items()},
+            shard=dict(curve_by_rule={k: r["p2_launches"] for k, r in shd["curve"].items()},
+                       curve_plain_megha=shd["plain_megha"]["p2_launches"])),
         max_abs_err=0.0 if strm["p2"]["bitwise_every_absorb"] else None,
         shape=[strm["p2"]["timed_absorb"]["values"]], ms=strm["p2"]["ms"],
         plain_ms=strm["p2"]["plain_ms"], bound_ms=strm["p2"]["bound_ms"],
         bound_by=strm["p2"]["bound_by"],
         bound_parts_ms={k: strm["p2"][k] for k in ("bytes_ms", "ops_ms", "chain_ms")},
         library_ms=None,
+        lanes={k: kern["p2_lanes"][k] for k in (
+            "shape", "valid_per_lane", "ms", "one_lane_ms", "plain_ms", "bound_ms",
+            "bound_by", "bytes_ms", "ops_ms", "chain_ms", "library_ms")},
     )]})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

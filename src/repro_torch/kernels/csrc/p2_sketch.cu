@@ -18,6 +18,11 @@
 // Input: values[N] float32 and mask[N] (bool as uint8): values[i] is
 // observed iff mask[i], in index order.
 //
+// Lanes: L independent sketches absorb L rows of values at once (the
+// sharded steady state's one sketch per offered load).  Every array above
+// then carries a leading [L] axis, contiguous, and lane l reads row l of
+// values and mask and writes sketch l.  A single sketch is L = 1.
+//
 // What bounds it on an H100: latency.  The recursion is sequential in the
 // observations (each update reads the markers the previous one wrote),
 // so the work is one dependent chain of one update per valid value, each
@@ -29,15 +34,17 @@
 // and only then walks them.
 //
 // Design: one warp per block, each block a group of up to 32 target
-// quantiles (the cells are independent apart from the shared warm-up
-// buffer, which every walking lane keeps in registers alike; block 0
+// quantiles of one sketch lane, on a (ceil(Q / 32), L) grid: blockIdx.y is
+// the lane, so the lanes' chains run side by side on separate SMs (the
+// cells are independent apart from the lane's shared warm-up buffer,
+// which every walking thread keeps in registers alike; the lane's block 0
 // writes it back).  Per tile of kTile values the warp compacts the valid
-// ones into shared memory; each lane with a quantile loads its cell into
+// ones into shared memory; each thread with a quantile loads its cell into
 // registers once, walks the staged values in order, and writes its cell
-// back once at the end.  With `cycles` set, lane 0 of block 0 adds up the
-// SM cycles of its walks (clock64), the dependent chain alone, and writes
-// them there: what the chain of this run's data costs, with no launch and
-// no global load in it.
+// back once at the end.  With `cycles` set, thread 0 of sketch lane 0's
+// block 0 adds up the SM cycles of its walks (clock64), the dependent
+// chain alone, and writes them there: what the chain of this run's data
+// costs, with no launch and no global load in it.
 //
 // Numerics: the plain version is the reference's compiled arithmetic,
 // where XLA contracts the two `qi + m * y` updates into fused multiply-adds
@@ -138,6 +145,16 @@ __global__ void __launch_bounds__(kWarp) p2_absorb_kernel(
   const int lane = threadIdx.x;
   const int r = blockIdx.x * kWarp + lane;
   const bool walks = r < n_quantiles;
+  // this block's sketch lane: its row of values and its cells
+  const long long sk = blockIdx.y;
+  values += sk * n_values;
+  mask += sk * n_values;
+  q_g += sk * n_quantiles * 5;
+  n_g += sk * n_quantiles * 5;
+  npd_g += sk * n_quantiles * 5;
+  dn_g += sk * n_quantiles * 5;
+  buf_g += sk * 5;
+  count_g += sk;
   float q[5], n[5], npd[5], dn[5], buf[5];
   #pragma unroll
   for (int j = 0; j < 5; ++j) {
@@ -183,7 +200,7 @@ __global__ void __launch_bounds__(kWarp) p2_absorb_kernel(
     #pragma unroll
     for (int j = 0; j < 5; ++j) buf_g[j] = buf[j];
     *count_g = cnt;
-    if (cycles != nullptr) *cycles = walk_cycles;
+    if (cycles != nullptr && sk == 0) *cycles = walk_cycles;
   }
 }
 
@@ -204,17 +221,18 @@ __global__ void p2_clock_kernel(long long spin, long long* out) {
 
 extern "C" {
 
-// Absorb values[0, n_values) (where mask) into the sketch in place, on
-// `stream`; with `cycles` non-null, also write the walk's SM cycles
-// there.  Returns the launch's cudaError_t (0 on success).
+// Absorb each lane's values[l][0, n_values) (where mask) into sketch l in
+// place, for n_lanes lanes, on `stream`; with `cycles` non-null, also
+// write lane 0's walk's SM cycles there.  Returns the launch's cudaError_t
+// (0 on success).
 int p2_absorb_launch(const float* values, const uint8_t* mask, int n_values, float* q,
                      float* n, float* npd, const float* dn, float* buf, int* count,
-                     int n_quantiles, long long* cycles, void* stream) {
-  if (n_quantiles < 1 || n_values < 0) {
+                     int n_quantiles, int n_lanes, long long* cycles, void* stream) {
+  if (n_quantiles < 1 || n_values < 0 || n_lanes < 1 || n_lanes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (n_quantiles + kWarp - 1) / kWarp;
-  p2_absorb_kernel<<<blocks, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n_quantiles + kWarp - 1) / kWarp, n_lanes);
+  p2_absorb_kernel<<<grid, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       values, mask, n_values, q, n, npd, dn, buf, count, n_quantiles, cycles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,8 @@ of about 80 small ops per observation.  The CUDA source is
 ``csrc/p2_sketch.cu``, compiled by ``build.py`` at its first launch and
 called through ``ctypes``.  A sketch on the CPU goes to the plain version
 (``telemetry.sketch_absorb``); one on a CUDA device launches the kernel or
-raises.
+raises.  A lane-batched sketch (the sharded steady state's, one sketch per
+offered load) is absorbed in the same one launch, a block row per lane.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 
 from repro_torch.kernels import build
 
+#: the most lanes one launch absorbs: the grid's y dimension
+MAX_LANES = 65535
+
 
 @lru_cache(maxsize=None)
 def _library_fns():
@@ -31,7 +35,7 @@ def _library_fns():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     clock = lib.p2_clock_launch
@@ -43,19 +47,23 @@ def _library_fns():
 def p2_absorb(sk, values: torch.Tensor, mask: torch.Tensor, cycles: torch.Tensor | None = None):
     """``sk`` with ``values[i]`` absorbed wherever ``mask[i]``, in index
     order: ``values`` float32[N] and ``mask`` bool[N] on the sketch's
-    device.  Returns a new sketch (the input's tensors are not written).
-    ``cycles``, an int64 [1] tensor on the card, receives the SM cycles of
-    the kernel's walk over the valid values (the dependent chain alone;
-    ``clock_hz`` turns them into time).
+    device.  A lane-batched sketch (fields ``[L, ...]``) takes ``[L, N]``
+    values and mask, lane ``l``'s row into lane ``l``'s sketch, all lanes
+    in one launch.  Returns a new sketch (the input's tensors are not
+    written).  ``cycles``, an int64 [1] tensor on the card, receives the SM
+    cycles of lane 0's walk over the valid values (the dependent chain
+    alone; ``clock_hz`` turns them into time).
 
     ``launches`` counts the kernel launches (CPU calls launch nothing)."""
     from repro_torch.simx.telemetry import QuantileSketch, sketch_absorb
 
     dev = sk.q.device
-    if values.dim() != 1 or mask.shape != values.shape:
+    lead = tuple(sk.count.shape)            # () or (L,)
+    if values.dim() != len(lead) + 1 or tuple(values.shape[:-1]) != lead \
+            or mask.shape != values.shape:
         raise ValueError(
-            f"values and mask must be 1-D of one length, got {tuple(values.shape)} "
-            f"and {tuple(mask.shape)}")
+            f"a sketch of lanes {lead} takes values and mask of shape {lead} + (N,), "
+            f"got {tuple(values.shape)} and {tuple(mask.shape)}")
     if values.dtype != torch.float32 or mask.dtype != torch.bool:
         raise TypeError(f"values must be float32 and mask bool, got {values.dtype}, {mask.dtype}")
     if values.device != dev or mask.device != dev:
@@ -65,25 +73,28 @@ def p2_absorb(sk, values: torch.Tensor, mask: torch.Tensor, cycles: torch.Tensor
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
     fn, _ = _library_fns()
-    n_q = sk.q.shape[0]
+    n_q = sk.q.shape[-2]
+    n_lanes = lead[0] if lead else 1
+    if not 1 <= n_lanes <= MAX_LANES:
+        raise ValueError(f"the kernel absorbs 1 to {MAX_LANES} lanes, got {n_lanes}")
     if cycles is not None and (cycles.shape != (1,) or cycles.dtype != torch.int64
                                or cycles.device != dev):
         raise ValueError("cycles must be an int64 [1] tensor on the sketch's device")
-    want = [(t, (n_q, 5), torch.float32) for t in (sk.q, sk.n, sk.npd, sk.dn)]
-    want += [(sk.buf, (5,), torch.float32), (sk.count, (), torch.int32)]
+    want = [(t, lead + (n_q, 5), torch.float32) for t in (sk.q, sk.n, sk.npd, sk.dn)]
+    want += [(sk.buf, lead + (5,), torch.float32), (sk.count, lead, torch.int32)]
     if any(t.shape != shape or t.dtype != dtype or t.device != dev for t, shape, dtype in want):
         raise ValueError("the sketch must hold float32 [Q, 5] cells, a float32 [5] buffer "
-                         "and an int32 count on one device")
+                         "and an int32 count per lane on one device")
     state = [t.contiguous().clone() for t in (sk.q, sk.n, sk.npd, sk.buf, sk.count)]
     q, n, npd, buf, count = state
     dn = sk.dn.contiguous()
     values, mask = values.contiguous(), mask.contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(values.data_ptr(), mask.data_ptr(), values.shape[0], q.data_ptr(),
+        err = fn(values.data_ptr(), mask.data_ptr(), values.shape[-1], q.data_ptr(),
                  n.data_ptr(), npd.data_ptr(), dn.data_ptr(), buf.data_ptr(),
-                 count.data_ptr(), n_q, None if cycles is None else cycles.data_ptr(),
-                 stream)
+                 count.data_ptr(), n_q, n_lanes,
+                 None if cycles is None else cycles.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"p2_sketch kernel launch failed: CUDA error {err}")
     p2_absorb.launches += 1

@@ -14,7 +14,10 @@ whole Fig. 2 (load x seed) grid as one batched program with
 stages of the same runs.  ``run_steady_state`` streams an open-loop
 arrival process (``repro_torch.workload.synth``) through a ring-buffer
 trace window for any rule, with a P² sketch of the job delays on the
-device (``simx/stream.py``).
+device (``simx/stream.py``).  ``simx/shard.py`` splits a grid's batch over
+a mesh of devices (``sharded_fig2_sweep``, ``sharded_fig4_sweep``) and
+runs a whole load curve of streams as one lane-batched program
+(``sharded_steady_state``).
 """
 
 from repro_torch.simx.engine import (
@@ -69,6 +72,13 @@ from repro_torch.simx.state import (
     init_sparrow_state,
     probe_edge_layout,
 )
+from repro_torch.simx.shard import (
+    Mesh,
+    sharded_fig2_sweep,
+    sharded_fig4_sweep,
+    sharded_steady_state,
+    sweep_mesh,
+)
 from repro_torch.simx.stream import SteadyRun, run_steady_state, state_nbytes, stream_config
 from repro_torch.simx.sweep import (
     SweepPlan,
@@ -111,6 +121,7 @@ __all__ = [
     "PigeonState",
     "SteadyRun",
     "SweepPlan",
+    "Mesh",
     "check_probe_memory",
     "compose_step",
     "default_match_fn",
@@ -140,9 +151,13 @@ __all__ = [
     "run_steady_state",
     "run_to_completion",
     "scan_rounds",
+    "sharded_fig2_sweep",
+    "sharded_fig4_sweep",
+    "sharded_steady_state",
     "simulate_fixed",
     "simulate_workload",
     "state_nbytes",
     "stream_config",
     "sweep_grid",
+    "sweep_mesh",
 ]

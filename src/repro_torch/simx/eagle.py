@@ -143,7 +143,8 @@ def make_eagle_step(
     draws (pass None) and the central FIFO derived from ``tasks``; SSS and
     the central match are then always built in, and the central head is
     clamped by the layout's ``n_long``.  It does not compose with a fault
-    schedule."""
+    schedule.  Lane-stacked windows (every ``tasks`` field and layout
+    tensor ``[L, ...]``) step L = B lanes."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -165,11 +166,10 @@ def make_eagle_step(
         C = pl.window
         off1 = layout.off1.to(device=dev, dtype=_I32)
         off2 = layout.off2.to(device=dev, dtype=_I32)
-    short_job = tasks.job_est < cfg.long_threshold                     # bool[J]
-    long_task = torch.cat([~short_job[tasks.job.to(_I64)],
-                           torch.zeros(1, dtype=torch.bool, device=dev)])   # bool[T+1]
-    job_pad = torch.cat([tasks.job, torch.full((1,), J, dtype=_I32, device=dev)])
-    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    short_job = tasks.job_est < cfg.long_threshold              # bool[J] ([L, J] in lanes)
+    long_task = rt.pad_last(~rt.take(short_job, tasks.job), False)   # bool[T+1]
+    job_pad = rt.pad_last(tasks.job, J)
+    dur_pad = rt.pad_last(tasks.duration, 0.0)
     submit = tasks.submit.reshape(-1, T)
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     job_submit = tasks.job_submit.reshape(-1, J)
@@ -223,7 +223,7 @@ def make_eagle_step(
                 lt0 = torch.where(lost_w, s.worker_task, T).to(_I64)
                 long_head = torch.minimum(long_head, torch.amin(long_pos[lt0], dim=-1))
             dead = worker_dead(faults, t)                         # bool[B,W]
-        long_here = (worker_finish0 > tt) & long_task[s.worker_task.to(_I64)]   # [B,W]
+        long_here = (worker_finish0 > tt) & rt.take(long_task, s.worker_task)   # [B,W]
 
         # -- 0. recycle completed jobs' slots, compact the queues -----------
         resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
@@ -253,7 +253,7 @@ def make_eagle_step(
         pend_task = torch.isinf(task_finish0) & (submit <= tt)
         pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
             -1, job64.expand(B, T), pend_task.to(_I32))
-        prev_job = job_pad[s.worker_task.to(_I64)]                # int32[B,W], J = none
+        prev_job = rt.take(job_pad, s.worker_task)                # int32[B,W], J = none
         sticky_pick = torch.where(comp & (rt.take(pending, prev_job) > 0), prev_job, J)
         launch1, task1 = late_bind(sticky_pick, pend_task, tasks.job, job_start)
         # the worker already holds the job's spec: no extra hops

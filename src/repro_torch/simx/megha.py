@@ -151,7 +151,10 @@ def make_megha_step(
     ``layout`` (a ``MeghaLayout``, the streaming window's) replaces the
     per-GM layout derived from ``tasks``: its rows, window and row lengths
     (the head clamp) come in as tensors, and nothing of the trace is read
-    to the host.  It does not compose with a fault schedule."""
+    to the host.  It does not compose with a fault schedule.  Lane-stacked
+    windows (``tasks`` with every field ``[L, ...]``, a layout of ``[L,
+    ...]`` tensors; the sharded steady state's) step L = B lanes, one
+    window each."""
     if match_fn is None:
         match_fn = default_match_fn()
     if layout is not None and faults is not None:
@@ -194,9 +197,12 @@ def make_megha_step(
         gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
         gm_len = tg
     else:
-        gm_tasks = layout.gm_tasks.to(dev)[None]       # int32[1, G, T_cap+C]
+        # int32[1, G, T_cap+C], or [L, G, T_cap+C] for lane-stacked windows
+        gm_tasks = layout.gm_tasks.to(dev)
+        if gm_tasks.dim() == 2:
+            gm_tasks = gm_tasks[None]
         C = layout.window
-        gm_len = layout.gm_len.to(dev)                 # int32[G]
+        gm_len = layout.gm_len.to(dev)                 # int32[G] or [L, G]
     if faults is not None:
         # task -> (gm row, FIFO position) for crash-loss head rollback;
         # the T pad routes to the pad row G, which is cut off
@@ -208,7 +214,7 @@ def make_megha_step(
     submit = tasks.submit.reshape(-1, T)                      # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
     submit_c = rt.take(submit_pad, gm_tasks)                  # [Bt, G, Tg+C]
-    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    dur_pad = rt.pad_last(tasks.duration, 0.0)
 
     def adopted(view, adopt):
         """Each GM row's view as its adopter sees it (``view[adopt]`` per

@@ -62,7 +62,7 @@ def make_oracle_step(
     # one row of submit times per grid point (or one shared row)
     submit = tasks.submit.reshape(-1, T)
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
-    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    dur_pad = rt.pad_last(tasks.duration, 0.0)       # [T+1], or [L, T+1] in lanes
     if provenance:
         no_authority = torch.zeros(cfg.num_workers, dtype=torch.int32, device=dev)
 

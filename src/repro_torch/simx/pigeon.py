@@ -120,7 +120,8 @@ def make_pigeon_step(
 
     ``layout`` (a ``PigeonLayout``, the streaming window's) replaces the
     class FIFOs derived from ``tasks``; its row lengths clamp the heads.  It
-    does not compose with a fault schedule."""
+    does not compose with a fault schedule.  Lane-stacked windows (every
+    ``tasks`` field and layout tensor ``[L, ...]``) step L = B lanes."""
     if match_fn is None:
         match_fn = default_match_fn()
     if layout is not None and faults is not None:
@@ -173,13 +174,15 @@ def make_pigeon_step(
         len_h = high_fifo.shape[-1] - C
         len_l = low_fifo.shape[-1] - C
     else:
-        high_fifo = layout.high_fifo.to(dev)[None]
-        low_fifo = layout.low_fifo.to(dev)[None]
+        # [1, NG, ...] rows, or [L, NG, ...] for lane-stacked windows
+        high_fifo, low_fifo = layout.high_fifo.to(dev), layout.low_fifo.to(dev)
+        if high_fifo.dim() == 2:
+            high_fifo, low_fifo = high_fifo[None], low_fifo[None]
         len_h, len_l = layout.len_high.to(dev), layout.len_low.to(dev)
     # one row of submit times per grid point (or one shared row)
     submit = tasks.submit.reshape(-1, T)                       # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
-    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    dur_pad = rt.pad_last(tasks.duration, 0.0)               # [T+1] or [L, T+1]
     if faults is not None:
         # task -> (group, FIFO position, class) for crash-loss head rollback;
         # the T pad routes to the pad group NG, which is cut off
@@ -284,7 +287,7 @@ def make_pigeon_step(
         # -- 4. launch: client->distributor->coordinator->worker = 3 hops;
         #       lanes that launch nothing write the pad slot, cut off -------
         start = t + 3 * cfg.hop
-        fin = (start[:, None, None] + dur_pad[torch.clamp(task_g, max=T).to(torch.int64)])
+        fin = start[:, None, None] + rt.take(dur_pad, torch.clamp(task_g, max=T))
         fin = fin.reshape(B, -1)
         lt = torch.where(launch, task_g, T).reshape(B, -1).to(torch.int64)
         lw = torch.where(launch, wg, W).reshape(B, -1)

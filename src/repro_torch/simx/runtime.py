@@ -160,6 +160,59 @@ def unbatch_carry(carry):
     return unbatch_state(carry)
 
 
+def tree_map(fn: Callable, tree):
+    """``fn`` over every tensor of a tree of dataclasses, dicts, tuples and
+    lists (states, carries, task arrays, layouts, sketches, summaries);
+    anything else (capacities, targets, None) passes through.  A lane or
+    point of a batched tree is ``tree_map(lambda x: x[i:i + 1], tree)``."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    return tree
+
+
+def tree_join(fn: Callable, trees: list):
+    """Trees of one structure joined: ``fn`` over each tensor's list across
+    them (``torch.cat`` of batches, ``torch.stack`` of unbatched trees).
+    Their other leaves must agree: lanes over one shared config have the
+    same capacities."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return fn(trees)
+    if isinstance(first, dict):
+        return {k: tree_join(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)) and not all(
+            isinstance(x, (int, float, str)) for x in first):
+        return type(first)(tree_join(fn, list(xs)) for xs in zip(*trees))
+    if dataclasses.is_dataclass(first) and not isinstance(first, type):
+        return dataclasses.replace(first, **{
+            f.name: tree_join(fn, [getattr(t, f.name) for t in trees])
+            for f in dataclasses.fields(first)})
+    if any(t != first for t in trees[1:]):
+        raise ValueError(f"lanes disagree on a static field: {trees}")
+    return first
+
+
+def split_batch(tree, devices, per: int) -> list:
+    """Entry ``e``'s contiguous slice ``[e * per, (e + 1) * per)`` of a
+    batched tree, on ``devices[e]`` (a view when it is there already)."""
+    return [tree_map(lambda x, e=e, d=d: x[e * per:(e + 1) * per].to(d), tree)
+            for e, d in enumerate(devices)]
+
+
+def gather_batch(parts: list, home: torch.device):
+    """The entries' outputs joined along the batch axis on ``home``."""
+    if len(parts) == 1:
+        return parts[0]
+    return tree_join(lambda xs: torch.cat([x.to(home) for x in xs]), parts)
+
+
 # ---------------------------------------------------------------------------
 # stage helpers: windowed FIFOs, launch bookkeeping, completion masks
 # ---------------------------------------------------------------------------
@@ -193,11 +246,16 @@ def sorted_fifo(queued: torch.Tensor, width: int) -> torch.Tensor:
     return torch.sort(torch.where(queued, pos, width), dim=-1).values
 
 
+def pad_last(x: torch.Tensor, value) -> torch.Tensor:
+    """``x`` with one slot of ``value`` appended along its last axis (per
+    row of any leading axes): the pad slot a sentinel index reads."""
+    return torch.cat([x, x.new_full(x.shape[:-1] + (1,), value)], dim=-1)
+
+
 def finish_pad(task_finish: torch.Tensor) -> torch.Tensor:
     """``task_finish`` with a ``-inf`` pad slot so windowed gathers of the
     out-of-bounds sentinel task read as launched."""
-    pad = task_finish.new_full(task_finish.shape[:-1] + (1,), float("-inf"))
-    return torch.cat([task_finish, pad], dim=-1)
+    return pad_last(task_finish, float("-inf"))
 
 
 def window_launched(fpad: torch.Tensor, wtask: torch.Tensor, num_tasks: int) -> torch.Tensor:
@@ -241,9 +299,10 @@ def apply_launch(
     is known at launch, so ``task_finish`` and ``worker_finish`` are both
     recorded as ``start + duration``.  Lanes that launch nothing write the
     pad slot ``num_tasks``, which is cut off (the reference's
-    ``mode="drop"``)."""
+    ``mode="drop"``).  ``dur_pad`` is shared (``[T + 1]``) or one row per
+    point (``[B, T + 1]``, lane-stacked windows)."""
     lt = torch.where(launch, task_pick, num_tasks).to(torch.int64)
-    fin = lift(start, task_pick) + dur_pad[torch.clamp(task_pick, max=num_tasks).to(torch.int64)]
+    fin = lift(start, task_pick) + take(dur_pad, torch.clamp(task_pick, max=num_tasks))
     padded = torch.cat([task_finish, task_finish.new_zeros(task_finish.shape[:-1] + (1,))], -1)
     task_finish = padded.scatter(-1, lt, fin)[..., :num_tasks]
     worker_finish = torch.where(launch, fin, worker_finish)

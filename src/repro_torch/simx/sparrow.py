@@ -106,28 +106,32 @@ def late_bind(
     j's k-th pending task.  Tasks are contiguous per job (``job_start``
     the first task of each job), so one cumsum over ``pend_task`` gives
     the within-job pending ranks.  ``job_pick int32[..., W]`` and
-    ``pend_task bool[..., T]`` share their leading (point) axes.  Returns
-    ``(launch bool[..., W], task int32[..., W])`` with T meaning none."""
-    T, W, J = job.shape[0], job_pick.shape[-1], job_start.shape[0]
+    ``pend_task bool[..., T]`` share their leading (point) axes; ``job``
+    and ``job_start`` are shared (``[T]``, ``[J]``) or one row per point
+    (``[B, T]``, ``[B, J]``: lane-stacked windows).  Returns ``(launch
+    bool[..., W], task int32[..., W])`` with T meaning none."""
+    T, W, J = job.shape[-1], job_pick.shape[-1], job_start.shape[-1]
     dev = job_pick.device
     lead = pend_task.shape[:-1]
     job64 = job.to(_I64)
+    # src[..., idx] with a shared idx, per point with per-point rows
+    at = rt.take if job.dim() > 1 else (lambda src, idx: src[..., idx])
     pend_i = pend_task.to(_I32)
     pending = torch.zeros(lead + (J,), dtype=_I32, device=dev).scatter_add(
         -1, job64.expand(lead + (T,)), pend_i)
     c = _scan_rows(pend_i)
-    base = torch.where(job_start > 0, c[..., torch.clamp(job_start - 1, min=0).to(_I64)], 0)
-    prank = c - 1 - base[..., job64]                                   # int32[..., T]
+    base = torch.where(job_start > 0, at(c, torch.clamp(job_start - 1, min=0).to(_I64)), 0)
+    prank = c - 1 - at(base, job64)                                    # int32[..., T]
     # (job, rank) -> task: job j's r-th pending task at job_start[j] + r;
     # tasks that are not pending write the pad slot T, cut off
-    dest = torch.where(pend_task, job_start[job64] + prank, T).to(_I64)
+    dest = torch.where(pend_task, rt.take(job_start, job64) + prank, T).to(_I64)
     t_row = torch.arange(T, dtype=_I32, device=dev).expand(lead + (T,))
     slot = torch.full(lead + (T + 1,), T, dtype=_I32, device=dev).scatter(
         -1, dest, t_row)[..., :T]
     _, rank = _rank_within_groups(job_pick)
     jp = torch.clamp(job_pick, 0, J - 1)
     serve = (job_pick < J) & (rank < rt.take(pending, jp))
-    pos = job_start[jp.to(_I64)] + rank
+    pos = rt.take(job_start, jp) + rank
     task_pick = torch.where(serve, rt.take(slot, torch.clamp(pos, 0, T - 1)), T)
     return serve, task_pick
 
@@ -214,7 +218,8 @@ def probe_window_slice(
     lagged)``, where ``lagged`` means a ready edge was left beyond the
     full window (an exact fit is not lag).  ``head`` and ``t`` are one per
     point (``[B]``, or scalars), ``job_submit_pad`` ``[J + 1]`` or one row
-    per point, the edge lists shared or one row per point."""
+    per point, the edge lists shared or one row per point (lane-stacked
+    windows)."""
     J = job_submit_pad.shape[-1] - 1
     win_j = rt.slice_rows(edge_job, head, window)
     win_w = rt.slice_rows(edge_worker, head, window)
@@ -223,7 +228,7 @@ def probe_window_slice(
     ins = torch.arange(window, dtype=_I32, device=win_j.device) < lead[..., None]
     # the first edge past the window: pad edges read as never ready, so a
     # clamped gather is safe at the tail of the list
-    nxt = edge_job[torch.clamp(head + window, max=edge_job.shape[-1] - 1).to(_I64)]
+    nxt = rt.take(edge_job, torch.clamp(head + window, max=edge_job.shape[-1] - 1))
     lagged = (lead == window) & (rt.take(job_submit_pad, torch.clamp(nxt, max=J)) <= t)
     return win_j, win_w, lead, ins, lagged
 
@@ -281,11 +286,11 @@ def compact_queues(
 
     An entry lives while its job still has an unfinished task (launched
     but running included); live entries slide to the front in order, dead
-    ones go to the pad column R, cut off.  Returns ``(resq, fill
-    int32[..., W])``."""
+    ones go to the pad column R, cut off.  ``job`` is shared or one row per
+    point.  Returns ``(resq, fill int32[..., W])``."""
     R = resq.shape[-1]
     lead = task_finish.shape[:-1]
-    T = job.shape[0]
+    T = job.shape[-1]
     unfinished = torch.zeros(lead + (num_jobs + 1,), dtype=_I32, device=resq.device)
     unfinished = unfinished.scatter_add(
         -1, job.to(_I64).expand(lead + (T,)),
@@ -333,9 +338,9 @@ def probe_attempt(
 
 def job_starts(tasks: TaskArrays) -> torch.Tensor:
     """int32[J] — each job's first task (tasks are exported contiguously
-    per job)."""
-    csum = torch.cumsum(tasks.job_ntasks, dim=0, dtype=_I32)
-    return torch.cat([csum.new_zeros(1), csum[:-1]])
+    per job); ``[L, J]`` for lane-stacked windows."""
+    csum = torch.cumsum(tasks.job_ntasks, dim=-1, dtype=_I32)
+    return torch.cat([csum.new_zeros(csum.shape[:-1] + (1,)), csum[..., :-1]], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -388,7 +393,8 @@ def make_sparrow_step(
 
     ``layout`` (a ``ProbeLayout``, the streaming window's) replaces the edge
     list built from ``targets``, which is then not used (pass None).  It
-    does not compose with a fault schedule."""
+    does not compose with a fault schedule.  Lane-stacked windows (every
+    ``tasks`` field and layout tensor ``[L, ...]``) step L = B lanes."""
     if match_fn is None:
         match_fn = default_match_fn()
     dev = tasks.device
@@ -409,7 +415,7 @@ def make_sparrow_step(
     job_submit_pad = torch.cat([job_submit, job_submit.new_full((job_submit.shape[0], 1),
                                                                 float("inf"))], -1)
     j_idx = torch.arange(J, dtype=_I32, device=dev)
-    dur_pad = torch.cat([tasks.duration, tasks.duration.new_zeros(1)])
+    dur_pad = rt.pad_last(tasks.duration, 0.0)
     job_start = job_starts(tasks)
     job64 = tasks.job.to(_I64)
 

@@ -17,7 +17,10 @@ A sweep grid runs B points at once (``repro_torch.simx.sweep``): its
 state carries a leading axis of B points on every field (the specs below
 name one point's shapes), and its ``TaskArrays`` carry one ``submit`` /
 ``job_submit`` row per point (``float32[B, T]`` / ``[B, J]``) while the
-structural arrays stay shared.
+structural arrays stay shared.  The sharded steady state's lanes
+(``repro_torch.simx.shard``) each stream their own window, so there every
+``TaskArrays`` field carries the leading axis (``int32[L, T]`` jobs,
+``float32[L, T]`` durations, ...).
 
 States are frozen dataclasses of tensors; a round builds a new state with
 ``replace`` and never writes into the old one's tensors.  Counters and
@@ -68,11 +71,11 @@ class TaskArrays:
 
     @property
     def num_tasks(self) -> int:
-        return self.job.shape[0]
+        return self.job.shape[-1]
 
     @property
     def num_jobs(self) -> int:
-        return self.job_ideal.shape[0]
+        return self.job_ideal.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -80,7 +83,8 @@ class TaskArrays:
 
     @property
     def batch(self) -> int | None:
-        """Points of a grid's per-point arrival times; None when shared."""
+        """Points of a grid's per-point arrival times (or lanes of
+        lane-stacked windows); None when shared."""
         return self.submit.shape[0] if self.submit.dim() == 2 else None
 
     def replace(self, **kw) -> "TaskArrays":

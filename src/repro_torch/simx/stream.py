@@ -37,7 +37,9 @@ no compiled segment to memoise (the reference's ``lru_cache`` of one
 ``jax.jit`` per rule and config): the step is rebuilt at every refill from
 the new window's tensors and layout, which costs no host read and a few
 small device ops (the layout replaces the trace-derived numpy work of
-the ``make_*_step`` functions).  The state carries the port's leading point axis (B = 1) throughout.
+the ``make_*_step`` functions).  The state carries the port's leading point axis (B = 1)
+throughout, and the sketch a lane axis of one (``_segment_core`` also runs
+the sharded steady state's L lanes).
 The round loop reads nothing to the host inside a segment; a refill reads
 the scalars it needs (clock, losses, gauges, sketch quantiles) in one host
 read, then the arrays the remap needs.  Pigeon's FIFO rows are as wide as
@@ -537,8 +539,16 @@ def _segment_core(rule: str, cfg: SimxConfig, num_rounds: int, match_fn, orders=
     runs the rounds, absorbs the segment's completed-job delays into the
     sketch (``absorb``: the ``p2_sketch`` kernel or its plain version) and
     computes the gauges, all on the device.  Returns ``(carry, sketch,
-    gauges, blocks, borrow_rounds)``; ``blocks`` holds the telemetry
-    windows' ``[1, K]`` series (empty without telemetry)."""
+    gauges, blocks, lane_borrow)``; ``blocks`` holds the telemetry
+    windows' ``[B, K]`` series (empty without telemetry).
+
+    The carry holds B lanes, one window each, and the sketch is
+    lane-batched (``sketch_init(lanes=B)``): a single run is one lane on
+    its window's own arrays, and several lanes (``_SteadyLoop``) stack
+    their windows (every task and layout field ``[L, ...]``), so one
+    absorb takes every lane's ``[B, J]`` delays.  The gauges are ``[B]``;
+    ``lane_borrow`` (``int32[B]``, on the device) counts the rounds each
+    lane ran megha's borrow pass in."""
     tele = telemetry is not None
     if tele and num_rounds % stride:
         raise ValueError("telemetry stride must divide rounds_per_refill")
@@ -572,17 +582,22 @@ def _segment_core(rule: str, cfg: SimxConfig, num_rounds: int, match_fn, orders=
         # jobs completed THIS segment: every refill retires completed jobs,
         # so a finite delay here is new, absorbed exactly once
         delays, _ = rt.job_delays_from_state(state.task_finish, state.t, win_tasks)
-        delays = delays[0]
         fin = torch.isfinite(delays)
         sketch = absorb(sketch, torch.where(fin, delays, 0.0), fin)
-        t = state.t[0]
-        tf = state.task_finish[0]
+        t = state.t[:, None]
+        tf = state.task_finish
         gauges = dict(
-            utilization=torch.sum(state.worker_finish[0] > t, dtype=torch.float32) / W,
-            pending=torch.sum(torch.isinf(tf) & (win_tasks.submit <= t), dtype=torch.int32),
-            running=torch.sum(torch.isfinite(tf) & (tf > t), dtype=torch.int32),
+            utilization=torch.sum(state.worker_finish > t, dim=-1, dtype=torch.float32) / W,
+            pending=torch.sum(torch.isinf(tf) & (win_tasks.submit <= t), dim=-1,
+                              dtype=torch.int32),
+            running=torch.sum(torch.isfinite(tf) & (tf > t), dim=-1, dtype=torch.int32),
         )
-        return carry, sketch, gauges, blocks, getattr(step, "borrow_rounds", 0)
+        # the rounds each lane borrowed in (megha; 0 for the others), on
+        # the device: the caller reads them with its scalars
+        lane_borrow = getattr(step, "point_borrow_rounds", None)
+        if lane_borrow is None:
+            lane_borrow = torch.zeros_like(state.rnd)
+        return carry, sketch, gauges, blocks, lane_borrow
 
     return seg
 
@@ -684,49 +699,320 @@ def state_nbytes(*trees) -> int:
     ))
 
 
+
+
+def _stack_tasks(wins: list, device: torch.device) -> TaskArrays:
+    """The windows' task arrays stacked to ``[L, ...]`` on the host, one
+    upload per field."""
+    return TaskArrays(**{k: torch.from_numpy(np.stack([w._np[k] for w in wins])).to(device)
+                         for k in wins[0]._np})
+
+
+#: the scalars a segment leaves per lane, read to the host in one read
+#: (with the sketch quantiles after them): the clock, losses, gauges,
+#: borrow rounds, and the probe head (0 for the rules without queues)
+_SCALARS = ("t", "lost", "utilization", "pending", "running", "borrow", "probe_head")
+
+
+class _SteadyLoop:
+    """The host loop of the streaming engine, over one lane
+    (``run_steady_state``) or several (``shard.sharded_steady_state``):
+    each lane's window, carry and sketch, the segment on each of
+    ``devices`` (a lane-batched one when there are several lanes), and
+    the per-lane records.  ``segment()`` advances every lane one segment
+    and reads every lane's scalars in one host read, without touching the
+    lanes' stored carries (so a segment can be run again from the same
+    inputs); ``refill(seg)`` takes its results into the live lanes and
+    refills their windows; ``runs()`` gives the finished ``SteadyRun``s.
+
+    The lane count is padded to a multiple of ``len(devices)`` by
+    repeating lane 0, and each device runs its contiguous slice of the
+    lanes.  A lane that drains (or trips ``horizon`` / ``max_rounds``) is
+    frozen: it keeps its place in the batch but takes no more results.
+    One lane on one device runs on its window's own arrays; several stack
+    their windows' task and layout fields to ``[L, ...]`` (the
+    capacities come from the one shared config, so they stack).
+    Telemetry and provenance take one lane, as in the reference."""
+
+    def __init__(
+        self,
+        rule: str,
+        arrivals: list,
+        num_workers: int,
+        *,
+        devices,
+        entry: str = "run_steady_state",
+        cfg: Optional[SimxConfig] = None,
+        window_jobs: int = 256,
+        window_tasks: Optional[int] = None,
+        rounds_per_refill: int = 64,
+        horizon: Optional[float] = None,
+        max_rounds: int = 2_000_000,
+        quantiles: tuple = tlm.DEFAULT_QUANTILES,
+        collect_delays: bool = True,
+        match_fn: rt.MatchFn | None = None,
+        use_kernel: bool = True,
+        num_gms: int = 8,
+        num_lms: int = 8,
+        dt: float = 0.05,
+        seed: int = 0,
+        orders: torch.Tensor | None = None,
+        draws: dict | None = None,
+        telemetry: tlm.TelemetryConfig | bool | None = None,
+        provenance: bool = False,
+        breakdown_bins: int = 32,
+        breakdown_max: float = 60.0,
+        **cfg_kw,
+    ):
+        name = rule.lower()
+        r = rt.get_rule(name)  # fail fast on unknown rules
+        rt.check_round_budget(max_rounds, f"{entry}(max_rounds=...)")
+        if horizon is not None:
+            # the horizon is enforced in rounds via the int32 round clock, so
+            # it shares the same overflow budget
+            rt.check_round_budget(int(math.ceil(horizon / (dt if cfg is None else cfg.dt))),
+                                  f"{entry}(horizon=...)")
+        if not arrivals:
+            raise ValueError(f"{entry} needs at least one lane")
+        n_dev = len(devices)
+        n_pad = -(-len(arrivals) // n_dev) * n_dev
+        self.order = list(range(len(arrivals))) + [0] * (n_pad - len(arrivals))
+        self.per = n_pad // n_dev
+        if telemetry is True:
+            telemetry = tlm.TelemetryConfig()
+        if (telemetry is not None or provenance) and n_pad > 1:
+            raise ValueError("telemetry and provenance take one lane on one device: "
+                             "run them through run_steady_state")
+        if window_tasks is None:
+            window_tasks = window_jobs * 16
+        if cfg is None:
+            cfg = stream_config(name, num_workers, window_tasks=window_tasks,
+                                num_gms=num_gms, num_lms=num_lms, dt=dt, **cfg_kw)
+        stride = 1
+        if telemetry is not None:
+            stride = min(telemetry.stride, rounds_per_refill)
+            while rounds_per_refill % stride:
+                stride -= 1
+        if match_fn is None:
+            match_fn = rt.default_match_fn(use_kernel)
+        self.name, self.cfg, self.devices = name, cfg, tuple(devices)
+        self.home = resolve_device(devices[0])
+        self.rounds_per_refill, self.horizon, self.max_rounds = (
+            rounds_per_refill, horizon, max_rounds)
+        self.quantiles, self.collect_delays = tuple(quantiles), collect_delays
+        self.telemetry, self.stride, self.provenance = telemetry, stride, provenance
+        self.queues = r.has_queues
+        self.wins = [_StreamWindow(
+            a, cfg, name, window_jobs, window_tasks, seed, self.home, provenance=provenance,
+            breakdown_bins=breakdown_bins, breakdown_max=breakdown_max) for a in arrivals]
+        megha_orders = None
+        draws = rt.orders_as_draws(orders, draws)
+        if name == "megha":
+            megha_orders = rt.rule_draws(r, cfg, self.wins[0].tasks(),
+                                         seed if draws is None else draws)["orders"]
+        elif draws is not None:
+            raise ValueError(f"{name} draws its per-job quantities at admission: pass no draws")
+        self.carry = []
+        for w in self.wins:
+            state = rt.batch_state(r.init(cfg, w.tasks()))
+            self.carry.append((state, init_provenance(w.T_cap, self.home, 1))
+                              if provenance else state)
+        self.sketch = [tlm.sketch_init(quantiles, device=self.home, lanes=1) for _ in self.wins]
+        absorb = p2.p2_absorb if use_kernel else tlm.sketch_absorb
+        self.segs = [_segment_core(
+            name, cfg, rounds_per_refill, match_fn,
+            None if megha_orders is None else megha_orders.to(d),
+            telemetry=telemetry, stride=stride, provenance=provenance, absorb=absorb)
+            for d in self.devices]
+        keys = ("t", "utilization", "busy_util", "pending", "running", "window_jobs",
+                "admission_lag")
+        self.series = [{**{k: [] for k in keys}, **{f"q{q}": [] for q in quantiles}}
+                       for _ in self.wins]
+        self.refills: list[list] = [[] for _ in self.wins]
+        self.blocks: list[list] = [[] for _ in self.wins]
+        self.live = [True] * len(self.wins)
+        self.rounds = [0] * len(self.wins)
+        self.borrow = [0] * len(self.wins)
+        self.seg_s = [0.0] * len(self.wins)
+        self.refill_s = [0.0] * len(self.wins)
+
+    @property
+    def done(self) -> bool:
+        return not any(self.live)
+
+    def segment(self) -> dict:
+        """One segment of every lane (pads and frozen lanes included) and
+        the one host read of its scalars (``_SCALARS``, then the sketch
+        quantiles: a row per lane)."""
+        t0 = time.perf_counter()
+        order = self.order
+        if len(order) == 1:
+            win = self.wins[order[0]]
+            outs = [self.segs[0](self.carry[order[0]], win.tasks(), win.layout(),
+                                 self.sketch[order[0]])]
+        else:
+            wins = [self.wins[i] for i in order]
+            batch = (rt.tree_join(torch.cat, [self.carry[i] for i in order]),
+                     _stack_tasks(wins, self.home),
+                     rt.tree_join(torch.stack, [w.layout() for w in wins]),
+                     rt.tree_join(torch.cat, [self.sketch[i] for i in order]))
+            outs = [seg(*part) for seg, part in
+                    zip(self.segs, rt.split_batch(batch, self.devices, self.per))]
+        carry, sketch, gauges, blocks, borrow = rt.gather_batch(outs, self.home)
+        state = rt.carry_state(carry)
+        head = state.probe_head if self.queues else torch.zeros_like(state.lost)
+        cols = torch.stack([state.t.double(), state.lost.double(),
+                            gauges["utilization"].double(), gauges["pending"].double(),
+                            gauges["running"].double(), borrow.double(), head.double()], dim=1)
+        scal = torch.cat([cols, tlm.sketch_quantiles(sketch).double()], dim=1).cpu().numpy()
+        return dict(carry=carry, state=state, sketch=sketch, blocks=blocks, scal=scal,
+                    seconds=time.perf_counter() - t0)
+
+    def refill(self, seg: dict) -> None:
+        """Take a segment's results into every live lane and refill its
+        window on the host."""
+        cfg, k = self.cfg, len(_SCALARS)
+        for i, win in enumerate(self.wins):
+            if not self.live[i]:
+                continue
+            t0 = time.perf_counter()
+            t_now, lost, util, pending, running, borrow, head = seg["scal"][i, :k]
+            t_now = float(np.float32(t_now))
+            carry = rt.tree_map(lambda x, i=i: x[i:i + 1], seg["carry"])
+            self.sketch[i] = rt.tree_map(lambda x, i=i: x[i:i + 1], seg["sketch"])
+            if self.telemetry is not None:
+                self.blocks[i].append({key: v[i] for key, v in seg["blocks"].items()})
+            self.rounds[i] += self.rounds_per_refill
+            self.borrow[i] += int(borrow)
+            lag = max(0.0, t_now - win.next_submit)
+            state, prov = carry if self.provenance else (carry, None)
+            state, stats, prov = win.refill(state, t_now, int(lost), int(head),
+                                            collect_delays=self.collect_delays, prov=prov)
+            self.carry[i] = (state, prov) if self.provenance else state
+            self.refills[i].append(stats)
+            s = self.series[i]
+            s["t"].append(stats["t"])
+            s["utilization"].append(float(np.float32(util)))
+            s["busy_util"].append(stats["busy"] / (cfg.num_workers * stats["span"])
+                                  if stats["span"] > 0 else 0.0)
+            s["pending"].append(int(pending))
+            s["running"].append(int(running))
+            s["window_jobs"].append(stats["window_jobs"])
+            s["admission_lag"].append(lag)
+            for q, v in zip(self.quantiles, seg["scal"][i, k:]):
+                s[f"q{q}"].append(float(np.float32(v)))
+            if (win.drained or (self.horizon is not None and t_now >= self.horizon)
+                    or self.rounds[i] >= self.max_rounds):
+                self.live[i] = False
+            self.seg_s[i] += seg["seconds"]
+            self.refill_s[i] += time.perf_counter() - t0
+
+    def _timeline(self, i: int) -> Optional[tlm.Timeline]:
+        """Lane ``i``'s telemetry windows merged across its refills."""
+        blocks, tel, win = self.blocks[i], self.telemetry, self.wins[i]
+        if tel is None or not blocks:
+            return None
+        merged = {key: torch.cat([b[key] for b in blocks]) for key in blocks[0]}
+        t_axis = merged.pop("t", torch.zeros(0, dtype=torch.float32, device=self.home))
+        # streamed delay histogram: retired jobs live on the host, so the
+        # exact delays (when collected) bin directly; otherwise empty
+        hist = np.zeros(tel.delay_bins, np.int32)
+        if self.collect_delays and win.retired_delays:
+            b = np.clip((np.asarray(win.retired_delays) / tel.bin_width).astype(int),
+                        0, tel.delay_bins - 1)
+            hist = np.bincount(b, minlength=tel.delay_bins).astype(np.int32)
+        return tlm.Timeline(
+            t=t_axis, series=merged, delay_hist=torch.from_numpy(hist).to(self.home),
+            stride=self.stride, dt=self.cfg.dt, delay_max=tel.delay_max,
+        )
+
+    def _breakdown(self, i: int) -> Optional[dict]:
+        """Lane ``i``'s harvested delay decomposition."""
+        if not self.provenance:
+            return None
+        win = self.wins[i]
+        n = max(win.prov_jobs, 1)
+        return {
+            "jobs": win.prov_jobs,
+            "bin_edges": np.linspace(0.0, win.breakdown_max, win.breakdown_bins + 1),
+            "hist": {c: h.copy() for c, h in win.prov_hist.items()},
+            "sum": dict(win.prov_sum),
+            "mean": {c: s / n for c, s in win.prov_sum.items()},
+        }
+
+    def runs(self) -> list[SteadyRun]:
+        """One ``SteadyRun`` per lane (pads dropped), in arrivals order."""
+        states = [rt.carry_state(c) for c in self.carry]
+        # every lane's final clock, counters and finish times: one host read
+        end = torch.stack([torch.cat([st.task_finish[0].double(), torch.stack([
+            st.t[0].double(), st.lost[0].double(), st.messages[0].double(),
+            st.probes[0].double()])]) for st in states]).cpu().numpy()
+        final_q = tlm.sketch_quantiles(rt.tree_join(torch.cat, self.sketch)).cpu().numpy()
+        out = []
+        for i, win in enumerate(self.wins):
+            tf = end[i, : win.T_cap].astype(np.float32)
+            t_end, lost, messages, probes = end[i, win.T_cap:]
+            t_end = float(np.float32(t_end))
+            in_window_done = int(np.sum((win._np["job"] < win.J_cap - 1) & (tf <= t_end)))
+            out.append(SteadyRun(
+                rule=self.name,
+                cfg=self.cfg,
+                quantile_targets=self.quantiles,
+                quantile_estimates=final_q[i],
+                series={k: np.asarray(v) for k, v in self.series[i].items()},
+                refills=self.refills[i],
+                delays=(np.asarray(win.retired_delays, np.float64)
+                        if self.collect_delays else None),
+                jobs_admitted=win.jobs_admitted,
+                jobs_completed=win.jobs_retired,
+                tasks_admitted=win.tasks_admitted,
+                tasks_completed=win.tasks_retired + in_window_done,
+                lost=int(lost),
+                messages=int(messages),
+                probes=int(probes),
+                rounds=self.rounds[i],
+                end_time=t_end,
+                state_bytes=state_nbytes(states[i], win._np, win.layout(), self.sketch[i]),
+                timeline=self._timeline(i),
+                breakdown=self._breakdown(i),
+                borrow_rounds=self.borrow[i],
+                segment_seconds=self.seg_s[i],
+                refill_seconds=self.refill_s[i],
+            ))
+        return out
+
+    def run(self) -> list[SteadyRun]:
+        """Segments and refills until every lane is done."""
+        while not self.done:
+            self.refill(self.segment())
+        return self.runs()
+
+
 def run_steady_state(
     rule: str,
     arrivals: ArrivalProcess,
     num_workers: int,
     *,
-    cfg: Optional[SimxConfig] = None,
-    window_jobs: int = 256,
-    window_tasks: Optional[int] = None,
-    rounds_per_refill: int = 64,
-    horizon: Optional[float] = None,
-    max_rounds: int = 2_000_000,
-    quantiles: tuple = tlm.DEFAULT_QUANTILES,
-    collect_delays: bool = True,
-    match_fn: rt.MatchFn | None = None,
-    use_kernel: bool = True,
-    num_gms: int = 8,
-    num_lms: int = 8,
-    dt: float = 0.05,
-    seed: int = 0,
-    orders: torch.Tensor | None = None,
-    draws: dict | None = None,
-    telemetry: tlm.TelemetryConfig | bool | None = None,
-    provenance: bool = False,
-    breakdown_bins: int = 32,
-    breakdown_max: float = 60.0,
     device: str | torch.device | None = None,
-    **cfg_kw,
+    **kw,
 ) -> SteadyRun:
     """Stream ``arrivals`` through ``rule`` until the stream drains, the
     ``horizon`` (simulated seconds) passes, or ``max_rounds`` trips.
 
     Works for every registered rule, on ``device`` (None: the CUDA card,
-    raising without one; tests pass ``"cpu"``).  ``window_jobs`` /
-    ``window_tasks`` size the ring buffer (defaults: 256 jobs, 16 tasks
-    each); ``rounds_per_refill`` is the segment length: the host reads the
-    device only at refills, so longer segments amortise more but retire
-    jobs (and admit backlogged arrivals) less promptly.  Extra keyword
-    arguments land on ``SimxConfig``; pass a prebuilt ``cfg`` to bypass
-    (its queue knobs must be pinned, see ``stream_config``).  ``seed``
-    seeds the per-job probe targets and rotations (numpy, as the
-    reference draws them) and, when megha's ``orders=`` / ``draws=`` are
-    not given, a ``torch.Generator`` for megha's GM orders (the reference
-    draws those with ``jax.random``; parity runs feed them in).
+    raising without one; tests pass ``"cpu"``).  Keywords (``_SteadyLoop``'s):
+    ``window_jobs`` / ``window_tasks`` size the ring buffer (defaults: 256
+    jobs, 16 tasks each); ``rounds_per_refill`` (64) is the segment length:
+    the host reads the device only at refills, so longer segments amortise
+    more but retire jobs (and admit backlogged arrivals) less promptly.
+    ``horizon``, ``max_rounds`` (2,000,000), ``quantiles``, ``num_gms`` /
+    ``num_lms`` (8), ``dt`` (0.05).  Extra keyword arguments land on
+    ``SimxConfig``; pass a prebuilt ``cfg`` to bypass (its queue knobs must
+    be pinned, see ``stream_config``).  ``seed`` (0) seeds the per-job probe
+    targets and rotations (numpy, as the reference draws them) and, when
+    megha's ``orders=`` / ``draws=`` are not given, a ``torch.Generator``
+    for megha's GM orders (the reference draws those with ``jax.random``;
+    parity runs feed them in).
 
     ``match_fn`` is every match of the rule (default: the kernel wrapper,
     or its plain version with ``use_kernel=False``); the sketch's
@@ -742,159 +1028,8 @@ def run_steady_state(
     ``provenance=True`` carries the per-task lifecycle arrays through every
     segment (remapped at refill) and harvests each retiring job's delay
     decomposition into bounded per-component histograms
-    (``breakdown_bins`` x ``breakdown_max``) on ``SteadyRun.breakdown``."""
-    name = rule.lower()
-    r = rt.get_rule(name)
-    dev = resolve_device(device)
-    rt.check_round_budget(max_rounds, "run_steady_state(max_rounds=...)")
-    if horizon is not None:
-        # the horizon is enforced in rounds via the int32 round clock, so
-        # it shares the same overflow budget
-        rt.check_round_budget(int(math.ceil(horizon / (dt if cfg is None else cfg.dt))),
-                              "run_steady_state(horizon=...)")
-    if window_tasks is None:
-        window_tasks = window_jobs * 16
-    if cfg is None:
-        cfg = stream_config(name, num_workers, window_tasks=window_tasks,
-                            num_gms=num_gms, num_lms=num_lms, dt=dt, **cfg_kw)
-    if telemetry is True:
-        telemetry = tlm.TelemetryConfig()
-    stride = 1
-    if telemetry is not None:
-        stride = min(telemetry.stride, rounds_per_refill)
-        while rounds_per_refill % stride:
-            stride -= 1
-    if match_fn is None:
-        match_fn = rt.default_match_fn(use_kernel)
-    win = _StreamWindow(
-        arrivals, cfg, name, window_jobs, window_tasks, seed, dev,
-        provenance=provenance, breakdown_bins=breakdown_bins, breakdown_max=breakdown_max,
-    )
-    win_tasks = win.tasks()
-    megha_orders = None
-    draws = rt.orders_as_draws(orders, draws)
-    if name == "megha":
-        megha_orders = rt.rule_draws(r, cfg, win_tasks, seed if draws is None else draws)["orders"]
-        megha_orders = megha_orders.to(dev)
-    elif draws is not None:
-        raise ValueError(f"{name} draws its per-job quantities at admission: pass no draws")
-    state = rt.batch_state(r.init(cfg, win_tasks))
-    prov = init_provenance(win.T_cap, dev, 1) if provenance else None
-    sketch = tlm.sketch_init(quantiles, device=dev)
-    seg = _segment_core(
-        name, cfg, rounds_per_refill, match_fn, megha_orders,
-        telemetry=telemetry, stride=stride, provenance=provenance,
-        absorb=p2.p2_absorb if use_kernel else tlm.sketch_absorb,
-    )
-    series: dict[str, list] = {
-        k: [] for k in (
-            "t", "utilization", "busy_util", "pending", "running",
-            "window_jobs", "admission_lag",
-        )
-    }
-    for q in quantiles:
-        series[f"q{q}"] = []
-    refills: list[dict] = []
-    tel_blocks: list[dict] = []
-    rounds = borrow_rounds = 0
-    seg_s = refill_s = 0.0
-    queues = r.has_queues
-    while True:
-        t0 = time.perf_counter()
-        carry = (state, prov) if provenance else state
-        carry, sketch, gauges, blocks, nb = seg(carry, win_tasks, win.layout(), sketch)
-        state, prov = carry if provenance else (carry, None)
-        # the refill's scalars, gauges and sketch quantiles: one host read
-        head = [state.probe_head.double()] if queues else []
-        scal = torch.cat([
-            state.t.double(), state.lost.double(),
-            gauges["utilization"].double()[None], gauges["pending"].double()[None],
-            gauges["running"].double()[None], *head,
-            tlm.sketch_quantiles(sketch).double(),
-        ]).cpu().numpy()
-        t1 = time.perf_counter()
-        borrow_rounds += nb
-        if telemetry is not None:
-            tel_blocks.append(blocks)
-        rounds += rounds_per_refill
-        t_now = float(np.float32(scal[0]))
-        lag = max(0.0, t_now - win.next_submit)
-        state, stats, prov = win.refill(
-            state, t_now, int(scal[1]), int(scal[5]) if queues else 0,
-            collect_delays=collect_delays, prov=prov)
-        refills.append(stats)
-        series["t"].append(stats["t"])
-        series["utilization"].append(float(np.float32(scal[2])))
-        series["busy_util"].append(
-            stats["busy"] / (cfg.num_workers * stats["span"]) if stats["span"] > 0 else 0.0)
-        series["pending"].append(int(scal[3]))
-        series["running"].append(int(scal[4]))
-        series["window_jobs"].append(stats["window_jobs"])
-        series["admission_lag"].append(lag)
-        qs = scal[6 if queues else 5:]
-        for i, q in enumerate(quantiles):
-            series[f"q{q}"].append(float(np.float32(qs[i])))
-        stop = (win.drained or (horizon is not None and t_now >= horizon)
-                or rounds >= max_rounds)
-        if not stop:
-            win_tasks = win.tasks()
-        refill_s += time.perf_counter() - t1
-        seg_s += t1 - t0
-        if stop:
-            break
-    end = torch.cat([state.task_finish[0].double(),
-                     torch.stack([state.t[0].double(), state.lost[0].double(),
-                                  state.messages[0].double(), state.probes[0].double()])]
-                    ).cpu().numpy()
-    tf, (t_end, lost, messages, probes) = end[: win.T_cap].astype(np.float32), end[win.T_cap:]
-    t_end = float(np.float32(t_end))
-    in_window_done = int(np.sum((win._np["job"] < win.J_cap - 1) & (tf <= t_end)))
-    timeline = None
-    if telemetry is not None and tel_blocks:
-        merged = {key: torch.cat([b[key][0] for b in tel_blocks]) for key in tel_blocks[0]}
-        t_axis = merged.pop("t", torch.zeros(0, dtype=torch.float32, device=dev))
-        # streamed delay histogram: retired jobs live on the host, so the
-        # exact delays (when collected) bin directly; otherwise empty
-        hist = np.zeros(telemetry.delay_bins, np.int32)
-        if collect_delays and win.retired_delays:
-            b = np.clip((np.asarray(win.retired_delays) / telemetry.bin_width).astype(int),
-                        0, telemetry.delay_bins - 1)
-            hist = np.bincount(b, minlength=telemetry.delay_bins).astype(np.int32)
-        timeline = tlm.Timeline(
-            t=t_axis, series=merged, delay_hist=torch.from_numpy(hist).to(dev),
-            stride=stride, dt=cfg.dt, delay_max=telemetry.delay_max,
-        )
-    breakdown = None
-    if provenance:
-        n = max(win.prov_jobs, 1)
-        breakdown = {
-            "jobs": win.prov_jobs,
-            "bin_edges": np.linspace(0.0, win.breakdown_max, win.breakdown_bins + 1),
-            "hist": {c: h.copy() for c, h in win.prov_hist.items()},
-            "sum": dict(win.prov_sum),
-            "mean": {c: s / n for c, s in win.prov_sum.items()},
-        }
-    return SteadyRun(
-        rule=name,
-        cfg=cfg,
-        quantile_targets=tuple(quantiles),
-        quantile_estimates=tlm.sketch_quantiles(sketch).cpu().numpy(),
-        series={k: np.asarray(v) for k, v in series.items()},
-        refills=refills,
-        delays=np.asarray(win.retired_delays, np.float64) if collect_delays else None,
-        jobs_admitted=win.jobs_admitted,
-        jobs_completed=win.jobs_retired,
-        tasks_admitted=win.tasks_admitted,
-        tasks_completed=win.tasks_retired + in_window_done,
-        lost=int(lost),
-        messages=int(messages),
-        probes=int(probes),
-        rounds=rounds,
-        end_time=t_end,
-        state_bytes=state_nbytes(state, win._np, win.layout(), sketch),
-        timeline=timeline,
-        breakdown=breakdown,
-        borrow_rounds=borrow_rounds,
-        segment_seconds=seg_s,
-        refill_seconds=refill_s,
-    )
+    (``breakdown_bins`` (32) x ``breakdown_max`` (60.0)) on
+    ``SteadyRun.breakdown``."""
+    (run,) = _SteadyLoop(rule, [arrivals], num_workers,
+                         devices=(resolve_device(device),), **kw).run()
+    return run

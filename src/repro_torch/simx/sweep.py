@@ -31,8 +31,8 @@ Sparrow and eagle grids are guarded by the reference's probe-memory
 pre-flight (``check_probe_memory``).  ``sweep_grid(provenance=True)``
 carries each point's per-task lifecycle arrays through the grid and adds
 the delay-breakdown columns ``mean_<component>`` (``fault_sweep_grid``
-has no such flag, as in the reference).  Left out, with its slice: the
-sharded executors (ROADMAP item 12).
+has no such flag, as in the reference).  The sharded executors, which
+split a grid's batch over a mesh of devices, are ``repro_torch.simx.shard``.
 """
 
 from __future__ import annotations

@@ -292,7 +292,9 @@ class QuantileSketch:
     """P² streaming quantile state: one 5-marker cell per target quantile.
     The first 5 observations fill ``buf`` (exact order statistics); the
     5th bootstraps the markers, after which the P² marker-adjustment
-    recursion runs."""
+    recursion runs.  A lane-batched sketch (``sketch_init(lanes=L)``, the
+    sharded steady state's) carries a leading ``[L]`` axis on every
+    tensor: L independent sketches absorbed together."""
 
     q: torch.Tensor = spec("float32[Q, 5]")    # marker heights
     n: torch.Tensor = spec("float32[Q, 5]")    # integer marker pos (1-based)
@@ -303,17 +305,19 @@ class QuantileSketch:
     targets: tuple = DEFAULT_QUANTILES
 
 
-def sketch_init(targets: tuple = DEFAULT_QUANTILES, device=None) -> QuantileSketch:
+def sketch_init(targets: tuple = DEFAULT_QUANTILES, device=None,
+                lanes: Optional[int] = None) -> QuantileSketch:
     """A fresh sketch for ``targets`` (quantiles in (0, 1)) on ``device``
     (None: the CPU, torch's default); marker positions start at their
     bootstrap values, so the update is defined while the warm-up buffer
-    fills."""
+    fills.  ``lanes`` gives every tensor a leading axis of that many
+    independent sketches."""
     if not targets or min(targets) <= 0.0 or max(targets) >= 1.0:
         raise ValueError("quantile targets must lie strictly in (0, 1)")
     fr = _marker_fracs(tuple(targets))
     qn = fr.shape[0]
     f32 = dict(dtype=torch.float32, device=device)
-    return QuantileSketch(
+    sk = QuantileSketch(
         q=torch.zeros((qn, 5), **f32),
         n=torch.arange(1.0, 6.0, **f32).expand(qn, 5).clone(),
         npd=torch.from_numpy((1.0 + 4.0 * fr).astype(np.float32)).to(device),
@@ -322,6 +326,7 @@ def sketch_init(targets: tuple = DEFAULT_QUANTILES, device=None) -> QuantileSket
         count=torch.zeros((), dtype=_I32, device=device),
         targets=tuple(targets),
     )
+    return sk if lanes is None else runtime.tree_join(torch.stack, [sk] * int(lanes))
 
 
 def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -406,10 +411,16 @@ def sketch_update(sk: QuantileSketch, x, valid) -> QuantileSketch:
 def sketch_absorb(sk: QuantileSketch, values, mask) -> QuantileSketch:
     """Absorb a batch: ``values[i]`` is observed iff ``mask[i]`` (the
     reference's ``lax.scan`` over the batch, as a loop).  The plain version
-    of the ``p2_sketch`` kernel: about 80 small ops per value."""
+    of the ``p2_sketch`` kernel: about 80 small ops per value.  A
+    lane-batched sketch takes ``[L, N]`` values and mask and absorbs each
+    lane's row into its own sketch, one lane after another."""
     dev = sk.q.device
     values = torch.as_tensor(values, dtype=torch.float32, device=dev)
     mask = torch.as_tensor(mask, device=dev)
+    if sk.count.dim() == 1:
+        return runtime.tree_join(torch.stack, [
+            sketch_absorb(runtime.tree_map(lambda x, i=i: x[i], sk), values[i], mask[i])
+            for i in range(sk.count.shape[0])])
     for x, v in zip(values, mask):
         sk = sketch_update(sk, x, v)
     return sk
@@ -417,14 +428,15 @@ def sketch_absorb(sk: QuantileSketch, values, mask) -> QuantileSketch:
 
 def sketch_quantiles(sk: QuantileSketch) -> torch.Tensor:
     """float32[Q] — the current estimates (P² center markers; exact order
-    statistics of the warm-up buffer below 5 observations; NaN with none)."""
-    cnt = sk.count
-    p = sk.dn[:, 2]                 # the targets as float32 (frac column p)
+    statistics of the warm-up buffer below 5 observations; NaN with none);
+    ``[L, Q]`` for a lane-batched sketch."""
+    cnt = sk.count[..., None]
+    p = sk.dn[..., 2]               # the targets as float32 (frac column p)
     # small-sample path: nearest rank on the sorted valid prefix of buf
     pad = torch.where(torch.arange(5, device=cnt.device) < cnt, sk.buf, float("inf"))
     rank = torch.clamp(torch.round(p * (cnt - 1)).to(_I32), 0, 4)
-    small = torch.sort(pad).values[rank.to(_I64)]
-    est = torch.where(cnt >= 5, sk.q[:, 2], small)
+    small = torch.gather(torch.sort(pad).values, -1, rank.to(_I64))
+    est = torch.where(cnt >= 5, sk.q[..., 2], small)
     return torch.where(cnt > 0, est, float("nan"))
 
 

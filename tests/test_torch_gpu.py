@@ -609,3 +609,90 @@ def test_stream_on_the_card_is_bitwise_plain_and_cpu(name):
         for k, v in cpu.timeline.series.items():
             assert np.array_equal(run.timeline.series[k].cpu().numpy(), v.numpy()), k
         assert run.breakdown["sum"] == cpu.breakdown["sum"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded steady state: the P² kernel's lane axis, a lane-batched curve
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes,n", [(1, 300), (4, 193), (3, 50)])
+def test_p2_kernel_lanes_are_bitwise_the_plain_version(lanes, n):
+    """The kernel over ``[L, N]`` values (one launch a call, two calls):
+    bitwise the plain lane-batched absorb and each lane's own 1-D kernel
+    call; lane 1 (when there is one) has no valid value and stays fresh;
+    a ``[1, N]`` call is bitwise the 1-D call."""
+    _need_card()
+    from repro_torch.kernels import p2
+    from repro_torch.simx import telemetry as tlm
+
+    rng = np.random.default_rng(lanes * 1000 + n)
+    vals = torch.from_numpy(rng.lognormal(0.0, 0.7, (lanes, n)).astype(np.float32)).cuda()
+    mask = torch.from_numpy(rng.random((lanes, n)) < 0.3).cuda()
+    if lanes > 1:
+        mask[1] = False
+    kern = plain = tlm.sketch_init(device="cuda", lanes=lanes)
+    alone = [tlm.sketch_init(device="cuda") for _ in range(lanes)]
+    for part in (slice(0, n // 2), slice(n // 2, n)):
+        v, m = vals[:, part].contiguous(), mask[:, part].contiguous()
+        before = p2.p2_absorb.launches
+        kern = p2.p2_absorb(kern, v, m)
+        assert p2.p2_absorb.launches == before + 1
+        plain = tlm.sketch_absorb(plain, v, m)
+        alone = [p2.p2_absorb(a, v[i], m[i]) for i, a in enumerate(alone)]
+        torch.cuda.synchronize()
+        for f in ("q", "n", "npd", "buf", "count"):
+            assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+            assert torch.equal(getattr(kern, f), torch.stack([getattr(a, f) for a in alone])), f
+    assert kern.count.tolist() == mask.sum(dim=1).tolist()
+    if lanes > 1:
+        fresh = tlm.sketch_init(device="cuda")
+        assert torch.equal(kern.q[1], fresh.q)
+    if lanes == 1:
+        one = p2.p2_absorb(tlm.sketch_init(device="cuda"), vals[0], mask[0])
+        assert torch.equal(kern.q[0], one.q)
+
+
+def _curve_run(name: str, device: str, use_kernel: bool = True):
+    """A small 3-lane curve (128 workers, the small window, loads 0.5 /
+    0.9 / 0.7 of different lengths) on a 2-entry mesh of ``device``;
+    returns (runs, match launches, P² launches)."""
+    from repro_torch.kernels import p2
+    from repro_torch.simx import shard
+    from repro_torch.workload.synth import PoissonArrivals, fixed_job_factory
+
+    arr = [PoissonArrivals(rate=ld * 128 / 8.0, job_factory=fixed_job_factory(8, 1.0),
+                           seed=7, num_jobs=n) for ld, n in ((0.5, 24), (0.9, 12), (0.7, 40))]
+    m0, p0 = match.match_ranks_batched.launches, p2.p2_absorb.launches
+    runs = shard.sharded_steady_state(
+        name, arr, 128, mesh=shard.Mesh((device,) * 2), window_jobs=8, window_tasks=80,
+        rounds_per_refill=16, num_gms=4, num_lms=4, use_kernel=use_kernel)
+    return runs, match.match_ranks_batched.launches - m0, p2.p2_absorb.launches - p0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow"])
+def test_lane_curve_on_the_card_is_bitwise_plain_and_cpu(name):
+    """The lane-batched curve on the card with the kernels, with their
+    plain versions, and on the CPU: every lane's delays, series, refills,
+    sketch estimates and counters bitwise; one P² launch a segment and
+    entry."""
+    _need_card()
+    card, launches, p2_launches = _curve_run(name, "cuda")
+    plain, plain_launches, plain_p2 = _curve_run(name, "cuda", use_kernel=False)
+    cpu, _, _ = _curve_run(name, "cpu")
+    assert launches > 0 and plain_launches == 0 and plain_p2 == 0
+    assert p2_launches == 2 * max(len(r.refills) for r in card)
+    assert len({r.rounds for r in cpu}) == 3
+    for runs in (card, plain):
+        for run, want in zip(runs, cpu):
+            assert np.array_equal(run.delays, want.delays)
+            for k in want.series:
+                assert np.array_equal(run.series[k], want.series[k], equal_nan=True), k
+            assert run.refills == want.refills
+            assert np.array_equal(run.quantile_estimates, want.quantile_estimates,
+                                  equal_nan=True)
+            for f in ("tasks_completed", "messages", "probes", "rounds", "end_time",
+                      "state_bytes", "borrow_rounds"):
+                assert getattr(run, f) == getattr(want, f), f

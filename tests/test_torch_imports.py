@@ -126,3 +126,15 @@ def test_walk_covers_the_stream_modules():
     assert new <= set(MODULES)
     assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
             for m in new} <= set(SOURCES)
+
+
+def test_walk_covers_the_shard_module():
+    """The walk covers the sharded executors and the modules their slice
+    touched: the lane-batched stream segment, the P² lane axis and the
+    rules' lane-stacked windows."""
+    new = {"repro_torch.simx.shard", "repro_torch.simx.stream", "repro_torch.simx.telemetry",
+           "repro_torch.kernels.p2", "repro_torch.simx.state"} | {
+        f"repro_torch.simx.{r}" for r in ("megha", "sparrow", "eagle", "pigeon", "oracle")}
+    assert new <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in new} <= set(SOURCES)
