@@ -15,7 +15,8 @@ sparrow and eagle at that size, the Fig. 4 availability grid (``fig4_sweep``'s
 4 crash fractions x 2 seeds) for the same five rules at that size, the
 streaming engine (``run_steady_state``) for the five rules at 50,000
 workers, the sharded executors (``simx/shard.py``: the grids on a mesh and
-the lane-batched load curve of every rule), eagle's
+the lane-batched load curve of every rule), the static analysis and the
+quickstart, eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
 200,000 requests, and the fast path's SDPS loop — and prints one JSON line
 per phase:
@@ -111,6 +112,18 @@ per phase:
                phase's, mean_<component> summing to mean, fault rework 0,
                inconsistency retries only for megha; each rule's oracle gap
                by component, grid walls against the sweep phase's
+  analysis     the static contracts and host syncs (``repro_torch.analysis``):
+               speccheck on the card; every rule's state on spec after 3
+               and 67 rounds of its Fig. 2 load-0.8 trace (seed 0), its
+               B = 6 grid state after 3 rounds and its 4-lane curve after
+               one segment (the lane axis stripped); the host syncs of
+               those 64 rounds and of one stream segment (the stream
+               phase's (b) configuration, the second segment) against the
+               pins ``sentinels.STEP_SYNCS_PER_ROUND`` and
+               ``SEGMENT_EXTRA_SYNCS`` (the ``gpu`` tests hold them too);
+               ``examples/torch_quickstart.py`` on the card, its
+               ``match_tasks`` kernel at 50,000 lanes bitwise its plain
+               version
   fault_provenance  megha on the fig4 phase's fraction-0.1 schedule (seed 0)
                as one run with provenance=True: requeues equal the lost
                tasks and match the Fig. 4 grid's point, fault rework above 0
@@ -162,12 +175,13 @@ found.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
 import json
 import subprocess
 import sys
 import time
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -177,6 +191,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.analysis import sentinels, speccheck  # noqa: E402
+from repro_torch.analysis.specs import check_state, dims_for  # noqa: E402
 from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
@@ -359,6 +375,12 @@ SHARD_PROFILE_SEGMENT = 5
 #: borrow, the oracle's and eagle's central match (n = W, wide), pigeon's
 #: groups (narrow), then the sparrow/eagle pick (n = 1, R = 16)
 SHARD_LANES = len(SHARD_RATES)
+#: phase analysis: each rule's Fig. 2 load-0.8 fixed trace runs
+#: ANALYSIS_STATE_ROUNDS rounds (state checked on spec), then
+#: ANALYSIS_ROUNDS more with their host syncs counted; the stream segment
+#: counted is the second of the stream phase's (b) configuration
+ANALYSIS_STATE_ROUNDS = 3
+ANALYSIS_ROUNDS = 64
 SHARD_SHAPES = (
     ("shard_megha_internal", SHARD_LANES * 8, GRID_WORKERS // 8),
     ("shard_megha_borrow", SHARD_LANES * 8, GRID_WORKERS),
@@ -654,23 +676,10 @@ def phase_megha_plain(wl, entry: dict) -> dict:
     return out
 
 
-def _sync_count(fn):
-    """``fn()`` under torch's sync-debug mode: (result, host syncs counted,
-    one warning per synchronising call)."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
-
-
 def phase_megha_sync(wl) -> dict:
     """Host synchronisations of one whole run, counted by torch's
-    sync-debug mode (``_sync_count``)."""
-    run, syncs = _sync_count(lambda: simulate_workload("megha", wl, WORKERS, dt=DT,
+    sync-debug mode (``sentinels.sync_count``)."""
+    run, syncs = sentinels.sync_count(lambda: simulate_workload("megha", wl, WORKERS, dt=DT,
                                                        device=DEVICE))
     rounds = int(run.state.rnd)
     chunks = -(-rounds // 256)
@@ -1103,9 +1112,9 @@ def phase_telemetry(wl) -> dict:
             launches.setdefault(kind, []).append(n)
             peak.setdefault(kind, mem)
         off, on, plain = runs["off"], runs["on"], runs["on_plain"]
-        _, syncs_off = _sync_count(lambda: simulate_workload(
+        _, syncs_off = sentinels.sync_count(lambda: simulate_workload(
             name, wl, WORKERS, dt=DT, device=DEVICE))
-        _, syncs_on = _sync_count(lambda: simulate_workload(
+        _, syncs_on = sentinels.sync_count(lambda: simulate_workload(
             name, wl, WORKERS, dt=DT, device=DEVICE, telemetry=cfg, provenance=True))
         rounds = int(off.state.rnd)
         tl = on.timeline
@@ -1260,6 +1269,134 @@ def phase_breakdown(swp: dict, plans: dict, draws: dict) -> dict:
         out["rules"][name]["oracle_gap"] = {
             k: (cols[name][k] - cols["oracle"][k]).tolist()
             for k in ["mean"] + [f"mean_{c}" for c in COMPONENTS]}
+    emit(out)
+    return out
+
+
+def _quickstart_module():
+    """``examples/torch_quickstart.py`` as a module (it is a script, not a
+    package member)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_analysis(plans: dict, draws: dict) -> dict:
+    """The static contracts and host syncs at the paper's size: (a)
+    ``speccheck.run_all`` on the card; (b) ``check_state`` on every rule's
+    state after 3 rounds of its Fig. 2 load-0.8 trace (seed 0) at 50,000
+    workers (megha 49,984) and after 64 more, on its B = 6 Fig. 2 grid state
+    (3 rounds) and on its 4-lane curve after one segment (state, stacked
+    windows and layouts, sketch, the lane axis stripped); (c) the host
+    syncs of those 64 rounds and of one stream segment (the second, stream
+    phase (b)'s configuration), each held to the pin
+    ``sentinels.STEP_SYNCS_PER_ROUND`` the gpu tests hold; (d) the
+    quickstart on the card, its kernel check included."""
+    t_phase = time.perf_counter()
+    out = dict(phase="analysis", rounds=ANALYSIS_ROUNDS, state_rounds=ANALYSIS_STATE_ROUNDS,
+               segment_rounds=STREAM_WINDOW["rounds_per_refill"],
+               pinned_syncs_per_round=dict(sentinels.STEP_SYNCS_PER_ROUND),
+               segment_extra_syncs=dict(sentinels.SEGMENT_EXTRA_SYNCS), rules={})
+
+    # (a) every speccheck check on the card
+    t0 = time.perf_counter()
+    rep = speccheck.run_all(device=DEVICE)
+    out["speccheck"] = dict(checks=[r["check"] for r in rep.results], failures=rep.failures,
+                            wall_s=time.perf_counter() - t0)
+    check(rep.failures == 0, f"speccheck on the card: {[r for r in rep.results if not r['ok']]}")
+
+    seg_rounds = STREAM_WINDOW["rounds_per_refill"]
+    home = torch.device(DEVICE)
+    for name in SWEEP_RULES:
+        t_rule = time.perf_counter()
+        rule, plan = runtime.get_rule(name), plans[name]
+        pin = sentinels.STEP_SYNCS_PER_ROUND[name]
+        dims = dims_for(plan.cfg, plan.tasks)
+        # (b, c) one point of the Fig. 2 grid: load 0.8, seed 0
+        tasks = plan.tasks.replace(submit=plan.submit_grid[-1],
+                                   job_submit=plan.job_submit_grid[-1])
+        step = rule.build_step(plan.cfg, tasks, {k: v[0] for k, v in draws[name].items()})
+        state = runtime.batch_state(rule.init(plan.cfg, tasks))
+        state = runtime.scan_rounds(step, state, ANALYSIS_STATE_ROUNDS)
+        check_state(state, dict(dims), lead=("B",), where=f"{name} round {ANALYSIS_STATE_ROUNDS}")
+        torch.cuda.synchronize()
+        match.match_ranks_batched.launches = 0
+        borrow = getattr(step, "borrow_rounds", 0)
+        with sentinels.count_syncs() as fixed:
+            state = runtime.scan_rounds(step, state, ANALYSIS_ROUNDS)
+            torch.cuda.synchronize()
+        launches = match.match_ranks_batched.launches
+        borrow = getattr(step, "borrow_rounds", 0) - borrow
+        last = ANALYSIS_STATE_ROUNDS + ANALYSIS_ROUNDS
+        check_state(state, dict(dims), lead=("B",), where=f"{name} round {last}")
+        # (b) the B = 6 grid state after 3 rounds
+        g_state, _, _ = sweep.grid_state(
+            plan.name, plan.cfg, plan.tasks, plan.submit_grid, plan.job_submit_grid,
+            plan.seeds, ANALYSIS_STATE_ROUNDS, draws=draws[name])
+        check_state(g_state, dict(dims, B=SWEEP_POINTS), lead=("B",), where=f"{name} grid")
+        del g_state
+        # (c) one stream segment: the second, after a refill
+        loop = stream._SteadyLoop(name, [_stream_arrivals()], WORKERS, devices=(home,), dt=DT,
+                                  horizon=STREAM_HORIZON, **STREAM_WINDOW)
+        loop.refill(loop.segment())
+        torch.cuda.synchronize()
+        with sentinels.count_syncs() as segment:
+            seg = loop.segment()
+        sdims = dict(W=loop.cfg.num_workers, G=loop.cfg.num_gms, L=loop.cfg.num_lms,
+                     NG=loop.cfg.num_groups, T=loop.wins[0].T_cap, J=loop.wins[0].J_cap)
+        check_state(seg["state"], dict(sdims), lead=("B",), where=f"{name} stream")
+        del loop, seg
+        # (b) the 4-lane curve after one segment, the lane axis stripped
+        curve = stream._SteadyLoop(
+            name, [_shard_arrivals(r) for r in SHARD_RATES], WORKERS,
+            devices=shard.sweep_mesh(device=DEVICE), entry="sharded_steady_state", dt=DT,
+            horizon=STREAM_HORIZON, **STREAM_WINDOW)
+        seg = curve.segment()
+        lane = ("lanes",)
+        ldims = dict(sdims, lanes=SHARD_LANES)
+        check_state(seg["state"], dict(ldims), lead=lane, where=f"{name} curve state")
+        check_state(stream._stack_tasks(curve.wins, home), dict(ldims), lead=lane,
+                    where=f"{name} curve windows")
+        if curve.wins[0].layout() is not None:
+            check_state(runtime.tree_join(torch.stack, [w.layout() for w in curve.wins]),
+                        dict(ldims), lead=lane, where=f"{name} curve layouts")
+        check_state(seg["sketch"], {"lanes": SHARD_LANES}, lead=lane,
+                    where=f"{name} curve sketch")
+        del curve, seg
+        r = dict(
+            workers=plan.cfg.num_workers, fixed_rounds=ANALYSIS_ROUNDS,
+            fixed_syncs=fixed.count, fixed_syncs_per_round=fixed.count / ANALYSIS_ROUNDS,
+            fixed_kernel_launches=launches, fixed_borrow_rounds=borrow,
+            segment_rounds=seg_rounds,
+            fixed_sync_sites=dict(fixed.sites), segment_syncs=segment.count,
+            segment_syncs_per_round=segment.count / seg_rounds,
+            segment_sync_sites=dict(segment.sites),
+            pinned_syncs_per_round=pin, states_on_spec=[
+                f"round {ANALYSIS_STATE_ROUNDS}", f"round {last}", "grid B=6",
+                "stream segment", "4-lane curve"],
+            wall_s=time.perf_counter() - t_rule)
+        check(fixed.count <= pin * ANALYSIS_ROUNDS,
+              f"{name}: {fixed.count} host syncs in {ANALYSIS_ROUNDS} rounds, pinned "
+              f"at {pin} a round")
+        extra = sentinels.SEGMENT_EXTRA_SYNCS[name]
+        check(segment.count <= pin * seg_rounds + extra,
+              f"{name}: {segment.count} host syncs in a {seg_rounds}-round segment, pinned "
+              f"at {pin} a round + {extra}")
+        check(launches == SWEEP_PER_ROUND[name] * ANALYSIS_ROUNDS + borrow,
+              f"{name}: one kernel launch per match")
+        out["rules"][name] = r
+
+    # (d) the quickstart on the card
+    t0 = time.perf_counter()
+    qs = _quickstart_module().main(device=DEVICE)
+    out["quickstart"] = dict(kernel=qs["kernel"], consistency=qs["consistency"],
+                             sweep_p50={k: float(v["p50"][0, 0]) for k, v in qs["sweep"].items()},
+                             wall_s=time.perf_counter() - t0)
+    check(qs["kernel"]["kernel_launches"] == 1 and qs["kernel"]["equal"],
+          "the quickstart's match_tasks kernel launched once and equals its plain version")
+    out["wall_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -2034,27 +2171,20 @@ def _serve_engine_run(use_kernel: bool, sync_debug: bool = False):
     Returns (engine, wall seconds, host syncs counted by torch or None)."""
     eng = MeghaServeEngine(**SERVE, use_kernel=use_kernel, device=DEVICE)
     rng = np.random.default_rng(0)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.synchronize()
-        if sync_debug:
-            torch.cuda.set_sync_debug_mode("warn")
+    torch.cuda.synchronize()
+    with (sentinels.count_syncs() if sync_debug else contextlib.nullcontext()) as counter:
         t0 = time.perf_counter()
-        try:
-            rid = 0
-            while rid < SERVE_REQUESTS:
-                n = min(int(rng.poisson(SERVE_ARRIVAL)), SERVE_REQUESTS - rid)
-                eng.submit([Request(rid + i, gen_len=1 + int(rng.poisson(SERVE_MEAN_GEN)))
-                            for i in range(n)])
-                rid += n
-                eng.tick()
-            eng.run_until_drained()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+        rid = 0
+        while rid < SERVE_REQUESTS:
+            n = min(int(rng.poisson(SERVE_ARRIVAL)), SERVE_REQUESTS - rid)
+            eng.submit([Request(rid + i, gen_len=1 + int(rng.poisson(SERVE_MEAN_GEN)))
+                        for i in range(n)])
+            rid += n
+            eng.tick()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    syncs = sum("synchroniz" in str(w.message) for w in caught) if sync_debug else None
-    return eng, wall, syncs
+    return eng, wall, counter.count if sync_debug else None
 
 
 def _engine_state(eng) -> dict:
@@ -2317,6 +2447,7 @@ def main() -> int:
     sweep_plans, sweep_draws = swp.pop("_plans"), swp.pop("_draws")
     phase_sweep_profile(sweep_plans)
     brk = phase_breakdown(swp, sweep_plans, sweep_draws)
+    ana = phase_analysis(sweep_plans, sweep_draws)
     del sweep_plans, sweep_draws
     fig4 = phase_fig4()
     fig4_plans = fig4.pop("_plans")
@@ -2353,6 +2484,8 @@ def main() -> int:
             breakdown=sum(r["kernel_launches"] for r in brk["rules"].values()),
             breakdown_by_rule={k: r["kernel_launches"] for k, r in brk["rules"].items()},
             fault_provenance=fprov["kernel_launches"],
+            analysis_fixed_by_rule={k: r["fixed_kernel_launches"]
+                                    for k, r in ana["rules"].items()},
             stream_by_rule={k: r["kernel_launches"] for k, r in strm["rules"].items()},
             shard=dict(
                 fig2_by_rule={k: r["kernel_launches"] for k, r in shd["fig2"].items()},
@@ -2380,7 +2513,8 @@ def main() -> int:
         launches=serve["kernel_launches"]["match_tasks"]
         + serve["kernel_launches"]["match_ranks"],
         launches_by_path=dict(serve=serve["kernel_launches"]["match_tasks"],
-                              sdps=sdps["kernel_launches"]),
+                              sdps=sdps["kernel_launches"],
+                              quickstart=ana["quickstart"]["kernel"]["kernel_launches"]),
         max_abs_err=max(single["sweep_err"], *(r["max_abs_err"] for r in single["rows"])),
         shape=fleet["shape"], ms=fleet["ms"], plain_ms=fleet["plain_ms"],
         bound_ms=fleet["bound_ms"], bound_by=fleet["bound_by"],

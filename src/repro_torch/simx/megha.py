@@ -344,10 +344,10 @@ def make_megha_step(
             extra += (stale_pad,)
 
         # -- 4. borrow match (full [B, G, W] pass, only when queues outrun
-        #       the internal views): a host read of the any-point flag -----
+        #       the views): the deliberate host read, skipping the pass ---
         placed_i = torch.sum(proposed_i, dim=-1, dtype=torch.int32)
         need_b = torch.any(nq > placed_i, dim=-1)                 # bool[B]
-        if bool(torch.any(need_b)):
+        if bool(torch.any(need_b)):  # simxlint: disable=TH001 (the reference's lax.cond)
             step.borrow_rounds += 1
             if step.point_borrow_rounds is None:
                 step.point_borrow_rounds = torch.zeros(B, dtype=torch.int32, device=dev)

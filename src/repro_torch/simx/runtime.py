@@ -371,6 +371,26 @@ DispatchFn = Callable[..., dict]
 TELEMETRY_CORE_COUNTERS = ("messages", "probes", "inconsistencies", "lost")
 TELEMETRY_QUEUE_COUNTERS = ("res_overflow", "probe_lag")
 
+#: ``CoreState`` fields the runtime advances itself in ``compose_step``:
+#: the round clock and the crash-loss counter.  A dispatch stage's update
+#: dict never holds them (the runtime would fold the rule's write and then
+#: advance it again); ``repro_torch.analysis.simxlint``'s SC101 reads this.
+RUNTIME_OWNED_FIELDS = ("t", "rnd", "lost")
+
+#: The stages ``compose_step`` runs, in order, with each stage's owner and
+#: the state fields it writes (the reference's table; ``metrics`` is the
+#: docstring's stage 6, advance).  Provenance (stage 5) writes no state
+#: field: it advances the carry's ``Provenance`` beside the state, so it
+#: has no row.  Data only: the linter reads it, nothing runs from it.
+STAGE_TABLE = (
+    # (stage,     owner,     writes)
+    ("faults",    "runtime", ("task_finish", "worker_finish", "lost")),
+    ("complete",  "runtime", ()),            # masks only
+    ("dispatch",  "rule",    "any-but-runtime-owned"),
+    ("telemetry", "runtime", ()),            # derives deltas, writes nothing
+    ("metrics",   "runtime", ("t", "rnd", "lost")),
+)
+
 #: Round-index budget: ``rnd`` is int32, so a run may advance at most this
 #: many rounds before the counter would wrap.
 MAX_ROUND_BUDGET = 2**31 - 2**20

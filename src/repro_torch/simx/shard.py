@@ -30,9 +30,10 @@ this module splits that batch over a 1-D mesh of devices:
     tail-latency-vs-load curve as one program.
 
 **Executors.**  The reference runs each slice under ``jax.pmap``; here an
-entry's slice is a batched state on its device, and the host drives the
-entries one after another (on several cards their device work overlaps
-only between the host reads of a round, such as megha's borrow check).
+entry's slice is a batched state on its device, and one host thread runs
+the entries one after another: ``_batched_runner`` runs an entry's whole
+program (every round, with its host reads, such as megha's borrow check)
+before the next entry's, so on several cards nothing overlaps.
 A mesh may name one device several times (``Mesh(("cpu",) * 8)``): the
 pad / split / gather path then runs on one CPU or one card, as the
 reference's tests force several CPU devices with

@@ -15,7 +15,7 @@ from repro_torch.workload.synth import (
     synthetic_trace,
     yahoo_like_trace,
 )
-from repro_torch.workload.traces import Job, Task, Workload
+from repro_torch.workload.traces import Job, Task, Workload, load_workload, save_workload
 
 __all__ = [
     "ArrivalProcess",
@@ -31,6 +31,8 @@ __all__ = [
     "downsampled",
     "fixed_job_factory",
     "google_like_trace",
+    "load_workload",
+    "save_workload",
     "synthetic_trace",
     "yahoo_like_trace",
 ]

@@ -1,7 +1,8 @@
 """Workload model: jobs, tasks, and trace containers.
 
-A copy of ``Job``, ``Task`` and ``Workload`` from ``repro/workload/traces.py``
-(the port imports nothing of the reference).  Mirrors the paper's workload
+A copy of ``Job``, ``Task``, ``Workload``, ``load_workload`` and
+``save_workload`` from ``repro/workload/traces.py`` (the port imports
+nothing of the reference); the two packages read each other's trace files.  Mirrors the paper's workload
 abstraction (§2.1, Table 1): a job is a bag of tasks, each task needs one
 scheduling unit (single-resource DC, §4.1), a job completes when its last
 task completes (Eq. 1).
@@ -9,7 +10,10 @@ task completes (Eq. 1).
 
 from __future__ import annotations
 
+import csv
+import json
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Iterator, Optional, Sequence
 
 
@@ -87,3 +91,49 @@ class Workload:
             "mean_iat": sum(iats) / max(1, len(iats)) if iats else 0.0,
             "demand_resource_seconds": self.makespan_demand,
         }
+
+
+def load_workload(path: str | Path) -> Workload:
+    """Load a workload from a CSV (``submit_time,dur1 dur2 ...``) or JSON file.
+
+    The CSV format matches the Sparrow/Eagle simulator trace layout: one job
+    per line, first column submission time, remaining a space-separated task
+    duration list.
+    """
+    path = Path(path)
+    jobs: list[Job] = []
+    if path.suffix == ".json":
+        data = json.loads(path.read_text())
+        for i, j in enumerate(data["jobs"]):
+            jobs.append(
+                Job(
+                    job_id=i,
+                    submit_time=float(j["submit_time"]),
+                    durations=[float(d) for d in j["durations"]],
+                    estimated_duration=j.get("estimated_duration"),
+                )
+            )
+    else:
+        with path.open() as f:
+            for i, row in enumerate(csv.reader(f)):
+                if not row:
+                    continue
+                submit = float(row[0])
+                durs = [float(x) for x in row[1].split()] if len(row) > 1 else []
+                jobs.append(Job(job_id=i, submit_time=submit, durations=durs))
+    return Workload(name=path.stem, jobs=jobs)
+
+
+def save_workload(wl: Workload, path: str | Path) -> None:
+    path = Path(path)
+    payload = {
+        "jobs": [
+            {
+                "submit_time": j.submit_time,
+                "durations": list(j.durations),
+                "estimated_duration": j.estimated_duration,
+            }
+            for j in wl.sorted_jobs()
+        ]
+    }
+    path.write_text(json.dumps(payload))

@@ -696,3 +696,60 @@ def test_lane_curve_on_the_card_is_bitwise_plain_and_cpu(name):
             for f in ("tasks_completed", "messages", "probes", "rounds", "end_time",
                       "state_bytes", "borrow_rounds"):
                 assert getattr(run, f) == getattr(want, f), f
+
+
+# ---------------------------------------------------------------------------
+# host syncs per round, pinned (``repro_torch.analysis.sentinels``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_host_syncs_per_round_are_pinned(name):
+    """A short fixed-trace run on the card (the step built and one round
+    run beforehand, so the kernels are built and loaded) makes exactly the
+    pinned host syncs a round: any new host read in a step fails here."""
+    _need_card()
+    from repro_torch.analysis.sentinels import STEP_SYNCS_PER_ROUND, count_syncs
+    from repro_torch.simx.state import export_workload
+
+    cfg = SimxConfig(num_workers=256, num_gms=4, num_lms=4, heartbeat_interval=1.0)
+    wl = synthetic_trace(num_jobs=20, tasks_per_job=32, load=0.8, num_workers=256, seed=7)
+    tasks = export_workload(wl, "cuda")
+    rule = runtime.get_rule(name)
+    step = rule.build_step(cfg, tasks, runtime.rule_draws(rule, cfg, tasks, 0))
+    state = step(runtime.batch_state(rule.init(cfg, tasks)))
+    torch.cuda.synchronize()
+    rounds = 16
+    with count_syncs() as c:
+        state = runtime.scan_rounds(step, state, rounds)
+    print(f"{name}: {c.count} host syncs in {rounds} rounds")
+    assert c.count == STEP_SYNCS_PER_ROUND[name] * rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["megha", "sparrow", "eagle", "pigeon", "oracle"])
+def test_stream_segment_host_syncs_are_pinned(name):
+    """One stream segment after a refill (``stream._SteadyLoop.segment``)
+    makes the pinned syncs of its rounds plus the segment's own
+    (``SEGMENT_EXTRA_SYNCS``: the window's upload, the step factory's
+    uploads and the one scalar read)."""
+    _need_card()
+    from repro_torch.analysis.sentinels import (
+        SEGMENT_EXTRA_SYNCS,
+        STEP_SYNCS_PER_ROUND,
+        count_syncs,
+    )
+    from repro_torch.simx import stream
+    from repro_torch.workload.synth import PoissonArrivals, fixed_job_factory
+
+    arr = PoissonArrivals(rate=12.8, job_factory=fixed_job_factory(8, 1.0), seed=7)
+    loop = stream._SteadyLoop(name, [arr], 128, devices=(torch.device("cuda"),),
+                              window_jobs=48, window_tasks=384, rounds_per_refill=16,
+                              horizon=20.0, num_gms=4, num_lms=4)
+    loop.refill(loop.segment())
+    torch.cuda.synchronize()
+    with count_syncs() as c:
+        loop.segment()
+    print(f"{name}: {c.count} host syncs in a 16-round segment")
+    assert c.count == STEP_SYNCS_PER_ROUND[name] * 16 + SEGMENT_EXTRA_SYNCS[name]

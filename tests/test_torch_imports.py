@@ -12,7 +12,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: the port's examples (``examples/torch_*.py``) stand alone too
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts).removesuffix(".__init__")
     for p in PORT.rglob("*.py")
@@ -26,10 +28,14 @@ def _forbidden(name: str) -> bool:
 
 def test_fresh_interpreter_imports_no_jax_or_repro():
     code = (
-        "import importlib, json, sys\n"
+        "import importlib, importlib.util, json, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
         f"for m in {MODULES!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
+        f"for p in {[str(p) for p in EXAMPLES]!r}:\n"
+        "    s = importlib.util.spec_from_file_location(p.split('/')[-1][:-3], p)\n"
+        "    sys.modules[s.name] = importlib.util.module_from_spec(s)\n"
+        "    s.loader.exec_module(sys.modules[s.name])\n"
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -39,6 +45,7 @@ def test_fresh_interpreter_imports_no_jax_or_repro():
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "chip_smoke" in loaded and "repro_torch.sim.simulator" in loaded
+    assert "repro_torch.analysis.speccheck" in loaded and "torch_quickstart" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -138,3 +145,16 @@ def test_walk_covers_the_shard_module():
     assert new <= set(MODULES)
     assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
             for m in new} <= set(SOURCES)
+
+
+def test_walk_covers_the_analysis_modules_and_examples():
+    """The walk covers the static analysis (specs, linter, speccheck,
+    sentinels), the trace files and the port's quickstart."""
+    new = {f"repro_torch.analysis.{m}" for m in ("specs", "simxlint", "speccheck",
+                                                 "sentinels")} | {
+        "repro_torch.analysis", "repro_torch.workload.traces"}
+    assert new <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in new - {"repro_torch.analysis"}} <= set(SOURCES)
+    assert ROOT / "examples" / "torch_quickstart.py" in SOURCES
+    assert ROOT / "examples" / "quickstart.py" not in SOURCES
