@@ -18,8 +18,8 @@ workers, the sharded executors (``simx/shard.py``: the grids on a mesh and
 the lane-batched load curve of every rule), the static analysis and the
 quickstart, eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
-200,000 requests, and the fast path's SDPS loop — and prints one JSON line
-per phase:
+200,000 requests, real-decode serving at qwen15_05b's full width, and the
+fast path's SDPS loop — and prints one JSON line per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
                (match.cu, match_tasks.cu, p2_sketch.cu)
@@ -135,6 +135,28 @@ per phase:
                kernel and plain engines in turns: identical stats and final
                state, every request completed, gm_round calls == kernel
                launches, host syncs per tick, wall, memory
+  lm_serve     real-decode serving at qwen15_05b's full width (24 layers,
+               d_model 1,024, bf16 compute): (a) the launcher's
+               --real-decode loop (2 frontends x 2 pods x 128 slots,
+               Poisson(16) requests a tick to 8,192), one pod's 128 lanes
+               decoding 512 ticks against a 512-token KV cache
+               (ModelRunner): every request completed, every logit finite,
+               no host sync in a decode tick, match_tasks launches = gm_round
+               calls, the same engine on the plain match with identical
+               stats and final state, decode ms per step by CUDA events,
+               lane-steps per second (every lane decodes every tick, as in
+               the reference) and the served tokens of occupied lanes, the
+               wall split between engine and decode, peak memory; (b)
+               16 decode steps under torch.profiler: device busy and idle
+               share, ops per step, the top kernels and torch ops, the
+               step's byte and operations bounds; (e) two of the runner's
+               ticks from position 500 (all 128 lanes, its bf16 weights and
+               cache) against the same on the CPU, logits and written cache
+               rows within 0.02 x max(1, max |value|); (c) decode against the
+               teacher-forced forward at full width in fp32 for qwen15_05b
+               and llama3_8b (weights drawn on the card), within 2e-4 x
+               max(1, max |logit|); (d) two steps of (c)'s qwen on the card
+               against the CPU, same bound
   serve_profile  a steady window of serving ticks under torch.profiler:
                device busy and idle share, host time in torch ops; and the
                SDPS loop's gm_round likewise
@@ -167,10 +189,10 @@ per phase:
                long jobs at 200 workers)
   kernels      one summary line per kernel
 
-then the card's name and power limit (``nvidia-smi``) and, as the last
-line, the device line.  Any failed check raises, and the script exits
-non-zero without printing the device line; it also fails when no card is
-found.
+then the card's name and power limit (``nvidia-smi``), the script's wall
+(``total``) and, as the last line, the device line. Any failed check
+raises, and the script exits non-zero without printing the device line; it
+also fails when no card is found.
 """
 
 from __future__ import annotations
@@ -194,7 +216,13 @@ import torch  # noqa: E402
 from repro_torch.analysis import sentinels, speccheck  # noqa: E402
 from repro_torch.analysis.specs import check_state, dims_for  # noqa: E402
 from repro_torch.core import fastpath as FP  # noqa: E402
+from repro_torch.configs import get_config as lm_config  # noqa: E402
 from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
+from repro_torch.launch.serve import ModelRunner  # noqa: E402
+from repro_torch.models import decode as lm_decode  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models.schema import map_tree, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
 from repro_torch.simx import convert, runtime, shard, simulate_workload, stream, sweep  # noqa: E402
@@ -224,7 +252,8 @@ DT = 0.05
 GRID_WORKERS = 49_984
 DEVICE = "cuda"
 
-SWEEP_WIDTHS = (1, 100, 128, 1024, 8192, 50_000)
+#: 256 is the real-decode serving fleet of phase lm_serve (2 pods x 128)
+SWEEP_WIDTHS = (1, 100, 128, 256, 1024, 8192, 50_000)
 SWEEP_DTYPES = (torch.int8, torch.int32, torch.bool)
 #: the batched kernel's sweep adds narrow rows that share a thread's 8
 #: lanes (7) or straddle threads (33), the edges of the narrow design
@@ -335,6 +364,43 @@ SINGLE_SHAPES = (
     ("bench_kernels", 65536),
 )
 SDPS_WORKERS = (10_000, 50_000)
+
+#: Phase lm_serve: the launcher's --real-decode loop at qwen15_05b's full
+#: width (bf16 compute, 24 layers, d_model 1,024, vocab padded to 152,064):
+#: 2 frontends over 2 pods of 128 slots, Poisson(16) requests a tick of
+#: 1 + Poisson(12) decode ticks, to 8,192 requests (517 ticks of arrivals
+#: from numpy seed 0); one pod's 128 lanes decode one token a tick against a
+#: 512-token KV cache, so the runner reaches max_len: 512 decode ticks
+LM_ARCH = "qwen15_05b"
+LM_SERVE = dict(num_frontends=2, num_pods=2, slots_per_pod=128, max_batch=256)
+LM_REQUESTS = 8192
+LM_ARRIVAL = 16.0
+LM_MEAN_GEN = 12
+LM_MAX_LEN = 512
+#: the decode steps timed by CUDA events start here (the first are warm-up)
+LM_STEADY_FROM = 16
+#: (b) profiles this many steps from this position (a step attends over the
+#: whole cache length whatever its position, so any position does)
+LM_PROFILE_STEPS = 16
+LM_PROFILE_POS = 256
+#: (c) decode against the teacher-forced forward at full width, fp32
+#: compute, B = 2, T = 8; (d) the card against the CPU, 2 steps of qwen;
+#: (e) the runner's own bf16 weights and cache, all 128 lanes, 2 ticks
+#: from position 500 on the card and on the CPU
+LM_CHECK_ARCHS = ("qwen15_05b", "llama3_8b")
+LM_CHECK_BATCH = 2
+LM_CHECK_STEPS = 8
+LM_CPU_STEPS = 2
+LM_LATE_POS = 500
+#: the reference's own decode bound (tests/test_decode_consistency.py),
+#: times max(1, max |logit|)
+LM_BOUND = 2e-4
+#: the bf16 bound of the CPU tests and the gpu test of bf16 decode (card
+#: against CPU), times max(1, max |value|)
+LM_BF16_BOUND = 0.02
+#: H100 SXM dense peaks (NVIDIA data sheet) for the decode step's
+#: operations bound: bf16 on the tensor cores
+BF16_OPS_PER_S = 989e12
 
 #: The streaming engine (``stream.run_steady_state``).  (a) replays the
 #: megha phase's trace through a window of its full size; (b) streams
@@ -2406,6 +2472,321 @@ def phase_sdps() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase lm_serve: real-decode serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _lm_submit(eng, rng, rid: int) -> int:
+    """One tick's Poisson arrivals of the launcher's loop; the next rid."""
+    n = min(int(rng.poisson(LM_ARRIVAL)), LM_REQUESTS - rid)
+    eng.submit([Request(rid + i, gen_len=1 + int(rng.poisson(LM_MEAN_GEN)))
+                for i in range(n)])
+    return rid + n
+
+
+def _lm_serve_loop(runner: ModelRunner) -> dict:
+    """``launch/serve.py``'s loop with ``--real-decode``: Poisson arrivals
+    from the numpy seed, an engine tick, then a decode tick.  Each decode
+    tick is bracketed by CUDA events and its host syncs counted, and then
+    the host waits for the card, so that the engine's host reads do not
+    absorb the decode's device time in the wall split.
+
+    As in the reference, the decode does not follow the placement: every
+    lane decodes on every tick.  The lanes that hold a request in that tick
+    (the runner's pod, slots 0 to lanes - 1: those running after the
+    engine's tick and those it completed) are counted on the host."""
+    eng = MeghaServeEngine(**LM_SERVE, device=DEVICE)
+    rng = np.random.default_rng(0)
+    finite = torch.ones((), dtype=torch.bool, device=DEVICE)
+    events, syncs, engine_s, decode_s, occupied = [], 0, 0.0, 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rid = 0
+    while rid < LM_REQUESTS:
+        rid = _lm_submit(eng, rng, rid)
+        t1 = time.perf_counter()
+        done = eng.tick()
+        t2 = time.perf_counter()
+        decoding = runner.pos < runner.max_len
+        if decoding:
+            occupied += sum(s < runner.slots for s in eng.running) \
+                + sum(r.slot < runner.slots for r in done)
+        if decoding:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        with sentinels.count_syncs() as c:
+            runner.tick()
+        syncs += c.count
+        if decoding:
+            ev[1].record()
+            events.append(ev)
+            finite &= torch.isfinite(runner.logits).all()
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        engine_s += t2 - t1
+        decode_s += t3 - t2
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    return dict(eng=eng, stats=stats, wall=wall, engine_s=engine_s, decode_s=decode_s,
+                syncs=syncs, step_ms=step_ms, finite=bool(finite),
+                occupied_lane_steps=occupied)
+
+
+def _lm_plain_engine() -> MeghaServeEngine:
+    """The loop's engine alone on the plain match (the decode does not touch
+    the engine): the same arrivals from numpy seed 0, then the drain."""
+    eng = MeghaServeEngine(**LM_SERVE, use_kernel=False, device=DEVICE)
+    rng = np.random.default_rng(0)
+    rid = 0
+    while rid < LM_REQUESTS:
+        rid = _lm_submit(eng, rng, rid)
+        eng.tick()
+    eng.run_until_drained()
+    return eng
+
+
+def _lm_step_bound(runner: ModelRunner) -> dict:
+    """The least time a decode step of ``runner`` can take on the card: the
+    bytes it must move (the compute-dtype weights it reads, the whole KV
+    cache it attends over, the fp32 logits it writes) over the data sheet's
+    HBM rate, against its operations (the products at the tensor cores'
+    bf16 peak, the fp32 scores and unembedding at the fp32 peak)."""
+    cfg, b = runner.cfg, runner.slots
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(runner.weights))
+    cache = sum(x.numel() * x.element_size() for x in runner.cache.values())
+    logits = b * cfg.padded_vocab * 4
+    t = runner.cache["k"].shape[2]
+    per_layer = 2 * cfg.d_model * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim_eff \
+        + 2 * cfg.num_heads * cfg.head_dim_eff * cfg.d_model \
+        + 2 * cfg.d_model * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+    bf16_ops = b * cfg.num_layers * per_layer
+    scores = 2 * b * cfg.num_layers * cfg.num_heads * t * cfg.head_dim_eff
+    fp32_ops = scores + 2 * b * cfg.d_model * cfg.padded_vocab
+    pv_ops = scores  # probabilities by values, bf16
+    bytes_ms = (weights + cache + logits) / HBM_BYTES_PER_S * 1e3
+    ops_ms = ((bf16_ops + pv_ops) / BF16_OPS_PER_S + fp32_ops / SCALAR_OPS_PER_S) * 1e3
+    return dict(weight_bytes=weights, cache_bytes=cache, logit_bytes=logits,
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                hbm_rate="data sheet, 3.35 TB/s")
+
+
+def _lm_profile(runner: ModelRunner) -> dict:
+    """(b): LM_PROFILE_STEPS decode steps from LM_PROFILE_POS under
+    torch.profiler (two warm steps first), and the same steps timed
+    without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def steps(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            runner.tick()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    runner.pos = LM_PROFILE_POS
+    steps(2)
+    wall_ms = steps(LM_PROFILE_STEPS)
+    runner.pos = LM_PROFILE_POS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = steps(LM_PROFILE_STEPS)
+    busy_us, spans, by_name = _device_busy(prof)
+    busy_ms = busy_us / 1e3 / LM_PROFILE_STEPS
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    # the torch ops that launched that device time (self time: a kernel
+    # counts for the op that launched it), and their calls a step
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / LM_PROFILE_STEPS,
+                   e.count / LM_PROFILE_STEPS) for e in prof.key_averages()
+                  if e.self_device_time_total > 0), key=lambda r: -r[1])[:10]
+    bound = _lm_step_bound(runner)
+    return dict(
+        positions=[LM_PROFILE_POS, LM_PROFILE_POS + LM_PROFILE_STEPS],
+        wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=prof_ms,
+        device_busy_ms_per_step=busy_ms,
+        device_idle_share=1.0 - busy_ms / wall_ms,
+        device_idle_share_profiled=1.0 - busy_ms / prof_ms,
+        device_ops_per_step=len(spans) / LM_PROFILE_STEPS,
+        top_device_ms_per_step=[[k[:90], v / LM_PROFILE_STEPS] for k, v in top],
+        top_ops_device_ms_and_calls_per_step=[[k, ms, n] for k, ms, n in ops],
+        **bound, busy_over_bound=busy_ms / bound["bound_ms"],
+    )
+
+
+def _lm_decode_vs_forward(arch: str) -> tuple[dict, dict]:
+    """(c): the full-width model in fp32 compute, weights drawn on the card
+    from a seeded generator: each decode step's logits against the
+    teacher-forced forward's at that position.  Returns the result and the
+    model's parameters, for (d)."""
+    cfg = dataclasses.replace(lm_config(arch), compute_dtype=torch.float32)
+    t0 = time.perf_counter()
+    lm = lm_model.LanguageModel(cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                                device=DEVICE)
+    params = lm.tree()
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, LM_CHECK_STEPS), generator=gen,
+                         dtype=torch.int32).to(DEVICE)
+    with torch.inference_mode():
+        hidden, _ = lm(dict(tokens=toks))
+        fwd = lm_layers.unembed_logits(lm_model._unembed_table(params, cfg), hidden, cfg)
+        cache = lm_decode.init_cache(cfg, LM_CHECK_BATCH, LM_CHECK_STEPS, DEVICE)
+        errs = []
+        for i in range(LM_CHECK_STEPS):
+            logits, cache = lm.decode_step(cache, toks[:, i:i + 1], i)
+            errs.append(float((logits - fwd[:, i]).abs().max()))
+    scale = max(1.0, float(fwd.abs().max()))
+    out = dict(arch=arch, params=sum(p.numel() for p in lm.parameters()),
+               param_bytes=sum(p.numel() * p.element_size() for p in lm.parameters()),
+               batch=LM_CHECK_BATCH, steps=LM_CHECK_STEPS, max_abs_err=max(errs),
+               max_abs_logit=float(fwd.abs().max()), bound=LM_BOUND * scale,
+               finite=bool(torch.isfinite(fwd).all()), wall_s=time.perf_counter() - t0)
+    check(out["finite"] and out["max_abs_err"] <= out["bound"],
+          f"{arch}: decode matches the teacher-forced forward at full width")
+    return out, dict(cfg=cfg, params=params, toks=toks)
+
+
+def _lm_card_vs_cpu(model: dict) -> dict:
+    """(d): LM_CPU_STEPS decode steps of (c)'s full-width qwen on the card
+    and, with the same parameters moved to the CPU, on the CPU."""
+    cfg, toks = model["cfg"], model["toks"]
+    cpu_params = map_tree(model["params"], lambda a: a.cpu())
+    t0 = time.perf_counter()
+    got, want = [], []
+    with torch.inference_mode():
+        for params, dev, out in ((model["params"], DEVICE, got), (cpu_params, "cpu", want)):
+            cache = lm_decode.init_cache(cfg, LM_CHECK_BATCH, LM_CPU_STEPS, dev)
+            for i in range(LM_CPU_STEPS):
+                logits, cache = lm_decode.decode_step(
+                    params, cache, {"tokens": toks[:, i:i + 1].to(dev), "pos": i}, cfg)
+                out.append(logits.cpu())
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(1.0, max(float(b.abs().max()) for b in want))
+    out = dict(arch=cfg.name, batch=LM_CHECK_BATCH, steps=LM_CPU_STEPS, max_abs_err=err,
+               bound=LM_BOUND * scale, wall_s=time.perf_counter() - t0)
+    check(err <= out["bound"], "full-width decode: the card agrees with the CPU")
+    return out
+
+
+def _lm_runner_vs_cpu(runner: ModelRunner) -> dict:
+    """(e): the timed run's own state, bf16 at full width: from position
+    LM_LATE_POS, LM_CPU_STEPS of the runner's ticks on the card (all its
+    lanes, against its 512-token cache) and, from CPU copies of the same
+    compute-dtype weights and cache, ``decode_step`` on the CPU fed the same
+    tokens.  The logits and the cache rows written are held to the bf16
+    bound."""
+    cfg = runner.cfg
+    t0 = time.perf_counter()
+    cpu_weights = map_tree(runner.weights, lambda a: a.cpu())
+    cpu_cache = {k: v.cpu() for k, v in runner.cache.items()}
+    runner.pos = LM_LATE_POS
+    logit_err, logit_bound = [], []
+    with torch.inference_mode():
+        for i in range(LM_CPU_STEPS):
+            toks = runner.tokens.cpu()
+            runner.tick()
+            want, cpu_cache = lm_decode.decode_step(
+                cpu_weights, cpu_cache, {"tokens": toks, "pos": LM_LATE_POS + i}, cfg)
+            logit_err.append(float((runner.logits.cpu() - want).abs().max()))
+            logit_bound.append(LM_BF16_BOUND * max(1.0, float(want.abs().max())))
+    rows = slice(LM_LATE_POS, LM_LATE_POS + LM_CPU_STEPS)
+    cache_err, cache_bound = [], []
+    for k in ("k", "v"):
+        want = cpu_cache[k][:, :, rows].float()
+        cache_err.append(float((runner.cache[k][:, :, rows].cpu().float() - want).abs().max()))
+        cache_bound.append(LM_BF16_BOUND * max(1.0, float(want.abs().max())))
+    out = dict(arch=cfg.name, compute_dtype=str(cfg.compute_dtype), lanes=runner.slots,
+               cache_len=runner.cache["k"].shape[2], positions=[LM_LATE_POS, runner.pos],
+               logit_max_abs_err=logit_err, logit_bound=logit_bound,
+               cache_rows_max_abs_err=cache_err, cache_rows_bound=cache_bound,
+               wall_s=time.perf_counter() - t0)
+    check(all(e <= b for e, b in zip(logit_err + cache_err, logit_bound + cache_bound)),
+          "the runner's bf16 state at full width: the card agrees with the CPU")
+    return out
+
+
+def phase_lm_serve() -> dict:
+    """Real-decode serving at qwen15_05b's full width: (a) the launcher's
+    loop, with the same engine on the plain match beside it, (b) one decode
+    step profiled, (e) the runner's own state on the card against the CPU,
+    (c) decode against the teacher-forced forward (qwen and llama3_8b,
+    fp32), (d) the card against the CPU."""
+    t_phase = time.perf_counter()
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    runner = ModelRunner(LM_ARCH, LM_SERVE["slots_per_pod"], max_len=LM_MAX_LEN, seed=0,
+                         cfg=lm_config(LM_ARCH), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    match.match_tasks.launches = 0
+    match.match_ranks.launches = 0
+    match.match_ranks_batched.launches = 0
+    run = _lm_serve_loop(runner)
+    launches = dict(match_tasks=match.match_tasks.launches,
+                    match_ranks=match.match_ranks.launches,
+                    match_ranks_batched=match.match_ranks_batched.launches)
+    eng, s = run["eng"], run["stats"].summary()
+    plain = _lm_plain_engine()
+    plain_equal = _engine_states_equal(_engine_state(eng), _engine_state(plain))
+    check(match.match_tasks.launches == launches["match_tasks"],
+          "lm_serve: the plain engine launches no kernel")
+    ticks = len(run["step_ms"])
+    steady = run["step_ms"][LM_STEADY_FROM:]
+    steady_ms = float(np.mean(steady))
+    occupancy = run["occupied_lane_steps"] / (ticks * runner.slots)
+    serve = dict(
+        arch=LM_ARCH, cfg=dict(layers=runner.cfg.num_layers, d_model=runner.cfg.d_model,
+                               heads=runner.cfg.num_heads, d_ff=runner.cfg.d_ff,
+                               padded_vocab=runner.cfg.padded_vocab,
+                               compute_dtype=str(runner.cfg.compute_dtype)),
+        **LM_SERVE, requests=LM_REQUESTS, arrival_per_tick=LM_ARRIVAL, mean_gen=LM_MEAN_GEN,
+        max_len=LM_MAX_LEN, completed=s["completed"], summary=s, engine_ticks=eng.stats.ticks,
+        decode_ticks=ticks, lanes=runner.slots, lane_steps=ticks * runner.slots,
+        occupied_lane_steps=run["occupied_lane_steps"], lane_occupancy=occupancy,
+        decode_ms_per_step=steady_ms, decode_ms_per_step_median=float(np.median(steady)),
+        decode_ms_per_step_p90=float(np.percentile(steady, 90)),
+        steady_steps=[LM_STEADY_FROM, ticks],
+        lane_steps_per_s=runner.slots * 1e3 / steady_ms,
+        served_tokens_per_s=occupancy * runner.slots * 1e3 / steady_ms,
+        plain_engine_identical=plain_equal,
+        wall_s=run["wall"], engine_tick_s=run["engine_s"], decode_tick_s=run["decode_s"],
+        host_syncs=run["syncs"], host_syncs_per_decode_tick=run["syncs"] / max(ticks, 1),
+        kernel_launches=launches, gm_rounds=eng.gm_rounds, all_logits_finite=run["finite"],
+        runner_build_s=build_s, memory_allocated_after_build=held,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+    )
+    check(s["completed"] == LM_REQUESTS == s["placed"], "lm_serve: every request completed")
+    check(ticks == LM_MAX_LEN == runner.pos, "lm_serve: one decode tick per engine tick, "
+          "to max_len")
+    check(run["finite"], "lm_serve: every logit of every decode tick is finite")
+    check(run["syncs"] == 0, "lm_serve: a decode tick makes no host sync")
+    check(launches["match_tasks"] == eng.gm_rounds > 0,
+          "lm_serve: gm_round calls == single-row kernel launches")
+    check(plain_equal, "lm_serve: kernel and plain engines: identical stats and final state")
+    prof = _lm_profile(runner)
+    check(prof["device_ops_per_step"] > 0, "the profiler saw the decode steps' device work")
+    late = _lm_runner_vs_cpu(runner)
+    del runner
+    torch.cuda.empty_cache()
+    checks, cpu = [], None
+    for arch in LM_CHECK_ARCHS:
+        r, model = _lm_decode_vs_forward(arch)
+        checks.append(r)
+        if arch == LM_ARCH:
+            cpu = _lm_card_vs_cpu(model)
+        del model
+        torch.cuda.empty_cache()
+    out = dict(phase="lm_serve", entry="launch.serve ModelRunner.tick (--real-decode)",
+               serve=serve, profile=prof, runner_vs_cpu=late, decode_vs_forward=checks,
+               card_vs_cpu=cpu,
+               phase_wall_s=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2418,6 +2799,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
@@ -2459,6 +2841,7 @@ def main() -> int:
     fig4.pop("_summaries")
     elong = phase_eagle_long()
     serve = phase_serve()
+    lm = phase_lm_serve()
     phase_serve_profile()
     sdps = phase_sdps()
     phase_cpu_parity()
@@ -2513,6 +2896,7 @@ def main() -> int:
         launches=serve["kernel_launches"]["match_tasks"]
         + serve["kernel_launches"]["match_ranks"],
         launches_by_path=dict(serve=serve["kernel_launches"]["match_tasks"],
+                              lm_serve=lm["serve"]["kernel_launches"]["match_tasks"],
                               sdps=sdps["kernel_launches"],
                               quickstart=ana["quickstart"]["kernel"]["kernel_launches"]),
         max_abs_err=max(single["sweep_err"], *(r["max_abs_err"] for r in single["rows"])),
@@ -2543,6 +2927,7 @@ def main() -> int:
             "bound_by", "bytes_ms", "ops_ms", "chain_ms", "library_ms")},
     )]})
     print(nvidia_smi(), flush=True)
+    emit(dict(phase="total", wall_s=time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

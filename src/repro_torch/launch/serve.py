@@ -2,16 +2,19 @@
 
 Port of ``repro/launch/serve.py``, with the same options and defaults:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --requests 200 --pods 2 \
-      --slots 16 --frontends 2 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15_05b \
+      --requests 200 --pods 2 --slots 16 --frontends 2 [--real-decode] \
+      [--device cpu]
 
 Slots are continuous-batching lanes; the Megha engine (frontends = GMs with
 eventually-consistent fleet views, pod controllers = LMs with ground truth)
-places each request on a lane, and slot hold times are simulated from the
-requests' generation lengths.  The engine runs on the CUDA card unless
-``--device cpu`` is given.  ``--real-decode`` (one pod's lanes running a
-real tiny-model decode) needs the LM stack, which the port does not have
-yet, and raises.
+places each request on a lane.  With --real-decode, one pod's lanes run an
+actual tiny-model decode (one token per engine tick per active lane, the
+arch's smoke config), demonstrating the full path: request -> Megha
+placement -> KV-cache decode -> completion -> slot reuse.  The engine and
+the model run on the CUDA card unless ``--device cpu`` is given.  The
+attention families (dense, vlm, audio) decode; an arch with MoE, MLA, SSM
+or hybrid layers raises ``NotImplementedError`` (ROADMAP item 15b).
 """
 
 from __future__ import annotations
@@ -20,8 +23,53 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
+from repro_torch.configs import ModelConfig, get_config, smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models import decode as D
+from repro_torch.models import model as M
 from repro_torch.serve.engine import MeghaServeEngine, Request
+
+
+class ModelRunner:
+    """Real decode compute for one pod's slots (continuous batching).
+
+    The configuration is the arch's smoke config, as in the reference;
+    ``cfg=`` runs another (``chip_smoke.py`` runs the full width), and
+    ``params=`` a tree of tensors (the tests feed the reference's, carried
+    across with ``models.schema.params_from_numpy``), else the weights are
+    drawn from ``seed`` on the device.
+    The compute-dtype copy of the weights is made once, here: bitwise what
+    the reference's per-use casts compute; it is the only copy the runner
+    keeps.  A tick reads nothing back from the card."""
+
+    def __init__(self, arch: str, slots: int, max_len: int = 64, seed: int = 0, *,
+                 device: str | torch.device | None = None,
+                 cfg: ModelConfig | None = None, params: dict | None = None):
+        self.device = resolve_device(device)
+        self.cfg = cfg if cfg is not None else smoke_config(get_config(arch))
+        self.slots = slots
+        # only the compute-dtype copy is kept: the param-dtype tree is freed
+        # before the cache is allocated
+        self.weights = M.compute_params(M.LanguageModel(
+            self.cfg, params, device=self.device,
+            generator=torch.Generator(device=self.device).manual_seed(seed)).tree(), self.cfg)
+        self.cache = D.init_cache(self.cfg, slots, max_len, self.device)
+        self.tokens = torch.ones((slots, 1), dtype=torch.int32, device=self.device)
+        self.logits: torch.Tensor | None = None
+        self.pos = 0
+        self.max_len = max_len
+
+    def tick(self) -> None:
+        if self.pos >= self.max_len:
+            return
+        with torch.inference_mode():
+            self.logits, self.cache = D.decode_step(
+                self.weights, self.cache, {"tokens": self.tokens, "pos": self.pos}, self.cfg)
+            # the first maximum on ties, as jnp.argmax
+            self.tokens = torch.argmax(self.logits, -1, keepdim=True).to(torch.int32)
+        self.pos += 1
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -38,11 +86,6 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.real_decode:
-        raise NotImplementedError(
-            "--real-decode needs the LM stack, which is not ported yet "
-            "(ROADMAP.md queue 1, item 15)"
-        )
 
     rng = np.random.default_rng(args.seed)
     eng = MeghaServeEngine(
@@ -50,6 +93,7 @@ def main(argv: list[str] | None = None) -> dict:
         slots_per_pod=args.slots, max_batch=args.slots * args.pods,
         device=args.device,
     )
+    runner = ModelRunner(args.arch, args.slots, device=eng.device) if args.real_decode else None
 
     t0 = time.time()
     rid = 0
@@ -61,6 +105,8 @@ def main(argv: list[str] | None = None) -> dict:
         ])
         rid += n
         eng.tick()
+        if runner is not None:
+            runner.tick()
     stats = eng.run_until_drained()
     dt = time.time() - t0
     s = stats.summary()
@@ -69,6 +115,9 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"placement: inconsistency_ratio={s['inconsistency_ratio']:.4f} "
           f"repartitions={s['repartitions']} "
           f"queue delay mean={s['mean_queue_delay']:.2f} p95={s['p95_queue_delay']:.2f} ticks")
+    if runner is not None:
+        print(f"real decode: {runner.pos} tokens/lane on {args.slots} lanes "
+              f"({args.arch} smoke config)")
     return s
 
 

@@ -1,0 +1,157 @@
+"""Schema-driven parameters (port of ``repro/models/schema.py``): one
+definition yields real init, abstract shapes and counts.
+
+Every model module describes its parameters as a nested dict of ``ParamDef``
+leaves carrying a shape, a tuple of *logical axis names*, and an initializer.
+The consumers:
+
+  * ``init_params(schema, generator, device)`` -> nested dict of tensors
+  * ``abstract_params(schema)``                -> the same on the meta device
+  * ``param_count`` / ``param_bytes``
+
+``init_params`` follows the reference's rules leaf by leaf but draws from a
+``torch.Generator``, so it matches the reference in distribution only
+(``jax.random`` is not reproducible in torch).  To run the reference's
+parameters, carry them across: ``params_from_numpy`` takes the reference's
+tree with each leaf as a numpy array, ``params_to_numpy`` gives it back.
+``ShardingRules`` / ``param_pspecs`` have no meaning on one card and wait
+for the distribution slice (ROADMAP item 15e).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]
+    dtype: Any = torch.float32
+    init: str = "fan_in"  # fan_in | zeros | ones | normal:<std> | embed
+    fan_axis: int = 0     # which dim is fan-in for fan_in init
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes} rank mismatch")
+
+
+Schema = dict  # nested dict[str, ParamDef | Schema]
+
+
+def _leaf_paths(schema: Schema, prefix: tuple = ()):  # depth-first, ordered
+    for k in sorted(schema):
+        v = schema[k]
+        if isinstance(v, ParamDef):
+            yield prefix + (k,), v
+        else:
+            yield from _leaf_paths(v, prefix + (k,))
+
+
+def map_schema(schema: Schema, fn: Callable[[ParamDef], Any]) -> dict:
+    out: dict = {}
+    for k, v in schema.items():
+        out[k] = fn(v) if isinstance(v, ParamDef) else map_schema(v, fn)
+    return out
+
+
+def map_tree(tree: dict, fn: Callable[[Any], Any]) -> dict:
+    """``fn`` on every leaf of a nested dict (a parameter tree or a cache),
+    keeping the keys."""
+    return {k: map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tree_leaves(tree: dict):
+    """The leaves of a nested dict, depth-first in insertion order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def _init_leaf(pd: ParamDef, generator: torch.Generator, device: torch.device) -> torch.Tensor:
+    if pd.init == "zeros":
+        return torch.zeros(pd.shape, dtype=pd.dtype, device=device)
+    if pd.init == "ones":
+        return torch.ones(pd.shape, dtype=pd.dtype, device=device)
+    if pd.init.startswith("normal:"):
+        std = float(pd.init.split(":", 1)[1])
+    elif pd.init == "embed":
+        std = 0.02
+    else:
+        # fan_in: fan over fan_axis, excluding any leading stacking
+        # ("layers"/"experts") axes, which are part of the batch
+        fan = pd.shape[pd.fan_axis] if pd.shape else 1
+        std = 1.0 / math.sqrt(max(1, fan))
+    x = torch.randn(pd.shape, generator=generator, dtype=torch.float32, device=device)
+    return x.mul_(std).to(pd.dtype)
+
+
+def init_params(schema: Schema, generator: torch.Generator,
+                device: str | torch.device | None = None) -> dict:
+    """Concrete parameters on ``device``, drawn leaf by leaf in
+    ``_leaf_paths`` order from ``generator`` (which lives on that device)."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for path, pd in _leaf_paths(schema):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _init_leaf(pd, generator, dev)
+    return out
+
+
+def abstract_params(schema: Schema) -> dict:
+    """Shapes and dtypes without storage: tensors on the meta device."""
+    return map_schema(schema, lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device="meta"))
+
+
+def param_count(schema: Schema) -> int:
+    return sum(math.prod(pd.shape) for _, pd in _leaf_paths(schema))
+
+
+def param_bytes(schema: Schema) -> int:
+    return sum(math.prod(pd.shape) * pd.dtype.itemsize for _, pd in _leaf_paths(schema))
+
+
+# ---------------------------------------------------------------------------
+# carrying parameters (and caches) across from the reference
+# ---------------------------------------------------------------------------
+
+
+def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy: the reference's arrays are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, device: str | torch.device | None = None) -> dict:
+    """The reference's tree (the same nested keys, each leaf an
+    ``np.asarray`` of the reference's array) as tensors on ``device``, each
+    in its own dtype."""
+    dev = resolve_device(device)
+    return map_tree(tree, lambda a: _leaf_from_numpy(a, dev))
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16, as the reference's arrays carry it
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The inverse of ``params_from_numpy``: each leaf as a numpy array in
+    its own dtype (bfloat16 as ``ml_dtypes.bfloat16``)."""
+    return map_tree(params, _leaf_to_numpy)

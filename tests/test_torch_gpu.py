@@ -753,3 +753,67 @@ def test_stream_segment_host_syncs_are_pinned(name):
         loop.segment()
     print(f"{name}: {c.count} host syncs in a 16-round segment")
     assert c.count == STEP_SYNCS_PER_ROUND[name] * 16 + SEGMENT_EXTRA_SYNCS[name]
+
+
+# ---------------------------------------------------------------------------
+# real-decode serving (``repro_torch.models``, ``launch.serve.ModelRunner``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b"])
+def test_smoke_decode_on_the_card_matches_the_cpu(arch, dtype, monkeypatch):
+    """8 decode steps of the smoke config, B = 2, on the card and on the
+    CPU from the same parameters: logits and caches within 2e-4 in fp32
+    (TF32 off) and within 0.02 x max(1, |logit|) in bf16 (the CPU tests'
+    bf16 bound against the reference)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import decode as D
+    from repro_torch.models import model as M
+    from repro_torch.models.schema import init_params, map_tree
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), compute_dtype=cdt)
+    cpu = init_params(M.model_schema(cfg), torch.Generator().manual_seed(1), "cpu")
+    card = map_tree(cpu, lambda a: a.cuda())
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    caches = {"cpu": D.init_cache(cfg, 2, 8, "cpu"), "cuda": D.init_cache(cfg, 2, 8, "cuda")}
+
+    def bound(ref):
+        return 2e-4 if dtype == "f32" else 0.02 * max(1.0, float(ref.abs().max()))
+
+    for i in range(8):
+        want, caches["cpu"] = D.decode_step(cpu, caches["cpu"], {"tokens": toks[:, i:i + 1],
+                                                                 "pos": i}, cfg)
+        got, caches["cuda"] = D.decode_step(card, caches["cuda"],
+                                            {"tokens": toks[:, i:i + 1].cuda(), "pos": i}, cfg)
+        assert float((got.cpu() - want).abs().max()) <= bound(want), i
+    for k in ("k", "v"):
+        ref = caches["cpu"][k].float()
+        assert float((caches["cuda"][k].cpu().float() - ref).abs().max()) <= bound(ref), k
+
+
+@pytest.mark.gpu
+def test_model_runner_tick_makes_no_host_sync():
+    """``ModelRunner.tick`` (the serving loop's decode) reads nothing back
+    from the card: the position is a host int, the next tokens stay on the
+    card."""
+    _need_card()
+    from repro_torch.analysis.sentinels import count_syncs
+    from repro_torch.launch.serve import ModelRunner
+
+    runner = ModelRunner("qwen15_05b", 16, max_len=8)
+    runner.tick()
+    torch.cuda.synchronize()
+    with count_syncs() as c:
+        for _ in range(4):
+            runner.tick()
+    assert c.count == 0, c.sites
+    assert runner.pos == 5 and runner.tokens.is_cuda and runner.tokens.dtype == torch.int32
+    assert bool(torch.isfinite(runner.logits).all())

@@ -21,6 +21,16 @@ MODULES = sorted(
 )
 
 
+#: the LM stack's modules (configs, models and the serving runner)
+LM_MODULES = ["repro_torch.configs", "repro_torch.configs.base", "repro_torch.models",
+              "repro_torch.models.schema", "repro_torch.models.layers",
+              "repro_torch.models.model", "repro_torch.models.decode",
+              "repro_torch.launch.serve"] + [
+    f"repro_torch.configs.{a}" for a in (
+        "hubert_xlarge", "qwen15_05b", "gemma_7b", "llama3_8b", "stablelm_12b", "mamba2_13b",
+        "llava_next_mistral_7b", "zamba2_7b", "arctic_480b", "deepseek_v2_lite_16b")]
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro")
@@ -46,6 +56,7 @@ def test_fresh_interpreter_imports_no_jax_or_repro():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "chip_smoke" in loaded and "repro_torch.sim.simulator" in loaded
     assert "repro_torch.analysis.speccheck" in loaded and "torch_quickstart" in loaded
+    assert set(LM_MODULES) | {"torch_serve_cluster"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -158,3 +169,14 @@ def test_walk_covers_the_analysis_modules_and_examples():
             for m in new - {"repro_torch.analysis"}} <= set(SOURCES)
     assert ROOT / "examples" / "torch_quickstart.py" in SOURCES
     assert ROOT / "examples" / "quickstart.py" not in SOURCES
+
+
+def test_walk_covers_the_lm_modules_and_serve_example():
+    """The walk covers the LM stack's configs, models and serving runner,
+    and the port's serving example."""
+    assert set(LM_MODULES) <= set(MODULES)
+    assert {PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+            for m in LM_MODULES if m not in ("repro_torch.configs", "repro_torch.models")
+            } <= set(SOURCES)
+    assert ROOT / "examples" / "torch_serve_cluster.py" in SOURCES
+    assert ROOT / "examples" / "serve_cluster.py" not in SOURCES

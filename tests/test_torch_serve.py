@@ -1,15 +1,23 @@
 """The port's serving engine (``repro_torch.serve.engine``) against the JAX
 reference (``repro.serve.engine``, ``use_pallas=False``) tick by tick on the
 scenarios of ``tests/test_engine.py``, those scenarios' properties on the
-port, and the port's serving launcher (``repro_torch.launch.serve``)."""
+port, and the port's serving launcher (``repro_torch.launch.serve``), with
+and without ``--real-decode``, and its example."""
+
+import pathlib
+import runpy
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from repro.launch import serve as jax_serve
 from repro.serve import engine as jax_engine
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve import engine
+
+EXAMPLE = pathlib.Path(__file__).resolve().parents[1] / "examples" / "torch_serve_cluster.py"
 
 
 def _engine(mod, **kw):
@@ -201,8 +209,54 @@ def test_serve_launcher_matches_reference_engine_loop(capsys):
 
 
 def test_serve_launcher_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        launch_serve.main(["--real-decode", "--device", "cpu"])
+    """``--real-decode`` runs the attention families; an arch with MoE,
+    MLA, SSM or hybrid layers raises naming item 15b, and no card without
+    ``--device cpu`` raises too."""
+    for arch in ("deepseek_v2_lite_16b", "arctic_480b", "mamba2_13b", "zamba2_7b"):
+        with pytest.raises(NotImplementedError, match="item 15b"):
+            launch_serve.main(["--arch", arch, "--real-decode", "--device", "cpu",
+                               "--requests", "8"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.MeghaServeEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_serve.ModelRunner("qwen15_05b", 4)
+
+
+def _summary_lines(out: str) -> list[str]:
+    """The launcher's printed lines without the wall clock and device."""
+    lines = out.strip().splitlines()
+    return [lines[0].split(" wall=")[0]] + lines[1:]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--real-decode"],
+    ["--real-decode", "--arch", "llama3_8b", "--requests", "60", "--slots", "8", "--seed", "2"],
+])
+def test_serve_launcher_real_decode_matches_reference(argv, capsys, monkeypatch):
+    """``--real-decode`` runs one pod's lanes on the smoke model: the port's
+    launcher prints the reference launcher's summary and ``real decode:``
+    lines."""
+    got = launch_serve.main(argv + ["--device", "cpu"])
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    jax_serve.main()
+    ref_out = capsys.readouterr().out
+    assert _summary_lines(port_out) == _summary_lines(ref_out)
+    assert "real decode: " in port_out.splitlines()[-1]
+    requests = int(argv[argv.index("--requests") + 1]) if "--requests" in argv else 200
+    assert got["completed"] == requests
+
+
+def test_torch_serve_cluster_example(capsys, monkeypatch):
+    """``examples/torch_serve_cluster.py`` with its defaults on the CPU:
+    the reference example's lines."""
+    monkeypatch.setattr(sys, "argv", [str(EXAMPLE), "--device", "cpu"])
+    runpy.run_path(str(EXAMPLE), run_name="__main__")
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", [str(EXAMPLE.with_name("serve_cluster.py"))])
+    runpy.run_path(str(EXAMPLE.with_name("serve_cluster.py")), run_name="__main__")
+    ref_out = capsys.readouterr().out
+    assert _summary_lines(port_out) == _summary_lines(ref_out)
+    assert port_out.splitlines()[-1] == (
+        "real decode: 16 tokens/lane on 16 lanes (qwen15_05b smoke config)")
