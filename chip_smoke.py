@@ -18,8 +18,10 @@ workers, the sharded executors (``simx/shard.py``: the grids on a mesh and
 the lane-batched load curve of every rule), the static analysis and the
 quickstart, eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
-200,000 requests, real-decode serving at qwen15_05b's full width, and the
-fast path's SDPS loop — and prints one JSON line per phase:
+200,000 requests, real-decode serving at qwen15_05b's and at
+DeepSeek-V2-Lite's full width (with the MoE, MLA, SSM and hybrid families
+checked at full width), and the fast path's SDPS loop — and prints one
+JSON line per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
                (match.cu, match_tasks.cu, p2_sketch.cu)
@@ -157,6 +159,38 @@ fast path's SDPS loop — and prints one JSON line per phase:
                and llama3_8b (weights drawn on the card), within 2e-4 x
                max(1, max |logit|); (d) two steps of (c)'s qwen on the card
                against the CPU, same bound
+  lm_families  the MoE, MLA, SSM and hybrid families: (a) the launcher's
+               --real-decode loop with DeepSeek-V2-Lite at its published
+               width (27 layers, d_model 2,048, MLA rank 512 + 64 rope, 64
+               experts top 6 + 2 shared, one leading dense layer, vocab
+               padded to 102,400, bf16, weights drawn leaf by leaf from
+               seed 0) on lm_serve's engine to 4,160 requests, 128 lanes
+               decoding 256 ticks against a 256-token latent cache: the
+               same checks as lm_serve's (a) (every request completed,
+               one decode tick per engine tick to max_len, no host sync
+               in a decode tick, every logit finite, match_tasks launches
+               = gm_round calls, the plain engine identical), decode ms
+               per step by CUDA events from step 16, lane-steps and
+               served tokens per second, the share of lanes held, the
+               runner's build time and peak memory; (b) 4 steps under
+               torch.profiler with the step's byte and operations bounds
+               (every expert's weights: the einsum dispatch computes every
+               expert's capacity slots); (c) decode against the
+               teacher-forced forward, each model alone on the card at full
+               width: deepseek (27 layers, fp32, 8 steps), mamba2 (48
+               layers, fp32, 256 steps), zamba2 (81 layers, fp32, 256
+               steps), arctic cut to 1 of 35 layers (bf16, 8 steps), MoE at
+               capacity factor max(16, E / k) so nothing is dropped; fp32
+               within 2e-4 and bf16 within 0.02 x max(1, max |logit|), on
+               the lanes whose routing agrees with the forward's (a flip
+               only where the forward's k-th / (k+1)-th probability gap is
+               below 1e-6 in fp32, 1e-3 in bf16, and counted); (d) 2 fp32
+               steps on the card against the CPU, mamba2 at full width and
+               deepseek's first two layers (the dense one and one MoE
+               layer) at full width, both sides' top-k experts recorded,
+               the logits within 2e-4 x max(1, max |logit|) on every lane
+               whose routing agrees (a flip only at a CPU-side gap below
+               1e-6); (e) the phase's wall against its 90 s budget
   serve_profile  a steady window of serving ticks under torch.profiler:
                device busy and idle share, host time in torch ops; and the
                SDPS loop's gm_round likewise
@@ -201,6 +235,7 @@ import contextlib
 import dataclasses
 import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -222,6 +257,7 @@ from repro_torch.launch.serve import ModelRunner  # noqa: E402
 from repro_torch.models import decode as lm_decode  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models.schema import map_tree, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
@@ -401,6 +437,48 @@ LM_BF16_BOUND = 0.02
 #: H100 SXM dense peaks (NVIDIA data sheet) for the decode step's
 #: operations bound: bf16 on the tensor cores
 BF16_OPS_PER_S = 989e12
+
+#: Phase lm_families: the MoE, MLA, SSM and hybrid families.  (a) the
+#: launcher's --real-decode loop with DeepSeek-V2-Lite at its published
+#: width (27 layers, d_model 2,048, MLA rank 512 + 64 rope, 64 experts top 6
+#: + 2 shared, one leading dense layer, vocab padded to 102,400; bf16
+#: compute, weights drawn per leaf from seed 0) on lm_serve's engine, to
+#: 4,160 requests (258 ticks of arrivals from numpy seed 0; 4,096 give 253,
+#: short of the 256 decode ticks), one pod's 128 lanes decoding 256 ticks
+#: against a 256-token latent cache: the depth cut from lm_serve's 8,192
+#: requests and 512 ticks for the script's clock, no width cut
+LMF_ARCH = "deepseek_v2_lite_16b"
+LMF_REQUESTS = 4160
+LMF_MAX_LEN = 256
+#: (b) profiles this many steps from this position (two warm steps first;
+#: a DeepSeek step is ~3,850 device ops, and reading a profile back costs
+#: host time in proportion)
+LMF_PROFILE_STEPS = 4
+LMF_PROFILE_POS = 128
+#: (c) decode against the teacher-forced forward, each model alone on the
+#: card at full width, B = LM_CHECK_BATCH: (arch, layers (None: all),
+#: steps, compute dtype, bound x max(1, max |logit|)).  mamba2's forward
+#: needs S % chunk == 0 at its published chunk of 256; arctic is cut to 1
+#: of its 35 layers (its 128 experts take 26.8 GB a layer in bf16, 960 GB
+#: in all) and runs its published bf16, held to the bf16 bound
+LMF_CHECKS = (
+    ("deepseek_v2_lite_16b", None, 8, torch.float32, LM_BOUND),
+    ("mamba2_13b", None, 256, torch.float32, LM_BOUND),
+    ("zamba2_7b", None, 256, torch.float32, LM_BOUND),
+    ("arctic_480b", 1, 8, torch.bfloat16, LM_BF16_BOUND),
+)
+#: (c) and (d) run MoE configs at this capacity factor or E / top_k, the
+#: larger (the reference's decode test's 16; arctic needs 64), so that a
+#: group's capacity holds every token and nothing is dropped
+LMF_CAPACITY = 16.0
+#: (d) the card against the CPU, LM_CPU_STEPS steps in fp32: (arch, layers)
+LMF_CPU = (("mamba2_13b", None), ("deepseek_v2_lite_16b", 2))
+#: a routing difference between two sides is not a fault only where the
+#: reference side's gap between its k-th and (k+1)-th probability is below
+#: this (fp32; the CPU tests' bf16 rule allows 1e-3)
+LMF_FLIP_GAP = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+#: the phase's wall budget, seconds
+LMF_BUDGET_S = 90.0
 
 #: The streaming engine (``stream.run_steady_state``).  (a) replays the
 #: megha phase's trace through a window of its full size; (b) streams
@@ -2477,15 +2555,15 @@ def phase_sdps() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _lm_submit(eng, rng, rid: int) -> int:
+def _lm_submit(eng, rng, rid: int, requests: int) -> int:
     """One tick's Poisson arrivals of the launcher's loop; the next rid."""
-    n = min(int(rng.poisson(LM_ARRIVAL)), LM_REQUESTS - rid)
+    n = min(int(rng.poisson(LM_ARRIVAL)), requests - rid)
     eng.submit([Request(rid + i, gen_len=1 + int(rng.poisson(LM_MEAN_GEN)))
                 for i in range(n)])
     return rid + n
 
 
-def _lm_serve_loop(runner: ModelRunner) -> dict:
+def _lm_serve_loop(runner: ModelRunner, requests: int) -> dict:
     """``launch/serve.py``'s loop with ``--real-decode``: Poisson arrivals
     from the numpy seed, an engine tick, then a decode tick.  Each decode
     tick is bracketed by CUDA events and its host syncs counted, and then
@@ -2503,8 +2581,8 @@ def _lm_serve_loop(runner: ModelRunner) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rid = 0
-    while rid < LM_REQUESTS:
-        rid = _lm_submit(eng, rng, rid)
+    while rid < requests:
+        rid = _lm_submit(eng, rng, rid, requests)
         t1 = time.perf_counter()
         done = eng.tick()
         t2 = time.perf_counter()
@@ -2535,83 +2613,141 @@ def _lm_serve_loop(runner: ModelRunner) -> dict:
                 occupied_lane_steps=occupied)
 
 
-def _lm_plain_engine() -> MeghaServeEngine:
+def _lm_plain_engine(requests: int) -> MeghaServeEngine:
     """The loop's engine alone on the plain match (the decode does not touch
     the engine): the same arrivals from numpy seed 0, then the drain."""
     eng = MeghaServeEngine(**LM_SERVE, use_kernel=False, device=DEVICE)
     rng = np.random.default_rng(0)
     rid = 0
-    while rid < LM_REQUESTS:
-        rid = _lm_submit(eng, rng, rid)
+    while rid < requests:
+        rid = _lm_submit(eng, rng, rid, requests)
         eng.tick()
     eng.run_until_drained()
     return eng
 
 
+def _lm_step_ops(cfg, b: int, t: int) -> tuple[int, int]:
+    """(bf16 tensor-core operations, fp32 operations) of one decode step of
+    ``b`` lanes against a ``t``-token cache, for every family: the bf16
+    products (projections, MLPs, the probabilities by the values or
+    latents, the MoE's einsum dispatch and combine and every expert's
+    capacity slots, which that dispatch computes whatever they hold, the
+    SSM's projections and conv), and the fp32 work (the attention and
+    latent scores, the router, the SSM state update and read-out, the
+    unembedding)."""
+    d = cfg.d_model
+
+    def mlp(f):
+        return 2 * b * d * f * (3 if cfg.gated_mlp else 2), 0
+
+    def gqa():
+        hd = cfg.head_dim_eff
+        scores = 2 * b * cfg.num_heads * t * hd
+        proj = 2 * b * d * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd \
+            + 2 * b * cfg.num_heads * hd * d
+        return proj + scores, scores
+
+    def mla():
+        m, h = cfg.mla, cfg.num_heads
+        r, p, n, v = m.kv_lora_rank, m.qk_rope_head_dim, m.qk_nope_head_dim, m.v_head_dim
+        bf = 2 * b * (d * (r + p) + d * h * (n + p) + h * n * r + h * t * r + h * r * v
+                      + h * v * d)
+        return bf, 2 * b * h * t * (r + p)
+
+    def moe():
+        m = cfg.moe
+        gs = min(m.group_size, b)
+        cap = max(1, math.ceil(gs * m.top_k * m.capacity_factor / m.num_experts))
+        slots = (b // gs) * m.num_experts * cap
+        bf = 2 * 2 * slots * gs * d + 3 * 2 * slots * d * m.expert_d_ff
+        bf += mlp(m.shared_experts * m.expert_d_ff)[0] + (mlp(cfg.d_ff)[0]
+                                                          if m.dense_parallel else 0)
+        return bf, 2 * b * d * m.num_experts
+
+    def ssm():
+        s = cfg.ssm
+        inner = s.expand * d
+        heads, gn = inner // s.headdim, s.ngroups * s.d_state
+        bf = 2 * b * d * (2 * inner + 2 * gn + heads) + 2 * b * s.d_conv * (inner + 2 * gn) \
+            + 2 * b * inner * d
+        return bf, 6 * b * heads * s.headdim * s.d_state
+
+    def add(*parts):
+        return tuple(sum(x) for x in zip(*parts))
+
+    if cfg.family == "ssm":
+        layers = [ssm()] * cfg.num_layers
+    elif cfg.family == "hybrid":
+        groups, per, tail = lm_model.hybrid_layout(cfg)
+        layers = [ssm()] * (groups * per + tail) + [add(gqa(), mlp(cfg.d_ff))] * groups
+    else:
+        nd = cfg.moe.first_k_dense if cfg.moe else 0
+        attn = mla() if cfg.mla else gqa()
+        ffn = moe() if cfg.moe else mlp(cfg.d_ff)
+        layers = [add(attn, mlp(cfg.d_ff or cfg.moe.expert_d_ff))] * nd \
+            + [add(attn, ffn)] * (cfg.num_layers - nd)
+    bf16, fp32 = add(*layers)
+    return bf16, fp32 + 2 * b * d * cfg.padded_vocab
+
+
 def _lm_step_bound(runner: ModelRunner) -> dict:
     """The least time a decode step of ``runner`` can take on the card: the
-    bytes it must move (the compute-dtype weights it reads, the whole KV
-    cache it attends over, the fp32 logits it writes) over the data sheet's
-    HBM rate, against its operations (the products at the tensor cores'
-    bf16 peak, the fp32 scores and unembedding at the fp32 peak)."""
+    bytes it must move (the compute-dtype weights it reads, every cache it
+    attends over or updates, the fp32 logits it writes) over the data
+    sheet's HBM rate, against its operations (``_lm_step_ops``: the bf16
+    products at the tensor cores' bf16 peak, the fp32 work at the fp32
+    peak)."""
     cfg, b = runner.cfg, runner.slots
     weights = sum(x.numel() * x.element_size() for x in tree_leaves(runner.weights))
     cache = sum(x.numel() * x.element_size() for x in runner.cache.values())
     logits = b * cfg.padded_vocab * 4
-    t = runner.cache["k"].shape[2]
-    per_layer = 2 * cfg.d_model * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim_eff \
-        + 2 * cfg.num_heads * cfg.head_dim_eff * cfg.d_model \
-        + 2 * cfg.d_model * cfg.d_ff * (3 if cfg.gated_mlp else 2)
-    bf16_ops = b * cfg.num_layers * per_layer
-    scores = 2 * b * cfg.num_layers * cfg.num_heads * t * cfg.head_dim_eff
-    fp32_ops = scores + 2 * b * cfg.d_model * cfg.padded_vocab
-    pv_ops = scores  # probabilities by values, bf16
+    bf16_ops, fp32_ops = _lm_step_ops(cfg, b, lm_decode.cache_len(cfg, runner.max_len))
     bytes_ms = (weights + cache + logits) / HBM_BYTES_PER_S * 1e3
-    ops_ms = ((bf16_ops + pv_ops) / BF16_OPS_PER_S + fp32_ops / SCALAR_OPS_PER_S) * 1e3
+    ops_ms = (bf16_ops / BF16_OPS_PER_S + fp32_ops / SCALAR_OPS_PER_S) * 1e3
     return dict(weight_bytes=weights, cache_bytes=cache, logit_bytes=logits,
+                bf16_ops=bf16_ops, fp32_ops=fp32_ops,
                 bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                 hbm_rate="data sheet, 3.35 TB/s")
 
 
-def _lm_profile(runner: ModelRunner) -> dict:
-    """(b): LM_PROFILE_STEPS decode steps from LM_PROFILE_POS under
-    torch.profiler (two warm steps first), and the same steps timed
-    without it."""
+def _lm_profile(runner: ModelRunner, pos: int, n: int = LM_PROFILE_STEPS) -> dict:
+    """(b): ``n`` decode steps from ``pos`` under torch.profiler (two warm
+    steps first), and the same steps timed without it."""
     from torch.profiler import ProfilerActivity, profile
 
-    def steps(n):
+    def steps(k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(n):
+        for _ in range(k):
             runner.tick()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
+        return (time.perf_counter() - t0) * 1e3 / k
 
-    runner.pos = LM_PROFILE_POS
+    runner.pos = pos
     steps(2)
-    wall_ms = steps(LM_PROFILE_STEPS)
-    runner.pos = LM_PROFILE_POS
+    wall_ms = steps(n)
+    runner.pos = pos
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_ms = steps(LM_PROFILE_STEPS)
+        prof_ms = steps(n)
     busy_us, spans, by_name = _device_busy(prof)
-    busy_ms = busy_us / 1e3 / LM_PROFILE_STEPS
+    busy_ms = busy_us / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     # the torch ops that launched that device time (self time: a kernel
     # counts for the op that launched it), and their calls a step
-    ops = sorted(((e.key, e.self_device_time_total / 1e3 / LM_PROFILE_STEPS,
-                   e.count / LM_PROFILE_STEPS) for e in prof.key_averages()
+    ops = sorted(((e.key, e.self_device_time_total / 1e3 / n,
+                   e.count / n) for e in prof.key_averages()
                   if e.self_device_time_total > 0), key=lambda r: -r[1])[:10]
     bound = _lm_step_bound(runner)
     return dict(
-        positions=[LM_PROFILE_POS, LM_PROFILE_POS + LM_PROFILE_STEPS],
+        positions=[pos, pos + n],
         wall_ms_per_step=wall_ms, profiled_wall_ms_per_step=prof_ms,
         device_busy_ms_per_step=busy_ms,
         device_idle_share=1.0 - busy_ms / wall_ms,
         device_idle_share_profiled=1.0 - busy_ms / prof_ms,
-        device_ops_per_step=len(spans) / LM_PROFILE_STEPS,
-        top_device_ms_per_step=[[k[:90], v / LM_PROFILE_STEPS] for k, v in top],
-        top_ops_device_ms_and_calls_per_step=[[k, ms, n] for k, ms, n in ops],
+        device_ops_per_step=len(spans) / n,
+        top_device_ms_per_step=[[k[:90], v / n] for k, v in top],
+        top_ops_device_ms_and_calls_per_step=[[k, ms, c] for k, ms, c in ops],
         **bound, busy_over_bound=busy_ms / bound["bound_ms"],
     )
 
@@ -2707,43 +2843,36 @@ def _lm_runner_vs_cpu(runner: ModelRunner) -> dict:
     return out
 
 
-def phase_lm_serve() -> dict:
-    """Real-decode serving at qwen15_05b's full width: (a) the launcher's
-    loop, with the same engine on the plain match beside it, (b) one decode
-    step profiled, (e) the runner's own state on the card against the CPU,
-    (c) decode against the teacher-forced forward (qwen and llama3_8b,
-    fp32), (d) the card against the CPU."""
-    t_phase = time.perf_counter()
-    _reset_peak_memory()
-    t0 = time.perf_counter()
-    runner = ModelRunner(LM_ARCH, LM_SERVE["slots_per_pod"], max_len=LM_MAX_LEN, seed=0,
-                         cfg=lm_config(LM_ARCH), device=DEVICE)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+def _lm_serve_run(phase: str, runner: ModelRunner, requests: int, build_s: float) -> dict:
+    """(a) of phases lm_serve and lm_families: the launcher's loop with the
+    runner (the match kernels' counts set to 0 just before it and read just
+    after), the same engine on the plain match beside it, and the checks."""
+    cfg = runner.cfg
     held = torch.cuda.memory_allocated()
     match.match_tasks.launches = 0
     match.match_ranks.launches = 0
     match.match_ranks_batched.launches = 0
-    run = _lm_serve_loop(runner)
+    run = _lm_serve_loop(runner, requests)
     launches = dict(match_tasks=match.match_tasks.launches,
                     match_ranks=match.match_ranks.launches,
                     match_ranks_batched=match.match_ranks_batched.launches)
     eng, s = run["eng"], run["stats"].summary()
-    plain = _lm_plain_engine()
+    plain = _lm_plain_engine(requests)
     plain_equal = _engine_states_equal(_engine_state(eng), _engine_state(plain))
     check(match.match_tasks.launches == launches["match_tasks"],
-          "lm_serve: the plain engine launches no kernel")
+          f"{phase}: the plain engine launches no kernel")
     ticks = len(run["step_ms"])
     steady = run["step_ms"][LM_STEADY_FROM:]
     steady_ms = float(np.mean(steady))
     occupancy = run["occupied_lane_steps"] / (ticks * runner.slots)
     serve = dict(
-        arch=LM_ARCH, cfg=dict(layers=runner.cfg.num_layers, d_model=runner.cfg.d_model,
-                               heads=runner.cfg.num_heads, d_ff=runner.cfg.d_ff,
-                               padded_vocab=runner.cfg.padded_vocab,
-                               compute_dtype=str(runner.cfg.compute_dtype)),
-        **LM_SERVE, requests=LM_REQUESTS, arrival_per_tick=LM_ARRIVAL, mean_gen=LM_MEAN_GEN,
-        max_len=LM_MAX_LEN, completed=s["completed"], summary=s, engine_ticks=eng.stats.ticks,
+        arch=cfg.name, cfg=dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                                heads=cfg.num_heads, d_ff=cfg.d_ff,
+                                padded_vocab=cfg.padded_vocab,
+                                compute_dtype=str(cfg.compute_dtype)),
+        **LM_SERVE, requests=requests, arrival_per_tick=LM_ARRIVAL, mean_gen=LM_MEAN_GEN,
+        max_len=runner.max_len, completed=s["completed"], summary=s,
+        engine_ticks=eng.stats.ticks,
         decode_ticks=ticks, lanes=runner.slots, lane_steps=ticks * runner.slots,
         occupied_lane_steps=run["occupied_lane_steps"], lane_occupancy=occupancy,
         decode_ms_per_step=steady_ms, decode_ms_per_step_median=float(np.median(steady)),
@@ -2758,15 +2887,31 @@ def phase_lm_serve() -> dict:
         runner_build_s=build_s, memory_allocated_after_build=held,
         max_memory_allocated=torch.cuda.max_memory_allocated(),
     )
-    check(s["completed"] == LM_REQUESTS == s["placed"], "lm_serve: every request completed")
-    check(ticks == LM_MAX_LEN == runner.pos, "lm_serve: one decode tick per engine tick, "
+    check(s["completed"] == requests == s["placed"], f"{phase}: every request completed")
+    check(ticks == runner.max_len == runner.pos, f"{phase}: one decode tick per engine tick, "
           "to max_len")
-    check(run["finite"], "lm_serve: every logit of every decode tick is finite")
-    check(run["syncs"] == 0, "lm_serve: a decode tick makes no host sync")
+    check(run["finite"], f"{phase}: every logit of every decode tick is finite")
+    check(run["syncs"] == 0, f"{phase}: a decode tick makes no host sync")
     check(launches["match_tasks"] == eng.gm_rounds > 0,
-          "lm_serve: gm_round calls == single-row kernel launches")
-    check(plain_equal, "lm_serve: kernel and plain engines: identical stats and final state")
-    prof = _lm_profile(runner)
+          f"{phase}: gm_round calls == single-row kernel launches")
+    check(plain_equal, f"{phase}: kernel and plain engines: identical stats and final state")
+    return serve
+
+
+def phase_lm_serve() -> dict:
+    """Real-decode serving at qwen15_05b's full width: (a) the launcher's
+    loop, with the same engine on the plain match beside it, (b) one decode
+    step profiled, (e) the runner's own state on the card against the CPU,
+    (c) decode against the teacher-forced forward (qwen and llama3_8b,
+    fp32), (d) the card against the CPU."""
+    t_phase = time.perf_counter()
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    runner = ModelRunner(LM_ARCH, LM_SERVE["slots_per_pod"], max_len=LM_MAX_LEN, seed=0,
+                         cfg=lm_config(LM_ARCH), device=DEVICE)
+    torch.cuda.synchronize()
+    serve = _lm_serve_run("lm_serve", runner, LM_REQUESTS, time.perf_counter() - t0)
+    prof = _lm_profile(runner, LM_PROFILE_POS)
     check(prof["device_ops_per_step"] > 0, "the profiler saw the decode steps' device work")
     late = _lm_runner_vs_cpu(runner)
     del runner
@@ -2783,6 +2928,196 @@ def phase_lm_serve() -> dict:
                serve=serve, profile=prof, runner_vs_cpu=late, decode_vs_forward=checks,
                card_vs_cpu=cpu,
                phase_wall_s=time.perf_counter() - t_phase)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase lm_families: the MoE, MLA, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _routes():
+    """Every router call in the block, as (probabilities, top-k indices)
+    on the host (a spy on ``moe.route``; the copies read the card back, so
+    it stays out of timed or sync-counted runs)."""
+    calls, route = [], lm_moe.route
+
+    def spy(params, xg, cfg):
+        out = route(params, xg, cfg)
+        calls.append((out[0].cpu(), out[2].cpu()))
+        return out
+
+    lm_moe.route = spy
+    try:
+        yield calls
+    finally:
+        lm_moe.route = route
+
+
+def _flips(ref_probs, ref_idx, got_idx, k: int, gap: float) -> tuple[torch.Tensor, bool]:
+    """The tokens [N] whose top-k sets differ, and whether each such flip
+    sits where the reference side's k-th / (k+1)-th gap is below ``gap``."""
+    diff = (ref_idx.sort(-1).values != got_idx.sort(-1).values).any(-1)
+    top = ref_probs.sort(-1, descending=True).values
+    return diff, bool((top[..., k - 1] - top[..., k])[diff].lt(gap).all())
+
+
+def _lmf_config(arch: str, layers, dtype):
+    cfg = lm_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.moe:
+        cf = max(LMF_CAPACITY, cfg.moe.num_experts / cfg.moe.top_k)
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+    return dataclasses.replace(cfg, compute_dtype=dtype)
+
+
+def _lmf_decode_vs_forward(arch: str, layers, steps: int, dtype, bound: float) -> dict:
+    """(c): one full-width model alone on the card, weights drawn from a
+    seeded generator on the card: each decode step's logits against the
+    teacher-forced forward's at that position.  An MoE model's routing is
+    recorded on both paths; a lane is compared until its routing first
+    differs from the forward's, and a difference must sit at a gap below
+    LMF_FLIP_GAP."""
+    cfg = _lmf_config(arch, layers, dtype)
+    t0 = time.perf_counter()
+    lm = lm_model.LanguageModel(cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
+                                device=DEVICE)
+    build_s = time.perf_counter() - t0
+    b = LM_CHECK_BATCH
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), generator=gen,
+                         dtype=torch.int32).to(DEVICE)
+    with torch.inference_mode(), _routes() as calls:
+        hidden, _ = lm(dict(tokens=toks))
+        fwd = lm_layers.unembed_logits(lm_model._unembed_table(lm.tree(), cfg), hidden, cfg)
+        n_fwd = len(calls)
+        cache = lm_decode.init_cache(cfg, b, steps, DEVICE)
+        errs = []
+        for i in range(steps):
+            logits, cache = lm.decode_step(cache, toks[:, i:i + 1], i)
+            errs.append((logits - fwd[:, i]).abs().amax(-1))
+        errs = torch.stack(errs).cpu()                        # [steps, B]
+    clean, flips = torch.ones((steps, b), dtype=torch.bool), 0
+    for layer in range(n_fwd):  # one forward call per MoE layer, then steps x layers
+        probs, idx = (a.reshape(b, steps, -1) for a in calls[layer])
+        for i in range(steps):
+            diff, ok = _flips(probs[:, i], idx[:, i], calls[n_fwd + i * n_fwd + layer][1]
+                              .reshape(b, -1), cfg.moe.top_k, LMF_FLIP_GAP[dtype])
+            check(ok, f"{arch}: a routing flip at a gap >= {LMF_FLIP_GAP[dtype]}")
+            clean[i:, diff] = False
+            flips += int(diff.sum())
+    scale = max(1.0, float(fwd.abs().max()))
+    out = dict(arch=arch, layers=cfg.num_layers, compute_dtype=str(dtype),
+               params=sum(p.numel() for p in lm.parameters()),
+               param_bytes=sum(p.numel() * p.element_size() for p in lm.parameters()),
+               capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+               batch=b, steps=steps, max_abs_err=float(errs[clean].max()),
+               max_abs_err_all_lanes=float(errs.max()), compared_lane_steps=int(clean.sum()),
+               routing_flips=flips, max_abs_logit=float(fwd.abs().max()),
+               bound=bound * scale, finite=bool(torch.isfinite(fwd).all()),
+               build_s=build_s, peak_memory=torch.cuda.max_memory_allocated(),
+               wall_s=time.perf_counter() - t0)
+    check(out["finite"] and out["max_abs_err"] <= out["bound"]
+          and 2 * out["compared_lane_steps"] >= steps * b,
+          f"{arch}: decode matches the teacher-forced forward at full width")
+    return out
+
+
+def _lmf_card_vs_cpu(arch: str, layers) -> dict:
+    """(d): LM_CPU_STEPS fp32 decode steps of a full-width model on the
+    card and, with the same parameters moved to the CPU, on the CPU, the
+    routing recorded on both sides (the CPU is the reference side): the
+    logits held on every lane whose routing agrees."""
+    cfg = _lmf_config(arch, layers, torch.float32)
+    t0 = time.perf_counter()
+    card = lm_model.LanguageModel(cfg, generator=torch.Generator(device=DEVICE).manual_seed(3),
+                                  device=DEVICE).tree()
+    cpu_params = map_tree(card, lambda a: a.cpu())
+    b, steps = LM_CHECK_BATCH, LM_CPU_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (b, steps), generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    logits, routes = {}, {}
+    with torch.inference_mode():
+        for side, params, dev in (("card", card, DEVICE), ("cpu", cpu_params, "cpu")):
+            cache = lm_decode.init_cache(cfg, b, steps, dev)
+            with _routes() as calls:
+                out = []
+                for i in range(steps):
+                    lg, cache = lm_decode.decode_step(
+                        params, cache, {"tokens": toks[:, i:i + 1].to(dev), "pos": i}, cfg)
+                    out.append(lg.cpu())
+            logits[side], routes[side] = torch.stack(out), calls
+    clean, flips = torch.ones((steps, b), dtype=torch.bool), 0
+    per_step = len(routes["cpu"]) // steps
+    check(len(routes["card"]) == len(routes["cpu"]), f"{arch}: the same router calls")
+    for c, ((probs, idx), (_, got)) in enumerate(zip(routes["cpu"], routes["card"])):
+        diff, ok = _flips(probs.reshape(b, -1), idx.reshape(b, -1), got.reshape(b, -1),
+                          cfg.moe.top_k, LMF_FLIP_GAP[torch.float32])
+        check(ok, f"{arch}: card against CPU, a routing flip at a gap >= 1e-6")
+        clean[c // per_step:, diff] = False
+        flips += int(diff.sum())
+    err = (logits["card"] - logits["cpu"]).abs().amax(-1)      # [steps, B]
+    scale = max(1.0, float(logits["cpu"].abs().max()))
+    out = dict(arch=arch, layers=cfg.num_layers, batch=b, steps=steps,
+               max_abs_err=float(err[clean].max()) if clean.any() else None,
+               compared_lane_steps=int(clean.sum()), routing_flips=flips,
+               topk_card=[r[1].sort(-1).values.reshape(b, -1).tolist() for r in routes["card"]],
+               topk_cpu=[r[1].sort(-1).values.reshape(b, -1).tolist() for r in routes["cpu"]],
+               bound=LM_BOUND * scale, wall_s=time.perf_counter() - t0)
+    check(clean.any() and out["max_abs_err"] <= out["bound"],
+          f"{arch}: full-width decode, the card agrees with the CPU")
+    return out
+
+
+def phase_lm_families() -> dict:
+    """The MoE, MLA, SSM and hybrid families: (a) DeepSeek-V2-Lite served at
+    full width through the launcher's loop, with the same engine on the
+    plain match beside it, (b) one decode step profiled with its bound,
+    (c) decode against the teacher-forced forward, each model alone on the
+    card (deepseek, mamba2 and zamba2 whole in fp32, arctic's first layer
+    in bf16), (d) the card against the CPU (mamba2, deepseek's first two
+    layers), (e) the phase's wall against its budget."""
+    t_phase = time.perf_counter()
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    runner = ModelRunner(LMF_ARCH, LM_SERVE["slots_per_pod"], max_len=LMF_MAX_LEN, seed=0,
+                         cfg=lm_config(LMF_ARCH), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    serve = _lm_serve_run("lm_families", runner, LMF_REQUESTS, build_s)
+    serve.update(build_peak_memory=build_peak,
+                 latent_cache_bytes=sum(x.numel() * x.element_size()
+                                        for x in runner.cache.values()))
+    parts = dict(a=time.perf_counter() - t_phase)
+    prof = _lm_profile(runner, LMF_PROFILE_POS, LMF_PROFILE_STEPS)
+    check(prof["device_ops_per_step"] > 0, "lm_families: the profiler saw the decode steps")
+    del runner
+    torch.cuda.empty_cache()
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+    checks = []
+    for arch, layers, steps, dtype, bound in LMF_CHECKS:
+        _reset_peak_memory()
+        checks.append(_lmf_decode_vs_forward(arch, layers, steps, dtype, bound))
+        torch.cuda.empty_cache()
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    cpu = []
+    for arch, layers in LMF_CPU:
+        cpu.append(_lmf_card_vs_cpu(arch, layers))
+        torch.cuda.empty_cache()
+    parts["d"] = time.perf_counter() - t_phase - sum(parts.values())
+    wall = time.perf_counter() - t_phase
+    out = dict(phase="lm_families", entry="launch.serve ModelRunner.tick (--real-decode)",
+               serve=serve, profile=prof, decode_vs_forward=checks, card_vs_cpu=cpu,
+               reduced=dict(requests=[LMF_REQUESTS, LM_REQUESTS],
+                            decode_ticks=[LMF_MAX_LEN, LM_MAX_LEN],
+                            arctic_layers=[1, lm_config("arctic_480b").num_layers],
+                            deepseek_layers_card_vs_cpu=[2, lm_config(LMF_ARCH).num_layers]),
+               phase_wall_s=wall, part_walls_s=parts, budget_s=LMF_BUDGET_S,
+               within_budget=wall <= LMF_BUDGET_S)
     emit(out)
     return out
 
@@ -2842,6 +3177,7 @@ def main() -> int:
     elong = phase_eagle_long()
     serve = phase_serve()
     lm = phase_lm_serve()
+    lmf = phase_lm_families()
     phase_serve_profile()
     sdps = phase_sdps()
     phase_cpu_parity()
@@ -2897,6 +3233,7 @@ def main() -> int:
         + serve["kernel_launches"]["match_ranks"],
         launches_by_path=dict(serve=serve["kernel_launches"]["match_tasks"],
                               lm_serve=lm["serve"]["kernel_launches"]["match_tasks"],
+                              lm_families=lmf["serve"]["kernel_launches"]["match_tasks"],
                               sdps=sdps["kernel_launches"],
                               quickstart=ana["quickstart"]["kernel"]["kernel_launches"]),
         max_abs_err=max(single["sweep_err"], *(r["max_abs_err"] for r in single["rows"])),

@@ -12,9 +12,9 @@ places each request on a lane.  With --real-decode, one pod's lanes run an
 actual tiny-model decode (one token per engine tick per active lane, the
 arch's smoke config), demonstrating the full path: request -> Megha
 placement -> KV-cache decode -> completion -> slot reuse.  The engine and
-the model run on the CUDA card unless ``--device cpu`` is given.  The
-attention families (dense, vlm, audio) decode; an arch with MoE, MLA, SSM
-or hybrid layers raises ``NotImplementedError`` (ROADMAP item 15b).
+the model run on the CUDA card unless ``--device cpu`` is given.  Every
+arch decodes: the attention families (dense, vlm, audio), MoE (arctic),
+MLA with MoE (deepseek), SSM (mamba2) and hybrid (zamba2).
 """
 
 from __future__ import annotations
@@ -42,7 +42,10 @@ class ModelRunner:
     drawn from ``seed`` on the device.
     The compute-dtype copy of the weights is made once, here: bitwise what
     the reference's per-use casts compute; it is the only copy the runner
-    keeps.  A tick reads nothing back from the card."""
+    keeps.  Drawn weights are cast leaf by leaf as they are drawn
+    (``model.init_compute_params``), so the parameter-dtype tree is never
+    held whole (DeepSeek-V2-Lite's fp32 tree alone is 62.8 GB).  A tick
+    reads nothing back from the card."""
 
     def __init__(self, arch: str, slots: int, max_len: int = 64, seed: int = 0, *,
                  device: str | torch.device | None = None,
@@ -50,11 +53,12 @@ class ModelRunner:
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else smoke_config(get_config(arch))
         self.slots = slots
-        # only the compute-dtype copy is kept: the param-dtype tree is freed
-        # before the cache is allocated
-        self.weights = M.compute_params(M.LanguageModel(
-            self.cfg, params, device=self.device,
-            generator=torch.Generator(device=self.device).manual_seed(seed)).tree(), self.cfg)
+        if params is None:
+            self.weights = M.init_compute_params(
+                self.cfg, torch.Generator(device=self.device).manual_seed(seed), self.device)
+        else:
+            self.weights = M.compute_params(
+                M.LanguageModel(self.cfg, params, device=self.device).tree(), self.cfg)
         self.cache = D.init_cache(self.cfg, slots, max_len, self.device)
         self.tokens = torch.ones((slots, 1), dtype=torch.int32, device=self.device)
         self.logits: torch.Tensor | None = None

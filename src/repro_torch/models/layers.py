@@ -1,5 +1,5 @@
 """Core transformer building blocks as (schema, apply) function pairs (port
-of ``repro/models/layers.py`` for the attention families).
+of ``repro/models/layers.py``).
 
 Every module exposes ``<name>_schema(cfg, ...) -> Schema`` and a plain
 ``<name>_apply(params, ...)`` on tensors; params are nested dicts of

@@ -1,26 +1,27 @@
-"""Model assembly (port of ``repro/models/model.py`` for the attention
-families): schema, forward and last-position logits.
+"""Model assembly (port of ``repro/models/model.py``): schema, forward and
+last-position logits for every family.
 
-The families this port runs:
+One generic stack covers all 10 architectures:
 
   dense   — pre-norm GQA attention + (SwiGLU|GeGLU) MLP
+  moe     — attention + MoE FFN (optional leading dense layers, shared
+            experts, parallel dense branch)
+  mla     — DeepSeek MLA attention replaces GQA
+  ssm     — Mamba2 SSD blocks, attention-free
+  hybrid  — Zamba2: groups of SSD blocks + one *shared-weight* attention
+            block applied after each group
   audio   — HuBERT-style encoder-only (bidirectional, frame-embedding stub)
   vlm     — LLaVA-style: projected patch embeddings prepended to the token
             stream, causal LM on top
 
-The families with MoE, MLA, SSM or hybrid layers (arctic, deepseek, mamba2,
-zamba2) raise ``NotImplementedError`` naming ROADMAP item 15b, at schema,
-forward, cache and decode time.
-
 Layers are stacked on a leading "layers" axis, as in the reference, so its
 parameter trees carry across one to one (``schema.params_from_numpy``).
 ``forward`` walks them with a Python loop over per-layer views
-(``layer_views``): that loop stands for both values of ``scan_layers``
-(``lax.scan`` and the reference's unrolled loop compute the same thing).
-For these families the reference's ``_dense_block_schema`` /
-``_dense_block_apply`` (DeepSeek's leading dense layers, zamba2's shared
-block) are the attention block itself; they come with item 15b.
-``remat`` / ``_maybe_remat`` and ``loss_fn`` are training (item 15d).
+(``layer_views``) in place of ``_scan_blocks``: that loop stands for both
+values of ``scan_layers`` (``lax.scan`` and the reference's unrolled loop
+compute the same thing), for the blocks, DeepSeek's leading dense blocks,
+the hybrid's groups and its tail alike.  ``remat`` / ``_maybe_remat`` and
+``loss_fn`` are training (ROADMAP item 15d).
 
 ``LanguageModel`` is the ``nn.Module`` face of the same functions: it holds
 the parameter tree and serves ``forward``, ``logits_last`` and
@@ -35,6 +36,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.schema import (
     ParamDef,
     Schema,
@@ -47,18 +51,6 @@ from repro_torch.models.schema import (
 
 PATCH_DIM = 1024   # vision-tower stub output dim (CLIP-L/14-like)
 FRAME_DIM = 512    # audio conv-frontend stub output dim
-
-#: the families whose every block is GQA attention + an MLP
-ATTENTION_FAMILIES = ("dense", "vlm", "audio")
-
-
-def require_attention_family(cfg: ModelConfig, what: str) -> None:
-    """Raise for an architecture whose layers this port does not have yet."""
-    if cfg.family not in ATTENTION_FAMILIES or cfg.moe or cfg.mla or cfg.ssm:
-        raise NotImplementedError(
-            f"{what} for {cfg.name} (family {cfg.family!r}: MoE, MLA, SSM or hybrid "
-            "layers) is not ported yet (ROADMAP.md queue 1, item 15b)"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -74,12 +66,33 @@ def stack_schema(n: int, sch: Schema) -> Schema:
 
 
 def _attn_block_schema(cfg: ModelConfig) -> Schema:
-    return {"ln1": L.rmsnorm_schema(cfg.d_model), "attn": L.attention_schema(cfg),
-            "ln2": L.rmsnorm_schema(cfg.d_model), "ffn": L.mlp_schema(cfg)}
+    attn = MLA.mla_schema(cfg) if cfg.mla else L.attention_schema(cfg)
+    return {"ln1": L.rmsnorm_schema(cfg.d_model), "attn": attn,
+            "ln2": L.rmsnorm_schema(cfg.d_model),
+            "ffn": MOE.moe_schema(cfg) if cfg.moe else L.mlp_schema(cfg)}
+
+
+def _dense_block_schema(cfg: ModelConfig) -> Schema:
+    """Plain dense block (used for DeepSeek's leading non-MoE layers)."""
+    attn = MLA.mla_schema(cfg) if cfg.mla else L.attention_schema(cfg)
+    return {"ln1": L.rmsnorm_schema(cfg.d_model), "attn": attn,
+            "ln2": L.rmsnorm_schema(cfg.d_model),
+            "ffn": L.mlp_schema(cfg, d_ff=cfg.d_ff or cfg.moe.expert_d_ff)}
+
+
+def _ssm_block_schema(cfg: ModelConfig) -> Schema:
+    return {"ln": L.rmsnorm_schema(cfg.d_model), "ssm": SSM.ssm_schema(cfg)}
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(num_groups, layers_per_group, tail) for hybrid archs."""
+    per = cfg.attn_every
+    groups = cfg.num_layers // per
+    tail = cfg.num_layers - groups * per
+    return groups, per, tail
 
 
 def model_schema(cfg: ModelConfig) -> Schema:
-    require_attention_family(cfg, "the parameter schema")
     sch: Schema = {"embed": L.embed_schema(cfg),
                    "final_norm": L.rmsnorm_schema(cfg.d_model)}
     if not cfg.tie_embeddings:
@@ -95,7 +108,25 @@ def model_schema(cfg: ModelConfig) -> Schema:
         sch["frontend_proj"] = {
             "w": ParamDef((FRAME_DIM, cfg.d_model), (None, "embed"), dtype=cfg.param_dtype)
         }
-    sch["blocks"] = stack_schema(cfg.num_layers, _attn_block_schema(cfg))
+
+    if cfg.family == "ssm":
+        sch["blocks"] = stack_schema(cfg.num_layers, _ssm_block_schema(cfg))
+    elif cfg.family == "hybrid":
+        groups, per, tail = hybrid_layout(cfg)
+        sch["groups"] = stack_schema(groups, stack_schema(per, _ssm_block_schema(cfg)))
+        if tail:
+            sch["tail"] = stack_schema(tail, _ssm_block_schema(cfg))
+        sch["shared_attn"] = {"ln1": L.rmsnorm_schema(cfg.d_model),
+                              "attn": L.attention_schema(cfg),
+                              "ln2": L.rmsnorm_schema(cfg.d_model),
+                              "ffn": L.mlp_schema(cfg)}
+    else:
+        n_moe_first_dense = cfg.moe.first_k_dense if cfg.moe else 0
+        if n_moe_first_dense:
+            sch["dense_blocks"] = stack_schema(n_moe_first_dense, _dense_block_schema(cfg))
+        sch["blocks"] = stack_schema(
+            cfg.num_layers - n_moe_first_dense, _attn_block_schema(cfg)
+        )
     return sch
 
 
@@ -109,10 +140,28 @@ def layer_views(blocks: dict) -> list[dict]:
     return [map_tree(blocks, lambda a, i=i: a[i]) for i in range(n)]
 
 
+def _attention(bp, x, cfg: ModelConfig, positions):
+    apply = MLA.mla_apply if cfg.mla else L.attention_apply
+    return apply(bp["attn"], L.rmsnorm_apply(bp["ln1"], x), cfg, positions)
+
+
 def _attn_block_apply(bp, x, cfg: ModelConfig, positions):
-    a = L.attention_apply(bp["attn"], L.rmsnorm_apply(bp["ln1"], x), cfg, positions)
-    x = x + a
+    x = x + _attention(bp, x, cfg, positions)
+    h = L.rmsnorm_apply(bp["ln2"], x)
+    if "router" in bp["ffn"]:  # MoE
+        y, aux = MOE.moe_apply(bp["ffn"], h, cfg)
+    else:
+        y, aux = L.mlp_apply(bp["ffn"], h, cfg), None
+    return x + y, aux
+
+
+def _dense_block_apply(bp, x, cfg: ModelConfig, positions):
+    x = x + _attention(bp, x, cfg, positions)
     return x + L.mlp_apply(bp["ffn"], L.rmsnorm_apply(bp["ln2"], x), cfg)
+
+
+def _ssm_block_apply(bp, x, cfg: ModelConfig):
+    return x + SSM.ssm_apply(bp["ssm"], L.rmsnorm_apply(bp["ln"], x), cfg)
 
 
 def embed_inputs(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -128,14 +177,29 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def forward(params, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (hidden [B,S,d], moe_aux_loss); the aux loss is 0 for the
-    attention families (it comes from MoE routing)."""
-    require_attention_family(cfg, "the forward pass")
+    """Returns (hidden [B,S,d], moe_aux_loss): the aux loss sums the MoE
+    layers' (0 without MoE)."""
     x = embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for bp in layer_views(params["blocks"]):
-        x = _attn_block_apply(bp, x, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family == "ssm":
+        for bp in layer_views(params["blocks"]):
+            x = _ssm_block_apply(bp, x, cfg)
+    elif cfg.family == "hybrid":
+        for gp in layer_views(params["groups"]):
+            for bp in layer_views(gp):
+                x = _ssm_block_apply(bp, x, cfg)
+            x = _dense_block_apply(params["shared_attn"], x, cfg, positions)
+        for bp in layer_views(params["tail"]) if "tail" in params else ():
+            x = _ssm_block_apply(bp, x, cfg)
+    else:
+        for bp in layer_views(params["dense_blocks"]) if "dense_blocks" in params else ():
+            x = _dense_block_apply(bp, x, cfg, positions)
+        for bp in layer_views(params["blocks"]):
+            x, a = _attn_block_apply(bp, x, cfg, positions)
+            if a is not None:
+                aux = aux + a
     return L.rmsnorm_apply(params["final_norm"], x), aux
 
 
@@ -151,24 +215,51 @@ def logits_last(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def param_counts(cfg: ModelConfig) -> tuple[int, int]:
-    """(total, active) parameter counts; for the attention families every
-    parameter is active (only MoE leaves experts unrouted)."""
+    """(total, active) parameter counts; active excludes unrouted experts."""
     total = param_count(model_schema(cfg))
-    return total, total
+    active = total
+    if cfg.moe:
+        n_moe = cfg.num_layers - cfg.moe.first_k_dense
+        per_expert = 3 * cfg.d_model * cfg.moe.expert_d_ff
+        active -= n_moe * (cfg.moe.num_experts - cfg.moe.top_k) * per_expert
+    return total, active
+
+
+#: the leaves every use reads in fp32 (the norm scales, MLA's latent norm,
+#: the SSM's gated norm, decay, skip and step bias): ``compute_params``
+#: keeps them in their parameter dtype
+FP32_READ = frozenset({"scale", "kv_norm", "norm", "A_log", "D", "dt_bias"})
+
+
+def compute_leaf(name: str, v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Leaf ``name`` as its uses cast it: unchanged if read in fp32, else
+    in the compute dtype."""
+    return v if name in FP32_READ else v.to(cfg.compute_dtype)
 
 
 def compute_params(params: dict, cfg: ModelConfig) -> dict:
     """The weights as every use casts them, made once: each leaf in the
-    compute dtype but the norm scales, which the norms read in fp32.
-    Bitwise what the reference's per-use ``.astype`` computes."""
-    return {k: compute_params(v, cfg) if isinstance(v, dict)
-            else v if k == "scale" else v.to(cfg.compute_dtype)
+    compute dtype but those read in fp32 (``FP32_READ``), kept in their
+    parameter dtype.  Bitwise what the reference's per-use ``.astype``
+    computes."""
+    return {k: compute_params(v, cfg) if isinstance(v, dict) else compute_leaf(k, v, cfg)
             for k, v in params.items()}
+
+
+def init_compute_params(cfg: ModelConfig, generator: torch.Generator,
+                        device: str | torch.device | None = None) -> dict:
+    """``compute_params(init_params(model_schema(cfg), generator, device),
+    cfg)`` without holding the parameter-dtype tree: each leaf is drawn in
+    ``_leaf_paths`` order, as ``init_params`` draws it, and cast as it is
+    drawn.  The same draws, bitwise the same tree."""
+    return init_params(model_schema(cfg), generator, device,
+                       transform=lambda path, v: compute_leaf(path[-1], v, cfg))
 
 
 class LanguageModel(nn.Module):
     """The parameter tree of one architecture as an ``nn.Module``: nested
-    ``nn.ModuleDict`` / ``nn.ParameterDict`` under the schema's keys.
+    modules under the schema's keys, each holding its node's leaves as
+    parameters.
 
     ``params`` (a tree of tensors, e.g. the reference's carried across with
     ``schema.params_from_numpy``; moved to ``device`` when one is given) or
@@ -185,11 +276,9 @@ class LanguageModel(nn.Module):
             if generator is None:
                 raise TypeError("LanguageModel needs params or a torch.Generator to draw them")
             params = init_params(model_schema(cfg), generator, resolve_device(device))
-        else:
-            require_attention_family(cfg, "the parameter schema")
-            if device is not None:
-                dev = resolve_device(device)
-                params = map_tree(params, lambda a: a.to(dev))
+        elif device is not None:
+            dev = resolve_device(device)
+            params = map_tree(params, lambda a: a.to(dev))
         self.params = _module_tree(params)
         self.requires_grad_(False)
 
@@ -212,14 +301,18 @@ class LanguageModel(nn.Module):
 
 
 def _module_tree(tree: dict) -> nn.Module:
-    # a schema node holds either sub-trees or leaves, never both
-    if any(isinstance(v, dict) for v in tree.values()):
-        return nn.ModuleDict({k: _module_tree(v) for k, v in tree.items()})
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in tree.items()})
+    """A schema node as a module: its leaves as parameters, its sub-trees as
+    sub-modules (an MoE node holds both: the experts and ``shared``)."""
+    node = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            node.add_module(k, _module_tree(v))
+        else:
+            node.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return node
 
 
 def _plain_tree(mod: nn.Module) -> dict:
-    if isinstance(mod, nn.ParameterDict):
-        return {k: p.data for k, p in mod.items()}
-    return {k: _plain_tree(m) for k, m in mod.items()}
+    out = {k: p.data for k, p in mod.named_parameters(recurse=False)}
+    out.update({k: _plain_tree(m) for k, m in mod.named_children()})
+    return out

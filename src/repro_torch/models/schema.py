@@ -96,16 +96,20 @@ def _init_leaf(pd: ParamDef, generator: torch.Generator, device: torch.device) -
 
 
 def init_params(schema: Schema, generator: torch.Generator,
-                device: str | torch.device | None = None) -> dict:
+                device: str | torch.device | None = None, *,
+                transform: Callable[[tuple, torch.Tensor], torch.Tensor] | None = None) -> dict:
     """Concrete parameters on ``device``, drawn leaf by leaf in
-    ``_leaf_paths`` order from ``generator`` (which lives on that device)."""
+    ``_leaf_paths`` order from ``generator`` (which lives on that device).
+    ``transform(path, leaf)``, when given, replaces each leaf as soon as it
+    is drawn (so a cast copy never holds the drawn tree whole)."""
     dev = resolve_device(device)
     out: dict = {}
     for path, pd in _leaf_paths(schema):
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _init_leaf(pd, generator, dev)
+        leaf = _init_leaf(pd, generator, dev)
+        node[path[-1]] = leaf if transform is None else transform(path, leaf)
     return out
 
 

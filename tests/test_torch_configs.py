@@ -1,8 +1,8 @@
 """The port's architecture configs (``repro_torch.configs``) against the
 reference's (``repro.configs``): every arch's ``CONFIG``, ``smoke_config``
 and ``applicable_shapes`` field by field (the ``jnp`` dtypes mapped to torch
-dtypes), the derived properties, and ``param_counts`` of the full configs
-for the attention families; the other families raise naming item 15b."""
+dtypes), the derived properties, and ``param_counts`` (total and active) of
+every full config."""
 
 import dataclasses
 
@@ -16,10 +16,6 @@ from repro_torch import configs
 from repro_torch.models import model
 
 ARCHS = jax_configs.list_archs()
-#: the families this port runs, and the archs whose layers wait for item 15b
-ATTENTION_ARCHS = ("qwen15_05b", "llama3_8b", "gemma_7b", "stablelm_12b",
-                   "llava_next_mistral_7b", "hubert_xlarge")
-LATER_ARCHS = ("mamba2_13b", "zamba2_7b", "arctic_480b", "deepseek_v2_lite_16b")
 DTYPE_FIELDS = ("param_dtype", "compute_dtype", "cache_dtype")
 
 
@@ -83,10 +79,11 @@ def test_get_config_names():
         configs.get_config("gpt2")
 
 
-@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_param_counts_match_reference(arch):
     """qwen 0.464 B, llama 8.03 B, gemma 8.54 B, stablelm 12.14 B, llava
-    7.25 B, hubert 0.946 B: the reference's counts exactly."""
+    7.25 B, hubert 0.946 B, and the MoE, MLA, SSM and hybrid families'
+    totals and active counts: the reference's counts exactly."""
     got = model.param_counts(configs.get_config(arch))
     assert got == jax_model.param_counts(jax_configs.get_config(arch))
 
@@ -97,8 +94,14 @@ def test_qwen_full_width_counts():
     assert configs.get_config("qwen15_05b").padded_vocab == 152_064
 
 
-@pytest.mark.parametrize("arch", LATER_ARCHS)
-def test_later_families_raise_naming_item_15b(arch):
-    for cfg in (configs.get_config(arch), configs.smoke_config(configs.get_config(arch))):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            model.param_counts(cfg)
+def test_moe_full_width_counts():
+    """DeepSeek-V2-Lite: 15.7 B parameters, 2.66 B active (6 of 64 routed
+    experts and the 2 shared); arctic: 477 B, 15.6 B active; the SSM and
+    hybrid families have no unrouted parameters."""
+    total, active = model.param_counts(configs.get_config("deepseek_v2_lite_16b"))
+    assert (round(total / 1e9, 1), round(active / 1e9, 2)) == (15.7, 2.66)
+    total, active = model.param_counts(configs.get_config("arctic_480b"))
+    assert (round(total / 1e9), round(active / 1e9, 1)) == (477, 15.6)
+    for arch in ("mamba2_13b", "zamba2_7b"):
+        total, active = model.param_counts(configs.get_config(arch))
+        assert total == active

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jax_configs
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.launch import serve as jax_serve
@@ -138,18 +139,19 @@ def test_ring_buffer_past_the_wrap(dtype):
 
 
 def test_cache_spec_and_refusals():
-    cfg = smoke_config(get_config("llama3_8b"))
-    spec = D.cache_spec(cfg, 3, 40)
-    ref = JD.cache_spec(jax_smoke_config(jax_get_config("llama3_8b")), 3, 40)
-    for k in ("k", "v"):
-        assert spec[k] == (ref[k].shape, torch.bfloat16)
-    assert set(spec) == set(ref)
-    for arch in ("mamba2_13b", "zamba2_7b", "arctic_480b", "deepseek_v2_lite_16b"):
-        c = smoke_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            D.init_cache(c, 2, 8, "cpu")
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            D.decode_step({}, {}, {"tokens": None, "pos": 0}, c)
+    """Every arch's cache at the smoke size: the reference's names, shapes
+    and dtypes (k / v, the latents, the SSM states in fp32 and the conv
+    windows, the hybrid's groups and ring buffers); nothing is refused."""
+    for arch in jax_configs.list_archs():
+        cfg = smoke_config(get_config(arch))
+        spec = D.cache_spec(cfg, 3, 40)
+        ref = JD.cache_spec(jax_smoke_config(jax_get_config(arch)), 3, 40)
+        assert set(spec) == set(ref), arch
+        for k, (shape, dt) in spec.items():
+            assert (shape, dt) == (ref[k].shape, getattr(torch, jnp.dtype(ref[k].dtype).name))
+        cache = D.init_cache(cfg, 3, 40, "cpu")
+        assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == spec, arch
+        assert all(not v.any() for v in cache.values())
 
 
 def test_language_model_decode_step():
@@ -208,8 +210,12 @@ def test_model_runner_stops_at_max_len_and_argmax_ties():
 
 
 def test_model_runner_needs_a_card_by_default(monkeypatch):
+    """Without a card the runner raises unless asked for the CPU, for every
+    family; asked for the CPU, it runs."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ModelRunner("qwen15_05b", 4)
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        ModelRunner("deepseek_v2_lite_16b", 4, device="cpu")
+    for arch in ("qwen15_05b", "deepseek_v2_lite_16b", "mamba2_13b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ModelRunner(arch, 4)
+    runner = ModelRunner("deepseek_v2_lite_16b", 4, max_len=2, device="cpu")
+    runner.tick()
+    assert runner.pos == 1 and runner.logits.device.type == "cpu"

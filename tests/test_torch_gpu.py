@@ -817,3 +817,89 @@ def test_model_runner_tick_makes_no_host_sync():
     assert c.count == 0, c.sites
     assert runner.pos == 5 and runner.tokens.is_cuda and runner.tokens.dtype == torch.int32
     assert bool(torch.isfinite(runner.logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the MoE, MLA, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("arctic_480b", "deepseek_v2_lite_16b", "mamba2_13b", "zamba2_7b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_decode_on_the_card_matches_the_cpu(arch, monkeypatch):
+    """forward and 8 decode steps of the smoke config in fp32 (TF32 off),
+    B = 2, on the card and on the CPU from the same parameters (the fp32
+    norms, decays and biases moved off their init): hidden states, logits
+    and every cache within 2e-4; the MoE's routing equal on both sides
+    (capacity factor 16: nothing dropped)."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import decode as D
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.schema import init_params, map_tree
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), compute_dtype=torch.float32)
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    gen = torch.Generator().manual_seed(1)
+
+    def perturbed(tree):
+        return {k: perturbed(v) if isinstance(v, dict) else
+                v + 0.1 * torch.randn(v.shape, generator=gen) if k in M.FP32_READ else v
+                for k, v in tree.items()}
+
+    cpu = perturbed(init_params(M.model_schema(cfg), gen, "cpu"))
+    card = map_tree(cpu, lambda a: a.cuda())
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    routes = {"cpu": [], "cuda": []}
+    route = MOE.route
+
+    def spy(params, xg, c):
+        out = route(params, xg, c)
+        routes[xg.device.type].append(out[2].cpu())
+        return out
+
+    monkeypatch.setattr(MOE, "route", spy)
+    want = M.forward(cpu, {"tokens": toks}, cfg)[0]
+    got = M.forward(card, {"tokens": toks.cuda()}, cfg)[0]
+    assert float((got.cpu() - want).abs().max()) <= 2e-4
+    caches = {"cpu": D.init_cache(cfg, 2, 8, "cpu"), "cuda": D.init_cache(cfg, 2, 8, "cuda")}
+    for i in range(8):
+        want, caches["cpu"] = D.decode_step(cpu, caches["cpu"], {"tokens": toks[:, i:i + 1],
+                                                                 "pos": i}, cfg)
+        got, caches["cuda"] = D.decode_step(card, caches["cuda"],
+                                            {"tokens": toks[:, i:i + 1].cuda(), "pos": i}, cfg)
+        assert float((got.cpu() - want).abs().max()) <= 2e-4, i
+    for k, ref in caches["cpu"].items():
+        assert float((caches["cuda"][k].cpu().float() - ref.float()).abs().max()) <= 2e-4, k
+    n_moe = cfg.num_layers - cfg.moe.first_k_dense if cfg.moe else 0
+    assert len(routes["cpu"]) == len(routes["cuda"]) == 9 * n_moe
+    assert all(torch.equal(a.sort(-1).values, b.sort(-1).values)
+               for a, b in zip(routes["cpu"], routes["cuda"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_runner_tick_makes_no_host_sync(arch):
+    """``ModelRunner.tick`` reads nothing back from the card for the MoE,
+    MLA, SSM and hybrid families either: the routing, the dispatch and
+    every in-place cache write stay on the card."""
+    _need_card()
+    from repro_torch.analysis.sentinels import count_syncs
+    from repro_torch.launch.serve import ModelRunner
+
+    runner = ModelRunner(arch, 16, max_len=8)
+    runner.tick()
+    torch.cuda.synchronize()
+    with count_syncs() as c:
+        for _ in range(4):
+            runner.tick()
+    assert c.count == 0, c.sites
+    assert runner.pos == 5 and bool(torch.isfinite(runner.logits).all())

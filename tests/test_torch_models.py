@@ -36,6 +36,9 @@ F32_BOUND = 2e-4
 BF16_BOUND = 0.025
 ARCHS = ("qwen15_05b", "llama3_8b", "gemma_7b", "stablelm_12b", "llava_next_mistral_7b",
          "hubert_xlarge")
+#: every arch: the MoE, MLA, SSM and hybrid families' layers are in
+#: ``test_torch_{moe,mla,ssm,hybrid}.py``
+ALL_ARCHS = ARCHS + ("arctic_480b", "deepseek_v2_lite_16b", "mamba2_13b", "zamba2_7b")
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
@@ -214,7 +217,7 @@ def test_forward_and_logits_last(arch, dtype):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_shapes_dtypes_and_draws(arch):
     """The same shapes and dtypes as the reference's ``abstract_params``;
     zeros and ones exact; each drawn leaf's std within 5 % of its rule."""
@@ -288,13 +291,3 @@ def test_compute_params_cast_once():
     assert cp["blocks"]["attn"]["wq"].dtype == torch.bfloat16
     batch = {"tokens": torch.from_numpy(_batch(cfg)["tokens"])}
     assert torch.equal(M.logits_last(cp, batch, cfg), M.logits_last(tp, batch, cfg))
-
-
-@pytest.mark.parametrize("arch", ["mamba2_13b", "zamba2_7b", "arctic_480b",
-                                  "deepseek_v2_lite_16b"])
-def test_later_families_raise(arch):
-    cfg = smoke_config(get_config(arch))
-    for fn in (lambda: M.model_schema(cfg), lambda: M.forward({}, {}, cfg),
-               lambda: M.LanguageModel(cfg, generator=torch.Generator(), device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            fn()

@@ -209,18 +209,17 @@ def test_serve_launcher_matches_reference_engine_loop(capsys):
 
 
 def test_serve_launcher_refuses_what_is_not_ported(monkeypatch):
-    """``--real-decode`` runs the attention families; an arch with MoE,
-    MLA, SSM or hybrid layers raises naming item 15b, and no card without
-    ``--device cpu`` raises too."""
-    for arch in ("deepseek_v2_lite_16b", "arctic_480b", "mamba2_13b", "zamba2_7b"):
-        with pytest.raises(NotImplementedError, match="item 15b"):
-            launch_serve.main(["--arch", arch, "--real-decode", "--device", "cpu",
-                               "--requests", "8"])
+    """Nothing runs on the CPU unless asked: with no card, the engine and
+    the runner raise without ``--device cpu``, for every family."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.MeghaServeEngine()
+    for arch in ("qwen15_05b", "deepseek_v2_lite_16b", "arctic_480b", "mamba2_13b",
+                 "zamba2_7b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_serve.ModelRunner(arch, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        launch_serve.ModelRunner("qwen15_05b", 4)
+        launch_serve.main(["--arch", "mamba2_13b", "--real-decode", "--requests", "8"])
 
 
 def _summary_lines(out: str) -> list[str]:
@@ -246,6 +245,33 @@ def test_serve_launcher_real_decode_matches_reference(argv, capsys, monkeypatch)
     assert "real decode: " in port_out.splitlines()[-1]
     requests = int(argv[argv.index("--requests") + 1]) if "--requests" in argv else 200
     assert got["completed"] == requests
+
+
+@pytest.mark.parametrize("arch", ["arctic_480b", "deepseek_v2_lite_16b", "mamba2_13b",
+                                  "zamba2_7b"])
+def test_serve_launcher_real_decode_later_families(arch, capsys, monkeypatch):
+    """``--real-decode`` for the MoE, MLA, SSM and hybrid families on the
+    CPU: the reference launcher's lines, every request completed, and the
+    runner's last logits finite."""
+    argv = ["--real-decode", "--arch", arch, "--requests", "40", "--slots", "8", "--seed", "1"]
+    runners = []
+    init = launch_serve.ModelRunner.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        runners.append(self)
+
+    monkeypatch.setattr(launch_serve.ModelRunner, "__init__", keep)
+    got = launch_serve.main(argv + ["--device", "cpu"])
+    port_out = capsys.readouterr().out
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    jax_serve.main()
+    ref_out = capsys.readouterr().out
+    assert _summary_lines(port_out) == _summary_lines(ref_out)
+    assert port_out.splitlines()[-1].endswith(f"on 8 lanes ({arch} smoke config)")
+    assert got["completed"] == 40
+    (runner,) = runners
+    assert runner.pos > 0 and bool(torch.isfinite(runner.logits).all())
 
 
 def test_torch_serve_cluster_example(capsys, monkeypatch):
