@@ -130,7 +130,7 @@ JSON line per phase:
                as one run with provenance=True: requeues equal the lost
                tasks and match the Fig. 4 grid's point, fault rework above 0
   eagle_long   eagle on google_like_trace() (10,000 jobs, 312,558 tasks)
-               at 13,000 workers until 50 s through run_simulation: SSS
+               at 13,000 workers until 12.5 s through run_simulation: SSS
                rejections and central long launches, kernel and plain
                final states bitwise equal, two launches a round
   serve        the serving engine (8 frontends x 8 pods x 6,248 slots),
@@ -140,8 +140,8 @@ JSON line per phase:
   lm_serve     real-decode serving at qwen15_05b's full width (24 layers,
                d_model 1,024, bf16 compute): (a) the launcher's
                --real-decode loop (2 frontends x 2 pods x 128 slots,
-               Poisson(16) requests a tick to 8,192), one pod's 128 lanes
-               decoding 512 ticks against a 512-token KV cache
+               Poisson(16) requests a tick to 4,160), one pod's 128 lanes
+               decoding 256 ticks against a 256-token KV cache
                (ModelRunner): every request completed, every logit finite,
                no host sync in a decode tick, match_tasks launches = gm_round
                calls, the same engine on the plain match with identical
@@ -152,7 +152,7 @@ JSON line per phase:
                16 decode steps under torch.profiler: device busy and idle
                share, ops per step, the top kernels and torch ops, the
                step's byte and operations bounds; (e) two of the runner's
-               ticks from position 500 (all 128 lanes, its bf16 weights and
+               ticks from position 250 (all 128 lanes, its bf16 weights and
                cache) against the same on the CPU, logits and written cache
                rows within 0.02 x max(1, max |value|); (c) decode against the
                teacher-forced forward at full width in fp32 for qwen15_05b
@@ -164,8 +164,8 @@ JSON line per phase:
                width (27 layers, d_model 2,048, MLA rank 512 + 64 rope, 64
                experts top 6 + 2 shared, one leading dense layer, vocab
                padded to 102,400, bf16, weights drawn leaf by leaf from
-               seed 0) on lm_serve's engine to 4,160 requests, 128 lanes
-               decoding 256 ticks against a 256-token latent cache: the
+               seed 0) on lm_serve's engine to 2,112 requests, 128 lanes
+               decoding 128 ticks against a 128-token latent cache: the
                same checks as lm_serve's (a) (every request completed,
                one decode tick per engine tick to max_len, no host sync
                in a decode tick, every logit finite, match_tasks launches
@@ -191,6 +191,36 @@ JSON line per phase:
                the logits within 2e-4 x max(1, max |logit|) on every lane
                whose routing agrees (a flip only at a CPU-side gap below
                1e-6); (e) the phase's wall against its 90 s budget
+  train        training (``repro_torch.train``): (a) qwen15_05b at its
+               full width (24 layers, d_model 1,024, vocab padded to
+               152,064, tied embeddings; fp32 parameters and moments, bf16
+               compute, remat "full", loss chunk 512) trained 6 steps
+               through ``train_loop`` on the port's pipeline at seq 4,096,
+               global batch 8 in 4 microbatches (32,768 tokens a step),
+               AdamW at lr 3e-4 with 2 warmup steps, a checkpoint every 3
+               steps under the gitignored build directory: loss and grad
+               norm finite at every step, the loss at step 6 below step
+               1's (fresh batches: within their noise), the step counter
+               at 6, no host sync inside a step; ms a step by CUDA events
+               over steps 3-6, tokens a second, 6 N D model FLOPs against
+               the bf16 dense peak, peak memory, each checkpoint's save
+               time; step 2 also under torch.profiler (the card alone):
+               device busy and idle share, the top kernels; (b) restart: a
+               second ``train_loop`` to 7 steps restores LATEST (step 6)
+               through ``restore(like=)``, bitwise the in-memory state after
+               step 6, and ends at step 7; its step (step 1's batch again:
+               the loop's data starts over, as in the reference) at least
+               0.1 nats below step 1's loss on that batch; (c) one train
+               step on the card against the same step on the CPU from the
+               same parameters and batch, every architecture's smoke config
+               in fp32 (within 2e-4 x max(1, max |value|)) and bf16 (0.02
+               x, the CPU tests' bound), and qwen15_05b's first 2 layers at
+               full width (bf16, batch 2 x seq 256): the loss and the grad
+               norm; where the routing agrees (as it must in fp32) both
+               moments, and each parameter's step over the lr (AdamW at lr
+               1e-2, no warmup) within 0.01 plus a rounding of the parameter
+               wherever its first moment is above the moments' bound; (d)
+               the phase's wall against its 75 s budget
   serve_profile  a steady window of serving ticks under torch.profiler:
                device busy and idle share, host time in torch ops; and the
                SDPS loop's gm_round likewise
@@ -224,7 +254,7 @@ JSON line per phase:
   kernels      one summary line per kernel
 
 then the card's name and power limit (``nvidia-smi``), the script's wall
-(``total``) and, as the last line, the device line. Any failed check
+and each phase's (``total``) and, as the last line, the device line. Any failed check
 raises, and the script exits non-zero without printing the device line; it
 also fails when no card is found.
 """
@@ -252,13 +282,15 @@ from repro_torch.analysis import sentinels, speccheck  # noqa: E402
 from repro_torch.analysis.specs import check_state, dims_for  # noqa: E402
 from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.configs import get_config as lm_config  # noqa: E402
+from repro_torch.configs import list_archs, smoke_config  # noqa: E402
+from repro_torch.data.pipeline import batches as train_batches  # noqa: E402
 from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
 from repro_torch.launch.serve import ModelRunner  # noqa: E402
 from repro_torch.models import decode as lm_decode  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
-from repro_torch.models.schema import map_tree, tree_leaves  # noqa: E402
+from repro_torch.models.schema import init_params, map_tree, tree_items, tree_leaves  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
 from repro_torch.simx import convert, runtime, shard, simulate_workload, stream, sweep  # noqa: E402
@@ -267,6 +299,9 @@ from repro_torch.simx import telemetry as tlm  # noqa: E402
 from repro_torch.simx.faults import FaultSchedule  # noqa: E402
 from repro_torch.simx.provenance import COMPONENTS, decompose_delays  # noqa: E402
 from repro_torch.simx.state import SimxConfig, export_workload  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train import loop as train_loop_mod  # noqa: E402
+from repro_torch.train.optimizer import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.workload.synth import (  # noqa: E402
     PoissonArrivals,
     ReplayArrivals,
@@ -339,12 +374,14 @@ COMPONENT_SUM_ATOL = 1e-4
 FAULT_PROVENANCE_FRACTION = 0.1
 
 #: eagle's long path: google_like_trace() at its Table 1 size (10,000 jobs,
-#: 312,558 tasks, 13,000 workers) until 50 simulated seconds (1,000
+#: 312,558 tasks, 13,000 workers) until 12.5 simulated seconds (250
 #: rounds; its last job arrives at 146.9 s, its longest task runs 2,250 s;
-#: cut from 200 s, then from 100 s, to keep the script near half its time
-#: limit as phases were added)
+#: cut from 200 s, then from 100 s, then from 50 s and 25 s when phase
+#: train came, to keep the script inside its time limit as phases were
+#: added; 12.5 s still launches ~5,000 long tasks and rejects ~6,300 SSS
+#: probes)
 EAGLE_LONG_WORKERS = 13_000
-EAGLE_LONG_UNTIL = 50.0
+EAGLE_LONG_UNTIL = 12.5
 
 #: The main path's match shapes at the paper scale (8 GMs, 8 LMs), then
 #: the Fig. 2 grid's (B = 6 points; pigeon's 1,250 groups of 40 workers)
@@ -404,30 +441,32 @@ SDPS_WORKERS = (10_000, 50_000)
 #: Phase lm_serve: the launcher's --real-decode loop at qwen15_05b's full
 #: width (bf16 compute, 24 layers, d_model 1,024, vocab padded to 152,064):
 #: 2 frontends over 2 pods of 128 slots, Poisson(16) requests a tick of
-#: 1 + Poisson(12) decode ticks, to 8,192 requests (517 ticks of arrivals
+#: 1 + Poisson(12) decode ticks, to 4,160 requests (258 ticks of arrivals
 #: from numpy seed 0); one pod's 128 lanes decode one token a tick against a
-#: 512-token KV cache, so the runner reaches max_len: 512 decode ticks
+#: 256-token KV cache, so the runner reaches max_len: 256 decode ticks (cut
+#: from 8,192 requests and 512 ticks when phase train came, for the
+#: script's clock)
 LM_ARCH = "qwen15_05b"
 LM_SERVE = dict(num_frontends=2, num_pods=2, slots_per_pod=128, max_batch=256)
-LM_REQUESTS = 8192
+LM_REQUESTS = 4160
 LM_ARRIVAL = 16.0
 LM_MEAN_GEN = 12
-LM_MAX_LEN = 512
+LM_MAX_LEN = 256
 #: the decode steps timed by CUDA events start here (the first are warm-up)
 LM_STEADY_FROM = 16
 #: (b) profiles this many steps from this position (a step attends over the
 #: whole cache length whatever its position, so any position does)
 LM_PROFILE_STEPS = 16
-LM_PROFILE_POS = 256
+LM_PROFILE_POS = 128
 #: (c) decode against the teacher-forced forward at full width, fp32
 #: compute, B = 2, T = 8; (d) the card against the CPU, 2 steps of qwen;
 #: (e) the runner's own bf16 weights and cache, all 128 lanes, 2 ticks
-#: from position 500 on the card and on the CPU
+#: from position 250 on the card and on the CPU
 LM_CHECK_ARCHS = ("qwen15_05b", "llama3_8b")
 LM_CHECK_BATCH = 2
 LM_CHECK_STEPS = 8
 LM_CPU_STEPS = 2
-LM_LATE_POS = 500
+LM_LATE_POS = 250
 #: the reference's own decode bound (tests/test_decode_consistency.py),
 #: times max(1, max |logit|)
 LM_BOUND = 2e-4
@@ -443,18 +482,19 @@ BF16_OPS_PER_S = 989e12
 #: width (27 layers, d_model 2,048, MLA rank 512 + 64 rope, 64 experts top 6
 #: + 2 shared, one leading dense layer, vocab padded to 102,400; bf16
 #: compute, weights drawn per leaf from seed 0) on lm_serve's engine, to
-#: 4,160 requests (258 ticks of arrivals from numpy seed 0; 4,096 give 253,
-#: short of the 256 decode ticks), one pod's 128 lanes decoding 256 ticks
-#: against a 256-token latent cache: the depth cut from lm_serve's 8,192
-#: requests and 512 ticks for the script's clock, no width cut
+#: 2,112 requests (129 ticks of arrivals from numpy seed 0; 2,100 give just
+#: 128), one pod's 128 lanes decoding 128 ticks against a 128-token latent
+#: cache: the depth cut from lm_serve's 4,160 requests and 256 ticks (and
+#: from its own 4,160 and 256 when phase train came) for the script's
+#: clock, no width cut
 LMF_ARCH = "deepseek_v2_lite_16b"
-LMF_REQUESTS = 4160
-LMF_MAX_LEN = 256
+LMF_REQUESTS = 2112
+LMF_MAX_LEN = 128
 #: (b) profiles this many steps from this position (two warm steps first;
 #: a DeepSeek step is ~3,850 device ops, and reading a profile back costs
 #: host time in proportion)
 LMF_PROFILE_STEPS = 4
-LMF_PROFILE_POS = 128
+LMF_PROFILE_POS = 64
 #: (c) decode against the teacher-forced forward, each model alone on the
 #: card at full width, B = LM_CHECK_BATCH: (arch, layers (None: all),
 #: steps, compute dtype, bound x max(1, max |logit|)).  mamba2's forward
@@ -479,6 +519,62 @@ LMF_CPU = (("mamba2_13b", None), ("deepseek_v2_lite_16b", 2))
 LMF_FLIP_GAP = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
 #: the phase's wall budget, seconds
 LMF_BUDGET_S = 90.0
+
+#: Phase train: qwen15_05b at full width (fp32 parameters, bf16 compute,
+#: remat "full", loss chunk 512: its config), the train_4k cell's seq 4,096
+#: at global batch 8 in 4 microbatches (32,768 tokens a step) from the
+#: port's pipeline (seed 0), 6 steps of AdamW at lr 3e-4 with 2 warmup
+#: steps, a checkpoint every 3 steps; then a restart to 7 steps.  Reduced:
+#: global batch 8 against train_4k's 256 (one card and the phase's clock);
+#: no width cut
+TRAIN_ARCH = "qwen15_05b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 4
+TRAIN_STEPS = 6
+TRAIN_RESTART_STEPS = 7
+TRAIN_CKPT_EVERY = 3
+TRAIN_LR = 3e-4
+TRAIN_WARMUP = 2
+#: the steps timed by CUDA events (0-based: steps 3 to 6), and the step
+#: profiled (0-based: step 2, after the first step's allocations)
+TRAIN_TIMED_FROM = 2
+TRAIN_PROFILE_STEP = 1
+#: the restart's step sees step 1's batch again after 6 updates: its loss
+#: must be this far below step 1's (nats).  The fresh batches' losses of
+#: steps 1-6 spread 0.0127 (12.1270-12.1397 on an H100), so a
+#: step-1-to-6 drop is within that noise; without an update the loss would
+#: not move at all
+TRAIN_LEARN_MARGIN = 0.1
+#: (c) qwen15_05b's first layers at full width on the card against the CPU,
+#: at batch x seq
+TRAIN_CPU_LAYERS = 2
+TRAIN_CPU_SHAPE = (2, 256)
+#: (c)'s smoke configs' batch x seq, and its step: AdamW at lr 1e-2 with no
+#: warmup.  A first AdamW step moves each parameter by lr x (g / (|g| +
+#: eps) + wd x p): the sign of g, so where a gradient is zero up to
+#: rounding its sign may differ between the sides.  The gradients are held
+#: through the moments (m = 0.1 g, v = 0.05 g^2, g clipped), and the step,
+#: (p0 - p) / lr, where |m| is above the moments' bound (so its sign is
+#: the same on both sides) and TRAIN_STEP_MIN_M (|g| >= 100 eps), within
+#: TRAIN_STEP_REL plus one rounding of the parameter, eps(dtype) x |p| /
+#: lr.  An update that does nothing, has the wrong sign or a wrong bias
+#: correction is off by 0.5-2
+TRAIN_SMOKE_SHAPE = (2, 32)
+TRAIN_CHECK_OPT = OptConfig(lr=1e-2, warmup_steps=1)
+TRAIN_STEP_REL = 0.01
+TRAIN_STEP_MIN_M = 1e-7
+#: (c)'s bounds on the loss and grad norm, times max(1, |value|) (fp32:
+#: the reference's decode bound; bf16: the CPU tests'), and on the moments,
+#: times max |moment| of the leaf (the CPU tests' gradient bounds,
+#: BF16_REL for bf16)
+TRAIN_BOUND = {torch.float32: LM_BOUND, torch.bfloat16: LM_BF16_BOUND}
+TRAIN_MOMENT_REL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+#: ... and at least this where the parameters (so the gradients) are bf16
+#: (arctic's): a bf16 rounding of each gradient (the CPU tests' bound)
+TRAIN_BF16_GRAD_REL = 0.01
+#: the phase's wall budget, seconds
+TRAIN_BUDGET_S = 75.0
 
 #: The streaming engine (``stream.run_steady_state``).  (a) replays the
 #: megha phase's trace through a window of its full size; (b) streams
@@ -837,16 +933,19 @@ def phase_megha_sync(wl) -> dict:
 
 def _device_busy(prof) -> tuple[float, list, dict]:
     """Device busy µs (the union of the kernels' intervals), the intervals,
-    and device ms by kernel name, from a torch.profiler run."""
+    and device ms by kernel name, from a torch.profiler run's raw events
+    (building its ``events()`` takes seconds for a train step's ~35,000
+    kernels)."""
     from torch.autograd import DeviceType
 
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
             continue
-        a, b = e.time_range.start, e.time_range.end
+        a = e.start_ns() / 1e3
+        b = a + e.duration_ns() / 1e3
         spans.append((a, b))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + (b - a) / 1e3
     busy_us, end = 0.0, -float("inf")
     for a, b in sorted(spans):  # union of device intervals
         if b > end:
@@ -877,8 +976,8 @@ def _profile_rounds(step, state, start: int, length: int,
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, spans, by_name = _device_busy(prof)
     mk = [v for k, v in by_name.items() if kernel in k]
-    n_mk = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-               and kernel in e.name)
+    n_mk = sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and kernel in e.name())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(
         rounds=[start, start + length],
@@ -2112,7 +2211,7 @@ def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
 
 def phase_eagle_long() -> dict:
     """Eagle's SSS and central long match, which the synthetic trace never
-    reaches: ``google_like_trace()`` at 13,000 workers until 50 s, first
+    reaches: ``google_like_trace()`` at 13,000 workers until 12.5 s, first
     through ``run_simulation`` (whose launches count), then kernel and
     plain runs of ``simulate_workload`` whose final states must agree."""
     wl = google_like_trace()
@@ -2809,7 +2908,7 @@ def _lm_card_vs_cpu(model: dict) -> dict:
 def _lm_runner_vs_cpu(runner: ModelRunner) -> dict:
     """(e): the timed run's own state, bf16 at full width: from position
     LM_LATE_POS, LM_CPU_STEPS of the runner's ticks on the card (all its
-    lanes, against its 512-token cache) and, from CPU copies of the same
+    lanes, against its 256-token cache) and, from CPU copies of the same
     compute-dtype weights and cache, ``decode_step`` on the CPU fed the same
     tokens.  The logits and the cache rows written are held to the bf16
     bound."""
@@ -3122,6 +3221,298 @@ def phase_lm_families() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase train: training at full width
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _step_spy(profile_at: int | None = None):
+    """Every train step ``train_loop`` runs in the block, bracketed by CUDA
+    events and its host syncs counted (a spy on ``loop.make_train_step``),
+    with the metrics it returns (device tensors); step ``profile_at``
+    (0-based) also under torch.profiler, tracing the card alone (a step is
+    ~35,000 kernels, and the host's torch ops would triple what the
+    profiler reads back).  Each checkpoint the loop saves is timed once the
+    card has finished the step (a spy on ``checkpoint.save``).  Yields the
+    steps' records and the saves' seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    record, saves = [], []
+    make, save = train_loop_mod.make_train_step, train_ckpt.save
+
+    def spy(cfg, opt, accum_steps=1):
+        step = make(cfg, opt, accum_steps)
+
+        def timed(state, batch):
+            profiled = len(record) == profile_at
+            if profiled:
+                torch.cuda.synchronize()
+            ctx = profile(activities=[ProfilerActivity.CUDA]) if profiled else contextlib.nullcontext()
+            with ctx as prof:
+                t0 = time.perf_counter()
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                with sentinels.count_syncs() as c:
+                    state, metrics = step(state, batch)
+                ev[1].record()
+                if profiled:
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+            record.append(dict(events=ev, syncs=c.count, sites=dict(c.sites), metrics=metrics))
+            if profiled:
+                record[-1]["profile"] = (prof, wall_ms)
+            return state, metrics
+
+        return timed
+
+    def timed_save(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = save(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    train_loop_mod.make_train_step, train_ckpt.save = spy, timed_save
+    try:
+        yield record, saves
+    finally:
+        train_loop_mod.make_train_step, train_ckpt.save = make, save
+
+
+def _train_profile(prof, prof_ms: float, step_ms: float) -> dict:
+    """The profiled step's device busy and idle share against the timed
+    steps' mean, its device ops, the top kernels."""
+    busy_us, spans, by_name = _device_busy(prof)
+    busy_ms = busy_us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(step=TRAIN_PROFILE_STEP + 1, profiled_wall_ms=prof_ms, device_busy_ms=busy_ms,
+                device_idle_share=1.0 - busy_ms / step_ms,
+                device_idle_share_profiled=1.0 - busy_ms / prof_ms,
+                device_ops=len(spans), top_device_ms=[[k[:120], v] for k, v in top])
+
+
+@contextlib.contextmanager
+def _restore_spy(held: dict):
+    """``train_loop``'s restore of LATEST made through ``restore(like=)``
+    of ``held["state"]`` (the state in memory when the checkpoint was
+    saved) and compared with it bitwise, which is then let go.  Yields what
+    it saw."""
+    seen, restore_latest = {}, train_ckpt.restore_latest
+
+    def spy(ckpt_dir, like=None, *, device=None):
+        t0 = time.perf_counter()
+        state, step = restore_latest(ckpt_dir, like=held["state"], device=device)
+        torch.cuda.synchronize()
+        seen.update(step=step, restore_like_s=time.perf_counter() - t0)
+        got, want = list(tree_items(state)), list(tree_items(held.pop("state")))
+        seen["restore_like_bitwise"] = [p for p, _ in got] == [p for p, _ in want] and all(
+            a.dtype == b.dtype and torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
+        return state, step
+
+    train_ckpt.restore_latest = spy
+    try:
+        yield seen
+    finally:
+        train_ckpt.restore_latest = restore_latest
+
+
+def _train_card_vs_cpu(cfg, b: int, s: int) -> dict:
+    """(c): one train step (no accumulation, TRAIN_CHECK_OPT) on the card
+    and on the CPU from the same parameters (drawn on the CPU, seed 5) and
+    pipeline batch (seed 1); the router's choices recorded on both sides."""
+    t0 = time.perf_counter()
+    params = init_params(lm_model.model_schema(cfg), torch.Generator().manual_seed(5), "cpu")
+    batch = next(train_batches(cfg, b, s, seed=1, device="cpu"))
+    sides = {}
+    for side, dev in (("cpu", "cpu"), ("card", DEVICE)):
+        p = map_tree(params, lambda a, dev=dev: a.to(dev, copy=True))
+        state = {"params": p, "opt": init_opt_state(p, TRAIN_CHECK_OPT)}
+        with _routes() as calls:
+            state, m = train_loop_mod.make_train_step(cfg, TRAIN_CHECK_OPT)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+        sides[side] = (state, {k: float(v) for k, v in m.items()}, calls)
+    (cpu, mc, rc), (card, mg, rg) = sides["cpu"], sides["card"]
+    routing_agrees = len(rc) == len(rg) and all(
+        torch.equal(a[1].sort(-1).values, g[1].sort(-1).values) for a, g in zip(rc, rg))
+    bound, rel = TRAIN_BOUND[cfg.compute_dtype], TRAIN_MOMENT_REL[cfg.compute_dtype]
+    if cfg.param_dtype == torch.bfloat16:
+        rel = max(rel, TRAIN_BF16_GRAD_REL)
+    err = dict(loss=abs(mg["loss"] - mc["loss"]), grad_norm=abs(mg["grad_norm"] - mc["grad_norm"]))
+    bad = [k for k in err if err[k] > bound * max(1.0, abs(mc[k]))]
+    if mg["step"] != 1:
+        bad.append("step")
+    moment_err, step_err, stepped = {"m": 0.0, "v": 0.0}, 0.0, 0
+    lr = TRAIN_CHECK_OPT.lr  # warmed up at step 1
+    if routing_agrees:
+        leaves = {side: {k: dict(tree_items(t)) for k, t in (
+            ("p", st["params"]), ("m", st["opt"]["m"]), ("v", st["opt"]["v"]))}
+            for side, st in (("cpu", cpu), ("card", card))}
+        for path, p0 in tree_items(params):
+            want = {k: t[path].float() for k, t in leaves["cpu"].items()}
+            got = {k: t[path].cpu().float() for k, t in leaves["card"].items()}
+            for k in ("m", "v"):
+                e = float((got[k] - want[k]).abs().max())
+                scale = float(want[k].abs().max())
+                moment_err[k] = max(moment_err[k], e / scale if scale else e)
+                if e > rel * scale:
+                    bad.append((k, *path, e, scale))
+            m = want["m"].abs()
+            sel = m > max(rel * float(m.max()), TRAIN_STEP_MIN_M)
+            if not bool(sel.any()):
+                continue
+            e = (got["p"][sel] - want["p"][sel]).abs() / lr
+            slack = TRAIN_STEP_REL + torch.finfo(p0.dtype).eps * torch.maximum(
+                p0.float()[sel].abs(), want["p"][sel].abs()) / lr
+            stepped += int(sel.sum())
+            step_err = max(step_err, float(e.max()))
+            if bool((e > slack).any()):
+                bad.append(("step", *path, float(e.max())))
+        if not stepped:
+            bad.append("no step above the moments' bound")
+    out = dict(arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+               compute_dtype=str(cfg.compute_dtype), batch=[b, s], loss=mc["loss"],
+               loss_err=err["loss"], grad_norm=mc["grad_norm"], grad_norm_err=err["grad_norm"],
+               moment_max_rel_err=moment_err["m"], v_max_rel_err=moment_err["v"],
+               step_max_err=step_err, stepped_entries=stepped,
+               routing_agrees=routing_agrees, bound=bound, moment_rel_bound=rel,
+               step_bound=TRAIN_STEP_REL, check_lr=lr,
+               wall_s=time.perf_counter() - t0)
+    check(not bad, f"train step {cfg.name} ({cfg.compute_dtype}): the card agrees with the "
+          f"CPU (outside the bounds: {bad[:6]}, {err})")
+    return out
+
+
+def phase_train() -> dict:
+    """Training at qwen15_05b's full width: (a) 6 steps through
+    ``train_loop``, step 2 profiled, (b) a restart from step 6's checkpoint,
+    restored bitwise the state in memory, to step 7, (c) the card against
+    the CPU, (d) the phase's wall against its budget."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    _reset_peak_memory()
+    cfg = lm_config(TRAIN_ARCH)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build.BUILD_DIR)
+    parts = {}
+    try:
+        data = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEVICE)
+        with _step_spy(TRAIN_PROFILE_STEP) as (rec, saves):
+            state, hist = train_loop_mod.train_loop(
+                cfg, opt, data, steps=TRAIN_STEPS, checkpoint_dir=ckpt,
+                checkpoint_every=TRAIN_CKPT_EVERY, log_every=TRAIN_CKPT_EVERY,
+                accum_steps=TRAIN_ACCUM, device=DEVICE)
+        torch.cuda.synchronize()
+        parts["a"] = time.perf_counter() - t_phase
+        losses = torch.stack([r["metrics"]["loss"] for r in rec]).tolist()
+        gnorms = torch.stack([r["metrics"]["grad_norm"] for r in rec]).tolist()
+        step_ms = [a.elapsed_time(b) for a, b in (r["events"] for r in rec)]
+        timed = step_ms[TRAIN_TIMED_FROM:]
+        ms = float(np.mean(timed))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        total, active = lm_model.param_counts(cfg)
+        model_flops = 6.0 * active * tokens
+        bound_ms = model_flops / BF16_OPS_PER_S * 1e3
+        # the step's fp32 products (TF32 off), each run four times (forward,
+        # recompute, two backward products): the unembedding and the
+        # attention scores (all S x S of them, as computed), at the fp32 peak
+        unembed_ops = 4 * 2 * tokens * cfg.d_model * cfg.padded_vocab
+        scores_ops = (4 * 2 * TRAIN_BATCH * TRAIN_SEQ ** 2 * cfg.num_heads * cfg.head_dim_eff
+                      * cfg.num_layers)
+        fp32 = dict(unembedding_flops=unembed_ops, scores_flops=scores_ops,
+                    unembedding_ms_at_fp32_peak=unembed_ops / SCALAR_OPS_PER_S * 1e3,
+                    scores_ms_at_fp32_peak=scores_ops / SCALAR_OPS_PER_S * 1e3)
+        log_steps = {int(h["step"]) for h in hist}
+        syncs = [r["syncs"] for r in rec]
+        run = dict(
+            arch=cfg.name, cfg=dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                                    heads=cfg.num_heads, d_ff=cfg.d_ff,
+                                    padded_vocab=cfg.padded_vocab,
+                                    tie_embeddings=cfg.tie_embeddings,
+                                    param_dtype=str(cfg.param_dtype),
+                                    compute_dtype=str(cfg.compute_dtype), remat=cfg.remat,
+                                    remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk),
+            params=total, active_params=active, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+            accum_steps=TRAIN_ACCUM, tokens_per_step=tokens, steps=len(rec), lr=TRAIN_LR,
+            warmup_steps=TRAIN_WARMUP, losses=losses, grad_norms=gnorms,
+            history=hist, step_ms=step_ms, timed_steps=[TRAIN_TIMED_FROM + 1, len(rec)],
+            ms_per_step=ms, ms_per_step_min=min(timed), ms_per_step_max=max(timed),
+            tokens_per_s=tokens * 1e3 / ms, model_flops_per_step=model_flops,
+            model_flops_formula="6 N D (roofline/analysis.py:178; N = active params)",
+            ops_bound_ms=bound_ms, ops_bound_by="bf16 dense peak 989 TFLOP/s "
+            "(NVIDIA H100 SXM data sheet)", model_flops_share=bound_ms / ms,
+            fp32_products=fp32,
+            host_syncs_per_step=syncs, sync_sites=[r["sites"] for r in rec if r["syncs"]],
+            log_steps=sorted(log_steps), step_counter=int(state["opt"]["step"]),
+            checkpoints=sorted(p.name for p in Path(ckpt).iterdir()),
+            checkpoint_bytes=sum(
+                f.stat().st_size for f in (Path(ckpt) / f"step_{TRAIN_STEPS}").iterdir()),
+            save_s=saves, wall_s=parts["a"],
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            reduced=dict(global_batch=[TRAIN_BATCH, 256]),
+            profile=_train_profile(*rec[TRAIN_PROFILE_STEP]["profile"], ms))
+        check(len(rec) == TRAIN_STEPS and all(map(math.isfinite, losses + gnorms)),
+              "train: loss and grad norm finite at every step")
+        check(losses[-1] < losses[0], "train: the loss at step 6 is below step 1's")
+        check(run["step_counter"] == TRAIN_STEPS, "train: the step counter is 6")
+        check(all(n == 0 for i, n in enumerate(syncs) if i + 1 not in log_steps),
+              "train: no host sync in a step outside the log steps")
+        check(run["profile"]["device_ops"] > 0, "train: the profiler saw the step's device work")
+        # (b) the restart restores step 6 through restore(like=) of the state
+        # in memory, compares the two bitwise and lets the old one go
+        held = {"state": state}
+        del state
+        t0 = time.perf_counter()
+        with _restore_spy(held) as restored, _step_spy() as (rec2, saves2):
+            state2, hist2 = train_loop_mod.train_loop(
+                cfg, opt, train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEVICE),
+                steps=TRAIN_RESTART_STEPS, checkpoint_dir=ckpt,
+                checkpoint_every=TRAIN_CKPT_EVERY, log_every=TRAIN_CKPT_EVERY,
+                accum_steps=TRAIN_ACCUM, device=DEVICE)
+        restart = dict(
+            **restored, resumed_steps=len(rec2), step_counter=int(state2["opt"]["step"]),
+            latest=train_ckpt.latest_step(ckpt), history=hist2,
+            losses=torch.stack([r["metrics"]["loss"] for r in rec2]).tolist(),
+            save_s=saves2, learn_margin=TRAIN_LEARN_MARGIN, wall_s=time.perf_counter() - t0)
+        del state2
+        torch.cuda.empty_cache()
+        parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+        check(restored.get("step") == TRAIN_STEPS and restored["restore_like_bitwise"],
+              "train: restore(like=) of step 6 is bitwise the state after step 6")
+        check(restart["resumed_steps"] == TRAIN_RESTART_STEPS - TRAIN_STEPS
+              and restart["step_counter"] == restart["latest"] == TRAIN_RESTART_STEPS
+              and all(map(math.isfinite, restart["losses"])),
+              "train: the restart resumes from step 6 and ends at step 7")
+        # the restarted loop's data starts over, as the reference's does: its
+        # step sees step 1's batch again, after 6 updates
+        check(restart["losses"][0] <= losses[0] - TRAIN_LEARN_MARGIN,
+              f"train: after 6 steps the loss of step 1's batch is {TRAIN_LEARN_MARGIN} "
+              "nats below step 1's")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    cpu = []
+    for arch in list_archs():
+        for dtype in (torch.float32, torch.bfloat16):
+            cpu.append(_train_card_vs_cpu(
+                dataclasses.replace(smoke_config(lm_config(arch)), compute_dtype=dtype),
+                *TRAIN_SMOKE_SHAPE))
+    cpu.append(_train_card_vs_cpu(dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS),
+                                  *TRAIN_CPU_SHAPE))
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    check(all(c["routing_agrees"] for c in cpu if c["compute_dtype"] == str(torch.float32)),
+          "train: in fp32 the card routes as the CPU does")
+    wall = time.perf_counter() - t_phase
+    out = dict(phase="train", entry="train.loop.train_loop (the loop launch/train.py runs)",
+               run=run, restart=restart, card_vs_cpu=cpu,
+               phase_wall_s=wall, part_walls_s=parts, budget_s=TRAIN_BUDGET_S,
+               within_budget=wall <= TRAIN_BUDGET_S)
+    emit(out)
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3141,13 +3532,21 @@ def main() -> int:
     emit(dict(phase="env", python=sys.version.split()[0], torch=torch.__version__,
               cuda=torch.version.cuda, device=torch.cuda.get_device_name(0)))
 
-    phase_build()
-    kern = phase_kernel(gen)
-    single = phase_kernel_single(gen)
+    walls = {}
+
+    def run(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    run("build", phase_build)
+    kern = run("kernel", phase_kernel, gen)
+    single = run("kernel_single", phase_kernel_single, gen)
     wl = synthetic_trace(**TRACE)
-    megha = phase_megha(wl)
-    plain = phase_megha_plain(wl, megha)
-    sync = phase_megha_sync(wl)
+    megha = run("megha", phase_megha, wl)
+    plain = run("megha_plain", phase_megha_plain, wl, megha)
+    sync = run("megha_sync", phase_megha_sync, wl)
     megha.update(
         rounds=plain["rounds"], borrow_rounds=plain["borrow_rounds"],
         launches_equal_rounds_plus_borrow=(
@@ -3155,32 +3554,33 @@ def main() -> int:
         host_syncs=sync["host_syncs"], host_syncs_per_round=sync["host_syncs_per_round"],
     )
     emit(megha)
-    phase_megha_profile(wl)
-    orc = phase_oracle(wl, megha)
-    strm = phase_stream(wl)
-    tel = phase_telemetry(wl)
-    phase_telemetry_profile(wl)
-    swp = phase_sweep(megha)
+    run("megha_profile", phase_megha_profile, wl)
+    orc = run("oracle", phase_oracle, wl, megha)
+    strm = run("stream", phase_stream, wl)
+    tel = run("telemetry", phase_telemetry, wl)
+    run("telemetry_profile", phase_telemetry_profile, wl)
+    swp = run("sweep", phase_sweep, megha)
     sweep_plans, sweep_draws = swp.pop("_plans"), swp.pop("_draws")
-    phase_sweep_profile(sweep_plans)
-    brk = phase_breakdown(swp, sweep_plans, sweep_draws)
-    ana = phase_analysis(sweep_plans, sweep_draws)
+    run("sweep_profile", phase_sweep_profile, sweep_plans)
+    brk = run("breakdown", phase_breakdown, swp, sweep_plans, sweep_draws)
+    ana = run("analysis", phase_analysis, sweep_plans, sweep_draws)
     del sweep_plans, sweep_draws
-    fig4 = phase_fig4()
+    fig4 = run("fig4", phase_fig4)
     fig4_plans = fig4.pop("_plans")
-    phase_fig4_profile(fig4_plans)
-    fprov = phase_fault_provenance(fig4, fig4_plans)
+    run("fig4_profile", phase_fig4_profile, fig4_plans)
+    fprov = run("fault_provenance", phase_fault_provenance, fig4, fig4_plans)
     del fig4_plans
-    shd = phase_shard(swp, fig4, strm)
+    shd = run("shard", phase_shard, swp, fig4, strm)
     strm.pop("_runs")
     fig4.pop("_summaries")
-    elong = phase_eagle_long()
-    serve = phase_serve()
-    lm = phase_lm_serve()
-    lmf = phase_lm_families()
-    phase_serve_profile()
-    sdps = phase_sdps()
-    phase_cpu_parity()
+    elong = run("eagle_long", phase_eagle_long)
+    serve = run("serve", phase_serve)
+    lm = run("lm_serve", phase_lm_serve)
+    lmf = run("lm_families", phase_lm_families)
+    run("train", phase_train)
+    run("serve_profile", phase_serve_profile)
+    sdps = run("sdps", phase_sdps)
+    run("cpu_parity", phase_cpu_parity)
 
     borrow = next(r for r in kern["rows"] if r["caller"] == "megha_borrow")
     fleet = next(r for r in single["rows"] if r["caller"] == "serve_sdps")
@@ -3264,7 +3664,7 @@ def main() -> int:
             "bound_by", "bytes_ms", "ops_ms", "chain_ms", "library_ms")},
     )]})
     print(nvidia_smi(), flush=True)
-    emit(dict(phase="total", wall_s=time.perf_counter() - t_start))
+    emit(dict(phase="total", wall_s=time.perf_counter() - t_start, phase_walls_s=walls))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,8 +16,7 @@ in fp32, so only the order of the fp32 sum differs.  On the card this
 needs TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
 Left out: ``constrain`` (activation sharding constraints against a mesh:
-nothing to constrain on one card; ROADMAP item 15e) and
-``chunked_ce_loss`` (training, item 15d).
+nothing to constrain on one card; ROADMAP item 15e).
 
 Logical axes used here:
   embed (d_model) · heads · kv_heads · head_dim · mlp (d_ff) · vocab · layers
@@ -30,6 +29,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import ParamDef, Schema
@@ -102,6 +102,52 @@ def unembed_logits(table: torch.Tensor, h: torch.Tensor, cfg: ModelConfig) -> to
     accumulation and result)."""
     cdt = cfg.compute_dtype
     return matmul_f32(h.to(cdt), table.to(cdt).T)
+
+
+def _ce_chunk(table: torch.Tensor, h: torch.Tensor, lab: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(summed CE, counted labels) of one sequence chunk h [b, chunk, d]."""
+    logits = unembed_logits(table, h, cfg)  # [b, chunk, V_pad] fp32
+    # mask padded vocab entries out of the partition function
+    pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+    logits = torch.where(pad, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    w = (lab >= 0).float()  # negative labels = ignore (VLM)
+    # the gold logit by a gather: on one card exactly the reference's
+    # one-hot contraction (one nonzero term), without its [b, chunk, V] one-hot
+    gold = torch.gather(logits, -1, torch.clamp(lab, min=0).long()[..., None])[..., 0]
+    return torch.sum(w * (lse - gold)), torch.sum(w)
+
+
+def chunked_ce_loss(
+    table: torch.Tensor,
+    hidden: torch.Tensor,
+    labels: torch.Tensor,
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Cross-entropy without materializing [B, S, V] logits.
+
+    Walks sequence chunks of ``loss_chunk``; while gradients are recorded
+    each chunk runs under a non-reentrant ``torch.utils.checkpoint`` (the
+    reference's ``jax.checkpoint`` on its chunk), so its logits are
+    recomputed in the backward pass and peak memory is one
+    [B, chunk, V_pad] fp32 buffer instead of the full logits tensor.
+    """
+    s = hidden.shape[1]
+    chunk = min(cfg.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % loss_chunk {chunk} != 0")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        args = (table, hidden[:, i:i + chunk], labels[:, i:i + chunk], cfg)
+        if torch.is_grad_enabled():
+            loss, cnt = checkpoint(_ce_chunk, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            loss, cnt = _ce_chunk(*args)
+        total, count = total + loss, count + cnt
+    return total / torch.clamp(count, min=1.0)
 
 
 # --------------------------------------------------------------------------

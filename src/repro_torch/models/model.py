@@ -16,22 +16,37 @@ One generic stack covers all 10 architectures:
 
 Layers are stacked on a leading "layers" axis, as in the reference, so its
 parameter trees carry across one to one (``schema.params_from_numpy``).
-``forward`` walks them with a Python loop over per-layer views
-(``layer_views``) in place of ``_scan_blocks``: that loop stands for both
+``_scan_blocks`` walks them with a Python loop over per-layer views
+(``layer_views``) in place of ``lax.scan``: that loop stands for both
 values of ``scan_layers`` (``lax.scan`` and the reference's unrolled loop
 compute the same thing), for the blocks, DeepSeek's leading dense blocks,
-the hybrid's groups and its tail alike.  ``remat`` / ``_maybe_remat`` and
-``loss_fn`` are training (ROADMAP item 15d).
+the hybrid's groups and its tail alike.  Each block body goes through
+``_maybe_remat`` where the reference's does: with ``cfg.remat`` and while
+gradients are recorded it runs under a non-reentrant
+``torch.utils.checkpoint`` (``remat_policy`` "full": recompute the whole
+body in the backward pass; "dots": keep the outputs of the products
+without batch dims, ``aten.mm`` / ``aten.addmm``, and recompute the rest,
+the counterpart of ``dots_with_no_batch_dims_saveable``).  Under
+``torch.no_grad`` or ``inference_mode`` (serving, decode) no checkpoint is
+taken.  ``loss_fn`` is the chunked cross-entropy plus the MoE aux loss.
 
 ``LanguageModel`` is the ``nn.Module`` face of the same functions: it holds
 the parameter tree and serves ``forward``, ``logits_last`` and
-``decode_step``.
+``decode_step``; ``tree()`` hands out the parameters themselves, which
+require no gradient until a trainer calls ``requires_grad_(True)``.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -176,6 +191,46 @@ def embed_inputs(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return tok
 
 
+#: the products without batch dims: the ops whose outputs the "dots" policy
+#: keeps for the backward pass
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat policy while gradients are recorded.
+    No RNG state is kept: no op of these models draws random numbers."""
+    if not cfg.remat:
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+
+    def body(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+
+    return body
+
+
+def _scan_blocks(blocks, x, body_fn, cfg: ModelConfig):
+    """Every layer of the stacked ``blocks`` through ``body_fn(bp, x) ->
+    (x, aux or None)`` under ``_maybe_remat``: (x, the summed aux, None when
+    no layer gives one)."""
+    body = _maybe_remat(body_fn, cfg)
+    aux = None
+    for bp in layer_views(blocks):
+        x, a = body(bp, x)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def forward(params, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden [B,S,d], moe_aux_loss): the aux loss sums the MoE
     layers' (0 without MoE)."""
@@ -183,29 +238,42 @@ def forward(params, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
+    def ssm_body(bp, h):
+        return _ssm_block_apply(bp, h, cfg), None
+
     if cfg.family == "ssm":
-        for bp in layer_views(params["blocks"]):
-            x = _ssm_block_apply(bp, x, cfg)
+        x, _ = _scan_blocks(params["blocks"], x, ssm_body, cfg)
     elif cfg.family == "hybrid":
-        for gp in layer_views(params["groups"]):
-            for bp in layer_views(gp):
-                x = _ssm_block_apply(bp, x, cfg)
-            x = _dense_block_apply(params["shared_attn"], x, cfg, positions)
-        for bp in layer_views(params["tail"]) if "tail" in params else ():
-            x = _ssm_block_apply(bp, x, cfg)
+        def group_body(gp, h):
+            h, _ = _scan_blocks(gp, h, ssm_body, cfg)
+            return _dense_block_apply(params["shared_attn"], h, cfg, positions), None
+
+        x, _ = _scan_blocks(params["groups"], x, group_body, cfg)
+        if "tail" in params:
+            x, _ = _scan_blocks(params["tail"], x, ssm_body, cfg)
     else:
-        for bp in layer_views(params["dense_blocks"]) if "dense_blocks" in params else ():
-            x = _dense_block_apply(bp, x, cfg, positions)
-        for bp in layer_views(params["blocks"]):
-            x, a = _attn_block_apply(bp, x, cfg, positions)
-            if a is not None:
-                aux = aux + a
+        if "dense_blocks" in params:
+            x, _ = _scan_blocks(
+                params["dense_blocks"], x,
+                lambda bp, h: (_dense_block_apply(bp, h, cfg, positions), None), cfg)
+        x, a = _scan_blocks(
+            params["blocks"], x, lambda bp, h: _attn_block_apply(bp, h, cfg, positions), cfg)
+        if a is not None:
+            aux = aux + a
     return L.rmsnorm_apply(params["final_norm"], x), aux
 
 
 def _unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
     return (params["embed"]["table"] if cfg.tie_embeddings
             else params["lm_head"]["table"])
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The chunked cross-entropy of ``batch["labels"]`` plus the MoE aux
+    loss (fp32 scalar)."""
+    hidden, aux = forward(params, batch, cfg)
+    ce = L.chunked_ce_loss(_unembed_table(params, cfg), hidden, batch["labels"], cfg)
+    return ce + aux
 
 
 def logits_last(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -265,7 +333,9 @@ class LanguageModel(nn.Module):
     ``schema.params_from_numpy``; moved to ``device`` when one is given) or
     else fresh ``init_params`` drawn from ``generator`` on ``device``
     (``None``: the CUDA card).  Built for serving: no parameter requires a
-    gradient."""
+    gradient, so a forward records no graph.  ``tree()`` hands out the
+    parameters themselves, so after ``requires_grad_(True)`` a loss of it
+    reaches them."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
                  generator: torch.Generator | None = None,
@@ -313,6 +383,6 @@ def _module_tree(tree: dict) -> nn.Module:
 
 
 def _plain_tree(mod: nn.Module) -> dict:
-    out = {k: p.data for k, p in mod.named_parameters(recurse=False)}
+    out = dict(mod.named_parameters(recurse=False))
     out.update({k: _plain_tree(m) for k, m in mod.named_children()})
     return out

@@ -77,6 +77,29 @@ def tree_leaves(tree: dict):
             yield v
 
 
+def tree_items(tree: dict, prefix: tuple = ()):
+    """(path, leaf) of every leaf of a nested dict, depth-first in sorted-key
+    order: the order ``jax.tree_util`` flattens a dict in, which numbers the
+    reference's checkpoint leaves."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_items(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def tree_from_items(items) -> dict:
+    """The nested dict of (path, leaf) pairs (the inverse of ``tree_items``)."""
+    out: dict = {}
+    for path, leaf in items:
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def _init_leaf(pd: ParamDef, generator: torch.Generator, device: torch.device) -> torch.Tensor:
     if pd.init == "zeros":
         return torch.zeros(pd.shape, dtype=pd.dtype, device=device)
@@ -132,10 +155,9 @@ def param_bytes(schema: Schema) -> int:
 
 
 def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
-    a = np.array(a)  # a writable copy: the reference's arrays are read-only
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+        return bf16_from_bits(a).to(device)
+    return torch.from_numpy(np.array(a)).to(device)  # a writable copy of a read-only array
 
 
 def params_from_numpy(tree: dict, device: str | torch.device | None = None) -> dict:
@@ -146,13 +168,28 @@ def params_from_numpy(tree: dict, device: str | torch.device | None = None) -> d
     return map_tree(tree, lambda a: _leaf_from_numpy(a, dev))
 
 
-def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array in its own dtype, a bf16 one as its
+    2-byte bit patterns (``uint16``: numpy has no bfloat16 of its own, and
+    this needs no ``ml_dtypes``)."""
     t = t.detach().cpu()
+    return t.view(torch.uint16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def bf16_from_bits(a: np.ndarray) -> torch.Tensor:
+    """Any 2-byte array (``to_host``'s ``uint16``, the reference's
+    ``ml_dtypes.bfloat16`` or the ``|V2`` numpy reads that back as) as a
+    bf16 tensor with the same bits."""
+    return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    a = to_host(t)
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # numpy's bfloat16, as the reference's arrays carry it
 
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+        return a.view(ml_dtypes.bfloat16)
+    return a
 
 
 def params_to_numpy(params: dict) -> dict:

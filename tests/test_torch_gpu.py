@@ -1,7 +1,8 @@
 """The port on a CUDA card: the hand-written kernels against their plain
 versions, and small runs of all five simx rules, Fig. 2 grids and
 serving-engine runs on the card against the same runs on the CPU, with
-the telemetry and provenance stages on too.  Every test here carries the ``gpu`` marker and skips itself
+the telemetry and provenance stages on too, and a train step and a
+checkpoint of card tensors.  Every test here carries the ``gpu`` marker and skips itself
 without a card.  This file imports no ``jax`` (the card's machine has
 none); run it there with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``."""
 
@@ -903,3 +904,96 @@ def test_family_runner_tick_makes_no_host_sync(arch):
             runner.tick()
     assert c.count == 0, c.sites
     assert runner.pos == 5 and bool(torch.isfinite(runner.logits).all())
+
+
+# ---------------------------------------------------------------------------
+# training (``repro_torch.train``, ``repro_torch.data``)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen15_05b", "deepseek_v2_lite_16b", "zamba2_7b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(arch, monkeypatch):
+    """One train step of the smoke config in fp32 (TF32 off, remat "full",
+    AdamW at lr 1e-2 with no warmup) on the card and on the CPU from the
+    same parameters and pipeline batch: loss and grad norm within 2e-4 x
+    max(1, |value|), both moments (0.1 x the clipped gradient and 0.05 x
+    its square) within 1e-3 x the leaf's largest, and the step (p0 - p) /
+    lr within 0.01 plus one fp32 rounding of the parameter wherever the
+    first moment is above that bound (a first AdamW step moves a parameter
+    by lr x (sign(g) + wd x p), so where a gradient is zero up to rounding
+    its sign may differ); the step makes no host sync."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.analysis.sentinels import count_syncs
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.models import model as M
+    from repro_torch.models.schema import init_params, map_tree, tree_items
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as O
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), compute_dtype=torch.float32,
+                              remat=True)
+    opt = O.OptConfig(lr=1e-2, warmup_steps=1)
+    params = init_params(M.model_schema(cfg), torch.Generator().manual_seed(1), "cpu")
+    batch = next(batches(cfg, 2, 32, seed=1, device="cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = map_tree(params, lambda a, dev=dev: a.to(dev, copy=True))
+        state = {"params": p, "opt": O.init_opt_state(p, opt)}
+        step = TL.make_train_step(cfg, opt)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        if dev == "cuda":
+            step(map_tree(state, lambda a: a.clone()), b)  # warm
+            torch.cuda.synchronize()
+            with count_syncs() as c:
+                state, m = step(state, b)
+            assert c.count == 0, c.sites
+        else:
+            state, m = step(state, b)
+        out[dev] = state, m
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(cm[k])) <= 2e-4 * max(1.0, abs(float(cm[k]))), k
+    assert int(gm["step"]) == 1
+    stepped = 0
+    for path, p0 in tree_items(params):
+        want = {k: dict(tree_items(t))[path].float() for k, t in (
+            ("p", cs["params"]), ("m", cs["opt"]["m"]), ("v", cs["opt"]["v"]))}
+        got = {k: dict(tree_items(t))[path].cpu().float() for k, t in (
+            ("p", gs["params"]), ("m", gs["opt"]["m"]), ("v", gs["opt"]["v"]))}
+        for k in ("m", "v"):
+            assert float((got[k] - want[k]).abs().max()) <= 1e-3 * float(want[k].abs().max()), \
+                (k, path)
+        sel = want["m"].abs() > max(1e-3 * float(want["m"].abs().max()), 1e-7)
+        err = (got["p"][sel] - want["p"][sel]).abs() / opt.lr
+        slack = 0.01 + torch.finfo(p0.dtype).eps * torch.maximum(
+            p0.float()[sel].abs(), want["p"][sel].abs()) / opt.lr
+        assert bool((err <= slack).all()), (path, float(err.max()))
+        stepped += int(sel.sum())
+    assert stepped > 0
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_from_card_tensors(tmp_path):
+    """A train state on the card (fp32 parameters, bf16 moments, an int32
+    step) saved and restored onto the card bitwise, in its dtypes."""
+    _need_card()
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.schema import tree_items
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as O
+
+    cfg = smoke_config(get_config("qwen15_05b"))
+    opt = O.OptConfig(moment_dtype=torch.bfloat16)
+    state = TL.init_train_state(cfg, opt, torch.Generator(device="cuda").manual_seed(0))
+    for _, m in tree_items(state["opt"]["m"]):
+        m.normal_()
+    C.save(tmp_path, state, step=2)
+    back = C.restore(tmp_path, 2, like=state)
+    for (path, a), (_, b) in zip(tree_items(state), tree_items(back)):
+        assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), path

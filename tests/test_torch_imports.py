@@ -180,3 +180,51 @@ def test_walk_covers_the_lm_modules_and_serve_example():
             } <= set(SOURCES)
     assert ROOT / "examples" / "torch_serve_cluster.py" in SOURCES
     assert ROOT / "examples" / "serve_cluster.py" not in SOURCES
+
+
+#: the training slice's modules (ROADMAP item 15d) and its example
+TRAIN_MODULES = ["repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.loop",
+                 "repro_torch.train.checkpoint", "repro_torch.data",
+                 "repro_torch.data.pipeline", "repro_torch.launch.train"]
+TRAIN_SOURCES = [PORT / (m.removeprefix("repro_torch.").replace(".", "/") + ".py")
+                 for m in TRAIN_MODULES if m not in ("repro_torch.train", "repro_torch.data")]
+TRAIN_SOURCES += [PORT / "train" / "__init__.py", PORT / "data" / "__init__.py",
+                  PORT / "models" / "layers.py", PORT / "models" / "model.py",
+                  PORT / "models" / "schema.py", ROOT / "examples" / "torch_train_100m.py"]
+
+
+def test_walk_covers_the_training_modules_and_example():
+    """The two checks above walk the training modules, the data pipeline,
+    the launcher and ``examples/torch_train_100m.py``."""
+    assert set(TRAIN_MODULES) <= set(MODULES)
+    assert set(TRAIN_SOURCES) <= set(SOURCES)
+    assert ROOT / "examples" / "train_100m.py" not in SOURCES
+
+
+def test_training_path_imports_no_ml_dtypes():
+    """The training path (the modules, the example, a bf16 checkpoint saved
+    and restored) loads neither ``jax``, ``repro`` nor ``ml_dtypes``, and no
+    source of it names ``ml_dtypes`` outside ``schema.params_to_numpy``'s
+    helper for the reference's trees."""
+    code = (
+        "import importlib, json, runpy, sys, tempfile, torch\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]\n"
+        f"for m in {TRAIN_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"runpy.run_path({str(ROOT / 'examples' / 'torch_train_100m.py')!r})\n"
+        "from repro_torch.train import checkpoint as C\n"
+        "d = tempfile.mkdtemp()\n"
+        "C.save(d, {'w': torch.ones(3, dtype=torch.bfloat16)}, 1)\n"
+        "assert C.restore(d, 1, device='cpu')['w'].dtype == torch.bfloat16\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(TRAIN_MODULES) <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.split(".")[0] == "ml_dtypes"] == []
+    for path in TRAIN_SOURCES:
+        text = path.read_text()
+        allowed = text.count("import ml_dtypes  # numpy's bfloat16") if path.name == "schema.py" else 0
+        assert text.count("import ml_dtypes") == allowed, path
