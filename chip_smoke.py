@@ -221,6 +221,26 @@ JSON line per phase:
                1e-2, no warmup) within 0.01 plus a rounding of the parameter
                wherever its first moment is above the moments' bound; (d)
                the phase's wall against its 75 s budget
+  dryrun       the distribution specs, the dry run and the H100 roofline
+               (``launch/dryrun.py``, ``roofline/``): (a) ``run_cell`` of
+               qwen15_05b/train_4k and DeepSeek-V2-Lite/decode_32k on the
+               (32, 8) mesh and arctic_480b/train_4k on the (2, 32, 8) mesh,
+               traced on the meta device: every term finite and >= 0, FLOPs
+               > 0, memory per device, the wall per cell; (b) the same dry
+               run of the steps phases lm_serve (128 lanes, 256-token
+               cache), lm_families (128 lanes, 128-token latent cache) and
+               train (8 x 4,096 tokens) ran, on ``make_host_mesh()`` (the
+               one card), with the dtypes the card ran: the predicted
+               compute, memory and step terms beside the measured step (CUDA
+               events) and ``max_memory_allocated``; each measured step no
+               faster than 0.95 x its roofline step, the predicted resident
+               state within the measured peak, the activation estimate's
+               ratio to the peak printed; (c) ``FlopCounterMode`` over one of
+               each served runner's ticks on the card (counted inside
+               lm_serve and lm_families) equal to the meta trace of the same
+               step, and ``_lm_step_ops``' total equal to it for
+               qwen15_05b (DeepSeek's ratio printed); the wall against its
+               30 s budget
   serve_profile  a steady window of serving ticks under torch.profiler:
                device busy and idle share, host time in torch ops; and the
                SDPS loop's gm_round likewise
@@ -235,7 +255,7 @@ JSON line per phase:
                one-entry mesh's (megha, sparrow); (c) every rule's 4-lane
                ``sharded_steady_state`` curve (the stream phase's Poisson
                stream at 25 / 35 / 40 / 45 jobs a second, loads 0.5-0.9,
-               30 s; pigeon and the oracle 15 s): each lane bitwise its
+               30 s; pigeon, the oracle and sparrow 15 s): each lane bitwise its
                serial ``run_steady_state`` (lane 0.8 at 30 s is the stream
                phase's (b) run), wall against the four serial walls,
                segment / refill split, tasks per wall second, one P²
@@ -282,15 +302,18 @@ from repro_torch.analysis import sentinels, speccheck  # noqa: E402
 from repro_torch.analysis.specs import check_state, dims_for  # noqa: E402
 from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.configs import get_config as lm_config  # noqa: E402
-from repro_torch.configs import list_archs, smoke_config  # noqa: E402
+from repro_torch.configs import ShapeCell, list_archs, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import batches as train_batches  # noqa: E402
 from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes  # noqa: E402
 from repro_torch.launch.serve import ModelRunner  # noqa: E402
 from repro_torch.models import decode as lm_decode  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models.schema import init_params, map_tree, tree_items, tree_leaves  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 from repro_torch.serve.engine import MeghaServeEngine, Request  # noqa: E402
 from repro_torch.sim.simulator import run_simulation  # noqa: E402
 from repro_torch.simx import convert, runtime, shard, simulate_workload, stream, sweep  # noqa: E402
@@ -576,6 +599,22 @@ TRAIN_BF16_GRAD_REL = 0.01
 #: the phase's wall budget, seconds
 TRAIN_BUDGET_S = 75.0
 
+#: Phase dryrun: (a) the dry run (``launch/dryrun.py``) of these cells on
+#: the production H100 meshes ((32, 8) single, (2, 32, 8) multi), traced on
+#: the meta device; (b) the roofline of the steps phases lm_serve,
+#: lm_families and train ran, on ``make_host_mesh()`` (the one card),
+#: against their measured steps: a step no faster than DRYRUN_STEP_SLACK x
+#: the roofline's step time (the largest term: a bound no run can beat;
+#: the slack for the measurement's noise), the predicted resident state
+#: within the measured peak; (c) FlopCounterMode over one of each served
+#: runner's ticks on the card equal to the meta trace of the same step
+DRYRUN_CELLS = (("qwen15_05b", "train_4k", "single"),
+                ("deepseek_v2_lite_16b", "decode_32k", "single"),
+                ("arctic_480b", "train_4k", "multi"))
+DRYRUN_STEP_SLACK = 0.95
+#: the phase's wall budget, seconds
+DRYRUN_BUDGET_S = 30.0
+
 #: The streaming engine (``stream.run_steady_state``).  (a) replays the
 #: megha phase's trace through a window of its full size; (b) streams
 #: open-loop Poisson arrivals of the paper's job (1,000 one-second tasks)
@@ -602,13 +641,13 @@ STREAM_PROFILE_HORIZON = 10.0
 SHARD_PAD_GRID = dict(loads=(0.35, 0.55, 0.7, 0.85, 0.95), num_seeds=3, num_workers=64,
                       num_jobs=6, tasks_per_job=8, dt=DT, num_gms=2, num_lms=2)
 SHARD_RATES = (25.0, 35.0, 40.0, 45.0)
-#: (c)'s span for pigeon and the oracle, cut from 30 s to keep the script
-#: inside its time limit: their four serial runs (lane 0.8 too) run to the
-#: same 15 s
-SHARD_CURVE_HORIZON = {"pigeon": 15.0, "oracle": 15.0}
+#: (c)'s span for pigeon and the oracle, and for sparrow (since phase
+#: dryrun came), cut from 30 s to keep the script inside its time limit:
+#: their four serial runs (lane 0.8 too) run to the same 15 s
+SHARD_CURVE_HORIZON = {"pigeon": 15.0, "oracle": 15.0, "sparrow": 15.0}
 #: (d)'s plain curve and (e)'s driven curves run to 10 s (7 segments, the
 #: profiled one is segment 5) and are held to the first segments of (c)'s
-#: 30 s curve: the plain P² absorb alone costs ~2 s a segment for 4 lanes
+#: curve: the plain P² absorb alone costs ~2 s a segment for 4 lanes
 SHARD_SHORT_HORIZON = 10.0
 SHARD_PROFILE_SEGMENT = 5
 #: the lane-batched match shapes of the curve (4 lanes): megha internal and
@@ -2726,14 +2765,16 @@ def _lm_plain_engine(requests: int) -> MeghaServeEngine:
 
 
 def _lm_step_ops(cfg, b: int, t: int) -> tuple[int, int]:
-    """(bf16 tensor-core operations, fp32 operations) of one decode step of
-    ``b`` lanes against a ``t``-token cache, for every family: the bf16
-    products (projections, MLPs, the probabilities by the values or
-    latents, the MoE's einsum dispatch and combine and every expert's
-    capacity slots, which that dispatch computes whatever they hold, the
-    SSM's projections and conv), and the fp32 work (the attention and
-    latent scores, the router, the SSM state update and read-out, the
-    unembedding)."""
+    """(bf16 tensor-core operations, fp32 operations) of the products of one
+    decode step of ``b`` lanes against a ``t``-token cache, for every
+    family: the bf16 products (projections, MLPs, the probabilities by the
+    values or latents, the MoE's einsum dispatch and combine and every
+    expert's capacity slots, which that dispatch computes whatever they
+    hold, the SSM's projections and its conv window's product), and the fp32
+    products (the attention and latent scores, the router, the SSM state's
+    read-out, the unembedding).  These are the products ``FlopCounterMode``
+    counts (phase dryrun (c) holds the two counts equal); the elementwise
+    work (the SSM state's update, norms, softmax) is not in them."""
     d = cfg.d_model
 
     def mlp(f):
@@ -2769,7 +2810,7 @@ def _lm_step_ops(cfg, b: int, t: int) -> tuple[int, int]:
         heads, gn = inner // s.headdim, s.ngroups * s.d_state
         bf = 2 * b * d * (2 * inner + 2 * gn + heads) + 2 * b * s.d_conv * (inner + 2 * gn) \
             + 2 * b * inner * d
-        return bf, 6 * b * heads * s.headdim * s.d_state
+        return bf, 2 * b * heads * s.headdim * s.d_state
 
     def add(*parts):
         return tuple(sum(x) for x in zip(*parts))
@@ -2942,6 +2983,20 @@ def _lm_runner_vs_cpu(runner: ModelRunner) -> dict:
     return out
 
 
+def _tick_flops(runner: ModelRunner) -> dict:
+    """For phase dryrun (c): the products of one of the runner's own decode
+    ticks on the card, counted by ``FlopCounterMode`` (a tick attends over
+    the whole cache whatever its position)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    runner.pos = 0
+    with FlopCounterMode(display=False) as fc:
+        runner.tick()
+    torch.cuda.synchronize()
+    return dict(flops=fc.get_total_flops(), lanes=runner.slots, cache_len=runner.max_len,
+                by_op={str(k): v for k, v in fc.get_flop_counts()["Global"].items()})
+
+
 def _lm_serve_run(phase: str, runner: ModelRunner, requests: int, build_s: float) -> dict:
     """(a) of phases lm_serve and lm_families: the launcher's loop with the
     runner (the match kernels' counts set to 0 just before it and read just
@@ -3013,6 +3068,7 @@ def phase_lm_serve() -> dict:
     prof = _lm_profile(runner, LM_PROFILE_POS)
     check(prof["device_ops_per_step"] > 0, "the profiler saw the decode steps' device work")
     late = _lm_runner_vs_cpu(runner)
+    tick_flops = _tick_flops(runner)
     del runner
     torch.cuda.empty_cache()
     checks, cpu = [], None
@@ -3025,7 +3081,7 @@ def phase_lm_serve() -> dict:
         torch.cuda.empty_cache()
     out = dict(phase="lm_serve", entry="launch.serve ModelRunner.tick (--real-decode)",
                serve=serve, profile=prof, runner_vs_cpu=late, decode_vs_forward=checks,
-               card_vs_cpu=cpu,
+               card_vs_cpu=cpu, tick_flops=tick_flops,
                phase_wall_s=time.perf_counter() - t_phase)
     emit(out)
     return out
@@ -3194,6 +3250,7 @@ def phase_lm_families() -> dict:
     parts = dict(a=time.perf_counter() - t_phase)
     prof = _lm_profile(runner, LMF_PROFILE_POS, LMF_PROFILE_STEPS)
     check(prof["device_ops_per_step"] > 0, "lm_families: the profiler saw the decode steps")
+    tick_flops = _tick_flops(runner)
     del runner
     torch.cuda.empty_cache()
     parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
@@ -3211,6 +3268,7 @@ def phase_lm_families() -> dict:
     wall = time.perf_counter() - t_phase
     out = dict(phase="lm_families", entry="launch.serve ModelRunner.tick (--real-decode)",
                serve=serve, profile=prof, decode_vs_forward=checks, card_vs_cpu=cpu,
+               tick_flops=tick_flops,
                reduced=dict(requests=[LMF_REQUESTS, LM_REQUESTS],
                             decode_ticks=[LMF_MAX_LEN, LM_MAX_LEN],
                             arctic_layers=[1, lm_config("arctic_480b").num_layers],
@@ -3513,6 +3571,121 @@ def phase_train() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase dryrun: the distribution specs, the dry run and the H100 roofline
+# ---------------------------------------------------------------------------
+
+
+def _finite_terms(roof: dict) -> bool:
+    return all(math.isfinite(roof[k]) and roof[k] >= 0
+               for k in ("compute_s", "memory_s", "collective_s", "step_time_s"))
+
+
+def _roof_line(res: dict) -> dict:
+    """The roofline's terms of one ``run_cell`` result, in ms."""
+    roof = res["roofline"]
+    return dict(compute_ms=roof["compute_s"] * 1e3, memory_ms=roof["memory_s"] * 1e3,
+                collective_ms=roof["collective_s"] * 1e3, step_ms=roof["step_time_s"] * 1e3,
+                bottleneck=roof["bottleneck"], flops_per_chip=roof["hlo_gflops"] * 1e9,
+                hbm_bytes_per_chip=roof["hlo_gbytes"] * 1e9,
+                collective_bytes_per_chip=roof["collective_gbytes"] * 1e9,
+                collective_counts=roof["collective_counts"],
+                memory_per_device_bytes=roof["memory_per_device_gb"] * 1e9,
+                state_resident_bytes=res["state_resident_gb"] * 1e9,
+                activation_estimate_bytes=res["activation_resident_gb"] * 1e9)
+
+
+def phase_dryrun(lm: dict, lmf: dict, trn: dict) -> dict:
+    """The dry run and the roofline: (a) three production cells on the H100
+    meshes, every term finite; (b) the roofline of the steps phases
+    lm_serve, lm_families and train measured, on the one card, against
+    those measurements; (c) the runners' ticks counted on the card against
+    the meta trace and ``_lm_step_ops``."""
+    t_phase = time.perf_counter()
+    parts = {}
+    production = []
+    for arch, shape, mesh_name in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        res = lm_dryrun.run_cell(arch, shape, mesh_name, verbose=False)
+        production.append(dict(arch=arch, shape=shape, mesh=mesh_name, chips=res["chips"],
+                               fsdp=res["fsdp"], units=res["units"], **_roof_line(res),
+                               collectives_by_axis=res["collectives_by_axis"],
+                               link_gbps_by_axis=res["link_gbps_by_axis"],
+                               wall_s=time.perf_counter() - t0))
+        check(_finite_terms(res["roofline"]) and res["roofline"]["hlo_gflops"] > 0,
+              f"dryrun {arch}/{shape}/{mesh_name}: every term finite and >= 0, FLOPs > 0")
+    parts["a"] = time.perf_counter() - t_phase
+
+    mesh = make_host_mesh()
+    check(mesh_axis_sizes(mesh) == {"data": 1, "model": 1},
+          "make_host_mesh() is (1, 1) on the one card")
+    lanes = LM_SERVE["slots_per_pod"]
+    # the runners hold compute-dtype weights: their cells carry it as the
+    # parameter dtype; the train state is the config's (fp32 parameters
+    # and moments, bf16 compute)
+    serve_cfg = dataclasses.replace(lm_config(LM_ARCH), param_dtype=torch.bfloat16)
+    lmf_cfg = dataclasses.replace(lm_config(LMF_ARCH), param_dtype=torch.bfloat16)
+    run = trn["run"]
+    steps = (
+        ("lm_serve", serve_cfg, ShapeCell("lm_serve", "decode", LM_MAX_LEN, lanes),
+         lm["serve"]["decode_ms_per_step"], lm["serve"]["max_memory_allocated"]),
+        ("lm_families", lmf_cfg, ShapeCell("lm_families", "decode", LMF_MAX_LEN, lanes),
+         lmf["serve"]["decode_ms_per_step"], lmf["serve"]["max_memory_allocated"]),
+        ("train", lm_config(TRAIN_ARCH), ShapeCell("train", "train", TRAIN_SEQ, TRAIN_BATCH),
+         run["ms_per_step"], run["max_memory_allocated"]),
+    )
+    calibration = []
+    for name, cfg, cell, step_ms, peak in steps:
+        t0 = time.perf_counter()
+        res = lm_dryrun.run_cell(cfg.name, cell.name, "host", verbose=False, cfg=cfg,
+                                 cell=cell, mesh=mesh)
+        r = _roof_line(res)
+        calibration.append(dict(
+            phase=name, arch=cfg.name, kind=cell.kind, batch=cell.global_batch,
+            seq_len=cell.seq_len, param_dtype=str(cfg.param_dtype),
+            compute_dtype=str(cfg.compute_dtype), **r,
+            measured_step_ms=step_ms, measured_over_roofline=step_ms / r["step_ms"],
+            measured_peak_bytes=peak,
+            state_over_peak=r["state_resident_bytes"] / peak,
+            activation_estimate_over_peak=r["activation_estimate_bytes"] / peak,
+            wall_s=time.perf_counter() - t0))
+        check(_finite_terms(res["roofline"]), f"dryrun {name}: every term finite and >= 0")
+        check(step_ms >= DRYRUN_STEP_SLACK * r["step_ms"],
+              f"dryrun {name}: the measured step ({step_ms:.3f} ms) is no faster than "
+              f"{DRYRUN_STEP_SLACK} x its roofline ({r['step_ms']:.3f} ms)")
+        check(r["state_resident_bytes"] <= peak,
+              f"dryrun {name}: the predicted resident state is within the measured peak")
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    counts = []
+    for name, cfg, tick in (("lm_serve", serve_cfg, lm["tick_flops"]),
+                            ("lm_families", lmf_cfg, lmf["tick_flops"])):
+        cell = ShapeCell(name, "decode", tick["cache_len"], tick["lanes"])
+        meta, _ = lm_dryrun.trace_cell(cfg, cell, mesh)
+        bf16, fp32 = _lm_step_ops(cfg, tick["lanes"], lm_decode.cache_len(cfg, cell.seq_len))
+        counts.append(dict(phase=name, arch=cfg.name, lanes=tick["lanes"],
+                           cache_len=tick["cache_len"], card_flops=tick["flops"],
+                           meta_flops=meta.get_total_flops(), card_by_op=tick["by_op"],
+                           step_ops_bf16=bf16, step_ops_fp32=fp32,
+                           step_ops_over_meta=(bf16 + fp32) / meta.get_total_flops()))
+        check(tick["flops"] == meta.get_total_flops() > 0,
+              f"dryrun {name}: FlopCounterMode on the card counts the meta trace's FLOPs")
+        if cfg.name == LM_ARCH:
+            check(bf16 + fp32 == meta.get_total_flops(),
+                  f"dryrun {name}: _lm_step_ops counts every product the trace counts")
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    wall = time.perf_counter() - t_phase
+    out = dict(phase="dryrun", entry="launch.dryrun.run_cell / trace_cell",
+               production=production, calibration=calibration, flop_counts=counts,
+               step_slack=DRYRUN_STEP_SLACK,
+               constants=dict(peak_flops=roofline.PEAK_FLOPS, hbm_bw=roofline.HBM_BW,
+                              nvlink_bw=roofline.NVLINK_BW, ib_bw=roofline.IB_BW),
+               phase_wall_s=wall, part_walls_s=parts, budget_s=DRYRUN_BUDGET_S,
+               within_budget=wall <= DRYRUN_BUDGET_S)
+    emit(out)
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3577,7 +3750,8 @@ def main() -> int:
     serve = run("serve", phase_serve)
     lm = run("lm_serve", phase_lm_serve)
     lmf = run("lm_families", phase_lm_families)
-    run("train", phase_train)
+    trn = run("train", phase_train)
+    run("dryrun", phase_dryrun, lm, lmf, trn)
     run("serve_profile", phase_serve_profile)
     sdps = run("sdps", phase_sdps)
     run("cpu_parity", phase_cpu_parity)

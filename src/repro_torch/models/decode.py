@@ -13,8 +13,9 @@ Cache shapes (leading L = stacked layer axis):
 
 T = min(seq_len, attn_window): sliding-window archs keep a ring buffer.
 The cache dtype is ``cfg.cache_dtype`` (default the compute dtype); the SSM
-recurrent state stays fp32.  ``input_specs`` (the dry run's inputs) waits
-for item 15e.
+recurrent state stays fp32.  ``input_specs`` gives the dry run's inputs
+as meta tensors (no allocation); ``init_cache(..., device="meta")`` its
+cache.
 
 The step takes its position as a host ``int`` so that it reads nothing
 back from the card, and writes every cache (keys and values, latents, SSM
@@ -26,13 +27,19 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.model import _unembed_table, hybrid_layout, layer_views
+from repro_torch.models.model import (
+    FRAME_DIM,
+    PATCH_DIM,
+    _unembed_table,
+    hybrid_layout,
+    layer_views,
+)
 
 
 def cache_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -164,3 +171,35 @@ def decode_step(params, cache: dict, batch: dict, cfg: ModelConfig):
     x = L.rmsnorm_apply(params["final_norm"], x)
     logits = L.unembed_logits(_unembed_table(params, cfg), x[:, -1], cfg)
     return logits, cache
+
+
+# --------------------------------------------------------------------------
+# input specs (meta-tensor stand-ins for the dry run)
+# --------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Abstract model inputs for one shape cell: meta tensors with the
+    reference's shapes and dtypes (no allocation).  Decode's ``pos`` is a
+    0-d int32, as in the reference; ``decode_step`` itself takes a host
+    int there."""
+    b, s = cell.global_batch, cell.seq_len
+    cdt = cfg.compute_dtype
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind in ("train", "prefill"):
+        if cfg.frontend == "frames":
+            out = {"frames": meta((b, s, FRAME_DIM), cdt)}
+        elif cfg.frontend == "patch":
+            n_img = cfg.frontend_tokens
+            out = {"patches": meta((b, n_img, PATCH_DIM), cdt),
+                   "tokens": meta((b, s - n_img), torch.int32)}
+        else:
+            out = {"tokens": meta((b, s), torch.int32)}
+        if cell.kind == "train":
+            out["labels"] = meta((b, s), torch.int32)
+        return out
+
+    # decode: one new token against a seq_len-deep cache
+    return {"tokens": meta((b, 1), torch.int32), "pos": meta((), torch.int32)}

@@ -15,8 +15,9 @@ compute-dtype values in fp32: the products of two bf16 values are exact
 in fp32, so only the order of the fp32 sum differs.  On the card this
 needs TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
-Left out: ``constrain`` (activation sharding constraints against a mesh:
-nothing to constrain on one card; ROADMAP item 15e).
+``constrain`` marks the activation sharding constraints at the reference's
+call sites: inside ``with mesh:`` (``launch.mesh.Mesh``) it resolves the
+reference's spec against that mesh, and outside one it returns at once.
 
 Logical axes used here:
   embed (d_model) · heads · kv_heads · head_dim · mlp (d_ff) · vocab · layers
@@ -32,7 +33,44 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.schema import ParamDef, Schema
+from repro_torch.launch import mesh as _mesh
+from repro_torch.models.schema import P, ParamDef, Schema
+
+# --------------------------------------------------------------------------
+# activation sharding constraints
+# --------------------------------------------------------------------------
+
+def constraint_spec(names: tuple, axes: tuple) -> P:
+    """The spec of ``constrain(x, *axes)`` on a mesh with axis ``names``:
+    'batch' -> ('pod', 'data') (whichever exist), 'model' -> the model
+    axis, anything else replicated."""
+    resolved = []
+    for a in axes:
+        if a == "batch":
+            ba = tuple(n for n in ("pod", "data") if n in names)
+            resolved.append(ba if ba else None)
+        elif a == "model":
+            resolved.append("model" if "model" in names else None)
+        else:
+            resolved.append(None)
+    return P(*resolved)
+
+
+def _place(x: torch.Tensor, spec: P) -> torch.Tensor:
+    """``x`` laid out as ``spec``: on one card there is nothing to move."""
+    return x
+
+
+def constrain(x: torch.Tensor, *axes: "str | None") -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` against the ambient
+    mesh, by convention: 'batch' -> ('pod','data') (whichever exist),
+    'model' -> model axis.  Returns ``x`` itself; outside a mesh it does
+    nothing else (one check, no allocation, no host read)."""
+    mesh = _mesh.ambient
+    if mesh is None:
+        return x
+    return _place(x, constraint_spec(mesh.axis_names, axes))
+
 
 # --------------------------------------------------------------------------
 # norms
@@ -107,7 +145,10 @@ def unembed_logits(table: torch.Tensor, h: torch.Tensor, cfg: ModelConfig) -> to
 def _ce_chunk(table: torch.Tensor, h: torch.Tensor, lab: torch.Tensor,
               cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """(summed CE, counted labels) of one sequence chunk h [b, chunk, d]."""
+    h = constrain(h, "batch", None, None)
     logits = unembed_logits(table, h, cfg)  # [b, chunk, V_pad] fp32
+    # keep batch sharded and vocab model-sharded through the CE math
+    logits = constrain(logits, "batch", None, "model")
     # mask padded vocab entries out of the partition function
     pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
     logits = torch.where(pad, -1e30, logits)
@@ -137,6 +178,7 @@ def chunked_ce_loss(
     chunk = min(cfg.loss_chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} % loss_chunk {chunk} != 0")
+    hidden = constrain(hidden, "batch", None, None)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, chunk):

@@ -161,13 +161,14 @@ def _attention(bp, x, cfg: ModelConfig, positions):
 
 
 def _attn_block_apply(bp, x, cfg: ModelConfig, positions):
+    x = L.constrain(x, "batch", None, None)
     x = x + _attention(bp, x, cfg, positions)
     h = L.rmsnorm_apply(bp["ln2"], x)
     if "router" in bp["ffn"]:  # MoE
         y, aux = MOE.moe_apply(bp["ffn"], h, cfg)
     else:
         y, aux = L.mlp_apply(bp["ffn"], h, cfg), None
-    return x + y, aux
+    return L.constrain(x + y, "batch", None, None), aux
 
 
 def _dense_block_apply(bp, x, cfg: ModelConfig, positions):
@@ -176,6 +177,7 @@ def _dense_block_apply(bp, x, cfg: ModelConfig, positions):
 
 
 def _ssm_block_apply(bp, x, cfg: ModelConfig):
+    x = L.constrain(x, "batch", None, None)
     return x + SSM.ssm_apply(bp["ssm"], L.rmsnorm_apply(bp["ln"], x), cfg)
 
 

@@ -27,7 +27,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _act, matmul_f32, mlp_apply, mlp_schema
+from repro_torch.models.layers import _act, constrain, matmul_f32, mlp_apply, mlp_schema
 from repro_torch.models.schema import ParamDef, Schema
 
 AUX_LOSS_COEF = 0.01
@@ -124,7 +124,7 @@ def _moe_apply_einsum(params, x: torch.Tensor, cfg: ModelConfig):
 
     # -- capacity assignment over the flattened (token-major, then k) order --
     onehot = _one_hot(idx, e)                                # [g,t,k,e]
-    flat = onehot.reshape(g, gs * k, e)
+    flat = constrain(onehot.reshape(g, gs * k, e), "batch", None, None)
     pos = torch.cumsum(flat, dim=1) - flat                   # slots used before
     keep = (pos < cap) * flat                                # [g,t*k,e]
     slot_oh = _one_hot(torch.clamp(pos, max=cap - 1).to(torch.int32), cap)

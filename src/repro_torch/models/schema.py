@@ -1,5 +1,5 @@
 """Schema-driven parameters (port of ``repro/models/schema.py``): one
-definition yields real init, abstract shapes and counts.
+definition yields real init, abstract shapes, counts and PartitionSpecs.
 
 Every model module describes its parameters as a nested dict of ``ParamDef``
 leaves carrying a shape, a tuple of *logical axis names*, and an initializer.
@@ -7,6 +7,7 @@ The consumers:
 
   * ``init_params(schema, generator, device)`` -> nested dict of tensors
   * ``abstract_params(schema)``                -> the same on the meta device
+  * ``param_pspecs(schema, rules)``            -> nested dict of ``P``
   * ``param_count`` / ``param_bytes``
 
 ``init_params`` follows the reference's rules leaf by leaf but draws from a
@@ -14,8 +15,13 @@ The consumers:
 (``jax.random`` is not reproducible in torch).  To run the reference's
 parameters, carry them across: ``params_from_numpy`` takes the reference's
 tree with each leaf as a numpy array, ``params_to_numpy`` gives it back.
-``ShardingRules`` / ``param_pspecs`` have no meaning on one card and wait
-for the distribution slice (ROADMAP item 15e).
+
+Logical -> mesh axis resolution (``ShardingRules``) applies the
+reference's divisibility guard: a dimension that does not divide evenly
+over its mesh axes falls back to replication (e.g. arctic's 56 heads on a
+16-way model axis).  ``P`` is the reference's ``PartitionSpec``: one entry
+per dim, a mesh axis, a tuple of axes or None; ``dist.sharding.named``
+turns it into DTensor placements.
 """
 
 from __future__ import annotations
@@ -139,6 +145,64 @@ def init_params(schema: Schema, generator: torch.Generator,
 def abstract_params(schema: Schema) -> dict:
     """Shapes and dtypes without storage: tensors on the meta device."""
     return map_schema(schema, lambda pd: torch.empty(pd.shape, dtype=pd.dtype, device="meta"))
+
+
+class P(tuple):
+    """A PartitionSpec: one entry per dim, each a mesh axis name, a tuple of
+    axis names (major to minor) or None (replicated).  A tuple of one name
+    is that name, as jax's ``PartitionSpec`` has it."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, (p[0] if isinstance(p, tuple) and len(p) == 1 else p
+                                     for p in parts))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return "P" + tuple.__repr__(self)
+
+
+@dataclass
+class ShardingRules:
+    """Logical-axis -> mesh-axis mapping with divisibility fallback.
+
+    ``rules`` values may be a mesh axis name, a tuple of mesh axes, or None.
+    """
+
+    rules: dict[str, Any]
+    mesh_axis_sizes: dict[str, int]
+
+    def resolve(self, dim: int, axis: Optional[str]):
+        if axis is None:
+            return None
+        target = self.rules.get(axis)
+        if target is None:
+            return None
+        axes = target if isinstance(target, tuple) else (target,)
+        if dim % math.prod(self.mesh_axis_sizes[a] for a in axes) != 0:
+            return None  # fall back to replication (e.g. 56 heads / 16-way)
+        return target
+
+    def spec_for(self, pd: ParamDef) -> P:
+        """Resolve each dim; a mesh axis may appear only once per spec, so
+        later dims fall back to replication (e.g. expert weights [E, d, f]:
+        E claims 'model' for expert parallelism, f then replicates)."""
+        used: set = set()
+        out = []
+        for d, a in zip(pd.shape, pd.axes):
+            r = self.resolve(d, a)
+            axes = r if isinstance(r, tuple) else (r,) if r else ()
+            if any(x in used for x in axes):
+                out.append(None)
+                continue
+            used.update(axes)
+            out.append(r)
+        return P(*out)
+
+
+def param_pspecs(schema: Schema, rules: ShardingRules) -> dict:
+    return map_schema(schema, rules.spec_for)
 
 
 def param_count(schema: Schema) -> int:

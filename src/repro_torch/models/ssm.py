@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import matmul_f32
+from repro_torch.models.layers import constrain, matmul_f32
 from repro_torch.models.schema import ParamDef, Schema
 
 
@@ -152,6 +152,9 @@ def ssm_apply(params, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cdt = cfg.compute_dtype
     d_inner, _, _ = _dims(cfg)
     zxbcdt = torch.matmul(xin.to(cdt), params["in_proj"].to(cdt))
+    # keep the wide inner activation model-sharded through conv/SSD
+    if cfg.ssm_shard_constraints:
+        zxbcdt = constrain(zxbcdt, "batch", None, "model")
     z, xBC, dt = _split_zxbcdt(zxbcdt, cfg)
 
     # causal depthwise conv over the sequence (width d_conv), summed in the
@@ -165,7 +168,10 @@ def ssm_apply(params, xin: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     A = -torch.exp(params["A_log"])                                    # [h]
     y, _ = ssd_chunked(xh * dt[..., None].to(cdt), dt * A, Bm, Cm, s.chunk)
     y = y + params["D"].to(cdt)[None, None, :, None] * xh
-    y = _gated_norm(params, y.reshape(xh.shape[0], sl, d_inner), z)
+    y = y.reshape(xh.shape[0], sl, d_inner)
+    if cfg.ssm_shard_constraints:
+        y = constrain(y, "batch", None, "model")
+    y = _gated_norm(params, y, z)
     return torch.matmul(y, params["out_proj"].to(cdt))
 
 

@@ -6,7 +6,8 @@ parameters and moments updated in place.
 ``train_loop`` is the host-side loop with checkpoint/restart fault
 tolerance.  A step reads nothing back from the card: its metrics stay
 device tensors, and the loop converts them to floats only at its log
-steps.  ``train_state_pspecs`` (the mesh's shardings) is ROADMAP item 15e.
+steps.  ``train_state_pspecs`` gives the train state's ``P`` tree on a
+mesh (``dist.sharding``), congruent with ``abstract_train_state``.
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def abstract_train_state(cfg: ModelConfig, opt: O.OptConfig) -> dict:
             "step": torch.empty((), dtype=torch.int32, device="meta"),
         },
     }
+
+
+def train_state_pspecs(cfg: ModelConfig, mesh, *, fsdp: bool = False) -> dict:
+    """The train state's ``P`` tree: the moments shard as their parameters."""
+    from repro_torch.dist.sharding import model_pspecs
+    from repro_torch.models.schema import P
+
+    pspecs = model_pspecs(cfg, mesh, fsdp=fsdp)
+    return {"params": pspecs, "opt": {"m": pspecs, "v": pspecs, "step": P()}}
 
 
 def make_train_step(

@@ -997,3 +997,49 @@ def test_checkpoint_round_trip_from_card_tensors(tmp_path):
     back = C.restore(tmp_path, 2, like=state)
     for (path, a), (_, b) in zip(tree_items(state), tree_items(back)):
         assert b.is_cuda and a.dtype == b.dtype and torch.equal(a, b), path
+
+
+# ---------------------------------------------------------------------------
+# the dry run (``repro_torch.launch.dryrun``): the meta count is the card's
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen15_05b", "deepseek_v2_lite_16b", "mamba2_13b",
+                                  "zamba2_7b", "arctic_480b"])
+def test_card_flop_count_equals_the_meta_trace(arch):
+    """``FlopCounterMode`` over a smoke decode step and a smoke train step
+    run on the card (real weights, cache and batch) counts exactly what
+    the dry run counts over the same steps traced on the meta device."""
+    _need_card()
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeCell, get_config, smoke_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode as D
+    from repro_torch.models import model as M
+    from repro_torch.models.schema import init_params
+    from repro_torch.train import loop as TL
+
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), loss_chunk=16, remat=True)
+    mesh = make_host_mesh()
+    b, t = 4, 32
+    params = init_params(M.model_schema(cfg), torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    cache = D.init_cache(cfg, b, t, "cuda")
+    with FlopCounterMode(display=False) as fc, torch.inference_mode():
+        D.decode_step(params, cache, {"tokens": torch.ones((b, 1), dtype=torch.int32,
+                                                           device="cuda"), "pos": 3}, cfg)
+    meta, _ = DR.trace_cell(cfg, ShapeCell("d", "decode", t, b), mesh)
+    assert fc.get_total_flops() == meta.get_total_flops() > 0
+    opt = DR._opt_for(cfg)
+    state = {"params": params, "opt": TL.O.init_opt_state(params, opt)}
+    batch = next(batches(cfg, b, t, seed=0, device="cuda"))
+    with FlopCounterMode(display=False) as fc:
+        TL.make_train_step(cfg, opt)(state, batch)
+    meta, _ = DR.trace_cell(cfg, ShapeCell("t", "train", t, b), mesh)
+    assert fc.get_total_flops() == meta.get_total_flops() > 0

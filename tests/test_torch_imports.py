@@ -228,3 +228,21 @@ def test_training_path_imports_no_ml_dtypes():
         text = path.read_text()
         allowed = text.count("import ml_dtypes  # numpy's bfloat16") if path.name == "schema.py" else 0
         assert text.count("import ml_dtypes") == allowed, path
+
+
+#: the distribution slice's modules (ROADMAP item 15e): the specs, the mesh,
+#: the dry run, the hillclimb and the roofline
+DIST_MODULES = ["repro_torch.dist", "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+                "repro_torch.roofline", "repro_torch.roofline.analysis",
+                "repro_torch.roofline.traffic", "repro_torch.roofline.report"]
+
+
+def test_walk_covers_the_distribution_and_roofline_modules():
+    """The two checks above walk ``dist/``, ``roofline/`` and the new
+    ``launch/`` modules (and the model modules that gained ``constrain``)."""
+    assert set(DIST_MODULES) <= set(MODULES)
+    for sub in ("dist", "roofline"):
+        assert set((PORT / sub).glob("*.py")) <= set(SOURCES)
+    assert {PORT / "launch" / f"{m}.py" for m in ("mesh", "dryrun", "hillclimb")} <= set(SOURCES)
+    assert {PORT / "models" / f"{m}.py" for m in ("layers", "moe", "ssm", "decode")} <= set(SOURCES)
