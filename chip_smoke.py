@@ -18,10 +18,11 @@ workers, the sharded executors (``simx/shard.py``: the grids on a mesh and
 the lane-batched load curve of every rule), the static analysis and the
 quickstart, eagle's
 long-job path on the google-like trace at 13,000 workers, the Megha serving engine at 49,984 slots with
-200,000 requests, real-decode serving at qwen15_05b's and at
-DeepSeek-V2-Lite's full width (with the MoE, MLA, SSM and hybrid families
-checked at full width), and the fast path's SDPS loop — and prints one
-JSON line per phase:
+200,000 requests, real-decode serving at qwen15_05b's, DeepSeek-V2-Lite's,
+gemma_7b's, stablelm_12b's and llava_next_mistral_7b's full width (with the
+MoE, MLA, SSM and hybrid families checked at full width), training at
+qwen15_05b's and hubert_xlarge's full width, and the fast path's SDPS
+loop — and prints one JSON line per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
                (match.cu, match_tasks.cu, p2_sketch.cu)
@@ -31,8 +32,9 @@ JSON line per phase:
                dtypes and n, and at [50000, 64]; then at the main path's
                shapes, the narrow [50000, 64], the sparrow/eagle
                head-of-queue picks (n = 1: [300000, 40], [50000, 40],
-               [13000, 64]), eagle's central matches ([1, 13000],
-               [6, 50000]), the Fig. 4 grid's shapes at B = 8
+               [13000, 64], the stream's [50000, 16]), eagle's central
+               matches ([1, 13000], [6, 50000]), the Fig. 4 grid's shapes
+               at B = 8
                ([64, 49984], [64, 6248], [8, 50000], [10000, 40] and the
                n = 1 pick [400000, 40]) and the 4-lane curve's ([32, 6248],
                [32, 49984], [4, 50000], [5000, 40] and the n = 1 pick
@@ -84,16 +86,18 @@ JSON line per phase:
   sweep_profile  torch.profiler over megha's and sparrow's grids, rounds
                128-192 at B = 6
   fig4         the Fig. 4 grid (crash fractions 0 / 0.05 / 0.1 / 0.2 x
-               seeds 0 / 1, 5 s outages from mid-arrival span, megha also
-               losing 2 GMs) for all five rules, kernel and plain runs:
+               seeds 0 / 1 of a 160-job load-0.8 trace at 50,000 workers,
+               5 s outages from mid-arrival span, megha also losing 2 GMs)
+               for all five rules, kernel and plain runs:
                every point completes, nothing lost at fraction 0 and some
                lost elsewhere, kernel and plain final states bitwise equal,
                the fraction-0 point bitwise its fault-free run, launches
                per round; grid wall and tasks per wall second at B = 8,
                the [F, S] delays, losses, messages and megha's
                inconsistencies
-  fig4_profile torch.profiler over megha's and pigeon's Fig. 4 grids,
-               rounds 128-192 (inside the outage) at B = 8
+  fig4_profile torch.profiler over megha's and pigeon's Fig. 4 grids, 64
+               rounds from the third after the crash (inside the outage) at
+               B = 8
   telemetry    megha (49,984 workers) and sparrow (50,000) on the megha
                phase's trace with telemetry and provenance on
                (simulate_workload(telemetry=TelemetryConfig(),
@@ -149,7 +153,7 @@ JSON line per phase:
                lane-steps per second (every lane decodes every tick, as in
                the reference) and the served tokens of occupied lanes, the
                wall split between engine and decode, peak memory; (b)
-               16 decode steps under torch.profiler: device busy and idle
+               4 decode steps under torch.profiler: device busy and idle
                share, ops per step, the top kernels and torch ops, the
                step's byte and operations bounds; (e) two of the runner's
                ticks from position 250 (all 128 lanes, its bf16 weights and
@@ -172,7 +176,7 @@ JSON line per phase:
                = gm_round calls, the plain engine identical), decode ms
                per step by CUDA events from step 16, lane-steps and
                served tokens per second, the share of lanes held, the
-               runner's build time and peak memory; (b) 4 steps under
+               runner's build time and peak memory; (b) 2 steps under
                torch.profiler with the step's byte and operations bounds
                (every expert's weights: the einsum dispatch computes every
                expert's capacity slots); (c) decode against the
@@ -191,6 +195,37 @@ JSON line per phase:
                the logits within 2e-4 x max(1, max |logit|) on every lane
                whose routing agrees (a flip only at a CPU-side gap below
                1e-6); (e) the phase's wall against its 90 s budget
+  lm_dense     the configurations no earlier phase runs at their published
+               widths, each model alone on the card: (a) decode against the
+               teacher-forced forward in fp32 (B = 2, 8 steps) for gemma_7b
+               (28 layers, d_model 3,072, 16 x 256 heads, GeGLU, 256,000
+               tied vocab), stablelm_12b (40 layers, d_model 5,120, GQA
+               32/8, d_ff 13,824) and llava_next_mistral_7b (32 layers,
+               d_model 4,096, GQA 32/8; decode embeds tokens only, so its
+               forward runs with the frontend off), within 2e-4 x max(1,
+               max |logit|); (b) the first 2 layers of each at full width
+               in fp32 on the card against the CPU: the forward and 2
+               decode steps, llava's forward with its 576 projected patches
+               prepended, hubert_xlarge's bidirectional encoder forward on
+               frames and its chunked-CE loss, same bound; (c) the three
+               decoders served in bf16 through lm_families' loop (2,112
+               requests, 128 lanes decoding 128 ticks against a 128-token
+               cache): its checks and numbers, 2 steps profiled with the
+               step's bounds, the fp32 unembedding timed alone and its
+               share of the step, two ticks of the runner's first 2 layers
+               (its own bf16 weights and cache) against the CPU on 8
+               lanes within 0.02 x max(1, max |value|), one tick counted
+               for dryrun (c); (d) hubert_xlarge (48 layers,
+               d_model 1,280, 16 heads, plain GELU MLP, no rope, 504 units)
+               trained at full width through ``train_loop`` as train's (a)
+               trains qwen (seq 4,096, global batch 8 in 4 microbatches,
+               fp32 state, bf16 compute, remat "full"): 4 steps, the last
+               on step 1's batch again, its loss 0.1 nats below step 1's,
+               ms a step by CUDA events over steps 3-4, tokens a second, 6
+               N D share of the bf16 peak, peak memory, step 2 profiled;
+               then one step of its first 2 layers card against CPU, within
+               train's (c) bounds; (e) the phase's wall against its 120 s
+               budget
   train        training (``repro_torch.train``): (a) qwen15_05b at its
                full width (24 layers, d_model 1,024, vocab padded to
                152,064, tied embeddings; fp32 parameters and moments, bf16
@@ -228,8 +263,10 @@ JSON line per phase:
                traced on the meta device: every term finite and >= 0, FLOPs
                > 0, memory per device, the wall per cell; (b) the same dry
                run of the steps phases lm_serve (128 lanes, 256-token
-               cache), lm_families (128 lanes, 128-token latent cache) and
-               train (8 x 4,096 tokens) ran, on ``make_host_mesh()`` (the
+               cache), lm_families (128 lanes, 128-token latent cache),
+               lm_dense (gemma, stablelm and llava: 128 lanes, 128-token
+               cache; hubert: 8 x 4,096 frames) and train (8 x 4,096
+               tokens) ran, on ``make_host_mesh()`` (the
                one card), with the dtypes the card ran: the predicted
                compute, memory and step terms beside the measured step (CUDA
                events) and ``max_memory_allocated``; each measured step no
@@ -237,10 +274,11 @@ JSON line per phase:
                state within the measured peak, the activation estimate's
                ratio to the peak printed; (c) ``FlopCounterMode`` over one of
                each served runner's ticks on the card (counted inside
-               lm_serve and lm_families) equal to the meta trace of the same
-               step, and ``_lm_step_ops``' total equal to it for
-               qwen15_05b (DeepSeek's ratio printed); the wall against its
-               30 s budget
+               lm_serve, lm_families and lm_dense) equal to the meta trace
+               of the same step, and ``_lm_step_ops``' total equal to it
+               for qwen15_05b and lm_dense's three (DeepSeek's ratio
+               printed);
+               the wall against its 30 s budget
   serve_profile  a steady window of serving ticks under torch.profiler:
                device busy and idle share, host time in torch ops; and the
                SDPS loop's gm_round likewise
@@ -255,14 +293,13 @@ JSON line per phase:
                one-entry mesh's (megha, sparrow); (c) every rule's 4-lane
                ``sharded_steady_state`` curve (the stream phase's Poisson
                stream at 25 / 35 / 40 / 45 jobs a second, loads 0.5-0.9,
-               30 s; pigeon, the oracle and sparrow 15 s): each lane bitwise its
-               serial ``run_steady_state`` (lane 0.8 at 30 s is the stream
-               phase's (b) run), wall against the four serial walls,
+               to 15 s): each lane bitwise its serial ``run_steady_state``,
+               wall against the four serial walls,
                segment / refill split, tasks per wall second, one P²
                launch a segment, match launches, sketch p50 / p99 / p999,
                admission lag, utilisation, state bytes, peak memory per
                lane; (d) megha's curve with the plain
-               versions to 10 s, bitwise the first 7 segments of (c)'s;
+               versions to 5 s, bitwise the first 4 segments of (c)'s;
                (e) megha's and sparrow's curve to 10 s driven segment by
                segment (bitwise (c)'s first segments), segment 5 run again
                under torch.profiler: device busy and idle share a round
@@ -282,8 +319,10 @@ also fails when no card is found.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import importlib.util
+import itertools
 import json
 import math
 import subprocess
@@ -375,12 +414,15 @@ SWEEP_RULES = ("megha", "pigeon", "oracle", "sparrow", "eagle")
 #: pick (no job is long there, so eagle's central match is left out)
 SWEEP_PER_ROUND = {"megha": 1, "pigeon": 2, "oracle": 1, "sparrow": 1, "eagle": 1}
 
-#: The Fig. 4 availability grid at the Fig. 2 grid's size, with the
+#: The Fig. 4 availability grid at the Fig. 2 grid's width, with the
 #: severity axis of bench_simx.py's FAULTS_FULL: 4 crash fractions x 2
 #: seeds = 8 points of the load-0.8 trace, 5 s outages from mid-arrival
-#: span, megha also losing 2 of its 8 GMs at every nonzero fraction
+#: span, megha also losing 2 of its 8 GMs at every nonzero fraction.  Its
+#: trace is cut from the Fig. 2 grid's 480 jobs to 160 (758 rounds, from
+#: 1,767; 50,000 workers and 1,000-task jobs kept) since phase lm_dense
+#: came, to keep the script inside its time limit
 FIG4_FULL = dict(fractions=(0.0, 0.05, 0.1, 0.2), num_seeds=2, outage=5.0, gm_outages=2,
-                 load=0.8, num_workers=WORKERS, num_jobs=480, tasks_per_job=1000, dt=DT)
+                 load=0.8, num_workers=WORKERS, num_jobs=160, tasks_per_job=1000, dt=DT)
 FIG4_POINTS = 8
 #: the rules' kernel launches a round on the Fig. 4 grid: eagle's SSS is on
 #: under faults, but no job is long, so its one match is still the pick
@@ -418,13 +460,15 @@ MAIN_SHAPES = (
     ("sweep_pigeon", SWEEP_POINTS * (WORKERS // 40), 40),
 )
 #: sparrow's and eagle's head-of-queue pick, n = 1 per row: the Fig. 2 grid
-#: at B = 6 and B = 1 (R = 40 queue slots at 50,000 workers) and eagle on
-#: the google-like trace (R = 64 at 13,000 workers); then eagle's central
+#: at B = 6 and B = 1 (R = 40 queue slots at 50,000 workers), eagle on the
+#: google-like trace (R = 64 at 13,000 workers) and the stream (R = 16 at
+#: the window's 393,216 probe edges, 50,000 workers); then eagle's central
 #: long match (n = W): on that trace, and a grid of 6 points at 50,000
 PICK_SHAPES = (
     ("sweep_queue_pick", SWEEP_POINTS * WORKERS, 40),
     ("queue_pick", WORKERS, 40),
     ("eagle_long_pick", EAGLE_LONG_WORKERS, 64),
+    ("stream_queue_pick", WORKERS, 16),
 )
 CENTRAL_SHAPES = (
     ("eagle_long_central", 1, EAGLE_LONG_WORKERS),
@@ -478,8 +522,10 @@ LM_MAX_LEN = 256
 #: the decode steps timed by CUDA events start here (the first are warm-up)
 LM_STEADY_FROM = 16
 #: (b) profiles this many steps from this position (a step attends over the
-#: whole cache length whatever its position, so any position does)
-LM_PROFILE_STEPS = 16
+#: whole cache length whatever its position, so any position does; reading
+#: a profile back costs ~1.5 s of host a step of ~2,150 device ops with the
+#: torch ops' table: cut from 16 steps when phase lm_dense came)
+LM_PROFILE_STEPS = 4
 LM_PROFILE_POS = 128
 #: (c) decode against the teacher-forced forward at full width, fp32
 #: compute, B = 2, T = 8; (d) the card against the CPU, 2 steps of qwen;
@@ -515,8 +561,8 @@ LMF_REQUESTS = 2112
 LMF_MAX_LEN = 128
 #: (b) profiles this many steps from this position (two warm steps first;
 #: a DeepSeek step is ~3,850 device ops, and reading a profile back costs
-#: host time in proportion)
-LMF_PROFILE_STEPS = 4
+#: host time in proportion: cut from 4 steps when phase lm_dense came)
+LMF_PROFILE_STEPS = 2
 LMF_PROFILE_POS = 64
 #: (c) decode against the teacher-forced forward, each model alone on the
 #: card at full width, B = LM_CHECK_BATCH: (arch, layers (None: all),
@@ -599,6 +645,41 @@ TRAIN_BF16_GRAD_REL = 0.01
 #: the phase's wall budget, seconds
 TRAIN_BUDGET_S = 75.0
 
+#: Phase lm_dense: the configurations no earlier phase runs at their
+#: published widths, each model alone on the card, no width cut.  (a) the
+#: three decoders' decode against the teacher-forced forward as lm_serve's
+#: (c) (fp32, B = LM_CHECK_BATCH, LM_CHECK_STEPS steps; llava's forward with
+#: its frontend off, since decode embeds tokens only); (b) the first
+#: LMD_CPU_LAYERS layers of all four in fp32, card against CPU: the
+#: decoders' forward and LM_CPU_STEPS decode steps, llava's forward with its
+#: 576 projected patches, hubert's encoder forward on LMD_ENCODER_SHAPE
+#: frames and its chunked-CE loss; (c) the decoders served in bf16 on
+#: lm_serve's engine at lm_families' depth (LMF_REQUESTS requests, 128
+#: lanes decoding LMF_MAX_LEN ticks against a cache of that length),
+#: LMF_PROFILE_STEPS steps profiled from LMF_PROFILE_POS, the
+#: unembedding timed alone at the
+#: step's shape, and two ticks of the runner's first LMD_CPU_LAYERS layers
+#: (its own bf16 weights and cache, from the cache's last rows) against the
+#: CPU on its first LMD_CPU_LANES lanes (the CPU's bf16 products over all
+#: 128 lanes would take ~20 s a model; each lane's step is its own), one tick counted for phase dryrun
+#: (c); (d) hubert_xlarge trained at full width as phase train
+#: trains qwen (seq TRAIN_SEQ, global batch TRAIN_BATCH in TRAIN_ACCUM
+#: microbatches, AdamW at TRAIN_LR with TRAIN_WARMUP warmup steps, fp32
+#: state, bf16 compute, remat "full"): LMD_TRAIN_STEPS steps, the last on
+#: step 1's batch again (its loss TRAIN_LEARN_MARGIN below step 1's), step
+#: 2 profiled, steps 3 on timed; then one step of its first TRAIN_CPU_LAYERS
+#: layers card against CPU (``_train_card_vs_cpu``).  Reduced: depth only
+#: (lm_families' requests and ticks, the train steps; train_4k's global
+#: batch 256 to 8 on one card)
+LMD_SERVE_ARCHS = ("gemma_7b", "stablelm_12b", "llava_next_mistral_7b")
+LMD_ENCODER = "hubert_xlarge"
+LMD_CPU_LAYERS = 2
+LMD_CPU_LANES = 8
+LMD_ENCODER_SHAPE = (2, 256)
+LMD_TRAIN_STEPS = 4
+#: the phase's wall budget, seconds
+LMD_BUDGET_S = 120.0
+
 #: Phase dryrun: (a) the dry run (``launch/dryrun.py``) of these cells on
 #: the production H100 meshes ((32, 8) single, (2, 32, 8) multi), traced on
 #: the meta device; (b) the roofline of the steps phases lm_serve,
@@ -641,14 +722,17 @@ STREAM_PROFILE_HORIZON = 10.0
 SHARD_PAD_GRID = dict(loads=(0.35, 0.55, 0.7, 0.85, 0.95), num_seeds=3, num_workers=64,
                       num_jobs=6, tasks_per_job=8, dt=DT, num_gms=2, num_lms=2)
 SHARD_RATES = (25.0, 35.0, 40.0, 45.0)
-#: (c)'s span for pigeon and the oracle, and for sparrow (since phase
-#: dryrun came), cut from 30 s to keep the script inside its time limit:
-#: their four serial runs (lane 0.8 too) run to the same 15 s
-SHARD_CURVE_HORIZON = {"pigeon": 15.0, "oracle": 15.0, "sparrow": 15.0}
-#: (d)'s plain curve and (e)'s driven curves run to 10 s (7 segments, the
-#: profiled one is segment 5) and are held to the first segments of (c)'s
-#: curve: the plain P² absorb alone costs ~2 s a segment for 4 lanes
+#: (c)'s span, cut from 30 s to keep the script inside its time limit
+#: (pigeon's and the oracle's first, sparrow's since phase dryrun
+#: came, megha's and eagle's since phase lm_dense came): each rule's four
+#: serial runs run to the same 15 s
+SHARD_CURVE_HORIZON = 15.0
+#: (e)'s driven curves run to 10 s (7 segments, the profiled one is
+#: segment 5) and (d)'s plain curve to 5 s (4 segments; 10 s until phase
+#: lm_dense came), each held to the first segments of (c)'s curve: the
+#: plain P² absorb alone costs ~2 s a segment for 4 lanes
 SHARD_SHORT_HORIZON = 10.0
+SHARD_PLAIN_HORIZON = 5.0
 SHARD_PROFILE_SEGMENT = 5
 #: the lane-batched match shapes of the curve (4 lanes): megha internal and
 #: borrow, the oracle's and eagle's central match (n = W, wide), pigeon's
@@ -1328,8 +1412,9 @@ def phase_fig4() -> dict:
 
 
 def phase_fig4_profile(plans: dict) -> list[dict]:
-    """Megha's and pigeon's Fig. 4 grids (B = 8) under torch.profiler,
-    rounds 128-192: inside the outage, which starts at round 125."""
+    """Megha's and pigeon's Fig. 4 grids (B = 8) under torch.profiler, 64
+    rounds from the third after the crash: inside the 5 s (100-round)
+    outage."""
     out = []
     for name, kernel in (("megha", "match_batched_wide_kernel"),
                          ("pigeon", "match_batched_narrow_kernel")):
@@ -1337,8 +1422,9 @@ def phase_fig4_profile(plans: dict) -> list[dict]:
         step, state = sweep.build_fault_grid(
             plan.name, plan.cfg, plan.tasks, plan.schedules, plan.seeds,
             match_fn=runtime.default_match_fn(True))
+        start = math.ceil(float(plan.annotate["fail_time"]) / DT) + 3
         r = dict(phase="fig4_profile", scheduler=name, points=FIG4_POINTS,
-                 **_profile_rounds(step, state, start=128, length=64, kernel=kernel))
+                 **_profile_rounds(step, state, start=start, length=64, kernel=kernel))
         check(r["device_ops_per_round"] > 0, f"the profiler saw {name}'s Fig. 4 device work")
         check(r["match_kernel_launches"] >= 64, f"{name}'s Fig. 4 window ran its kernel")
         emit(r)
@@ -2025,7 +2111,6 @@ def phase_stream(wl) -> dict:
               f"{name} stream: the profiler saw device work")
     out["phase_wall_s"] = time.perf_counter() - t_phase
     emit(out)
-    out["_runs"] = runs
     return out
 
 
@@ -2118,7 +2203,7 @@ def _curve_profile(name: str, orders, want: list) -> dict:
         top_device_ms=[[k[:90], v] for k, v in top])
 
 
-def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
+def phase_shard(swp: dict, fig4: dict) -> dict:
     """The sharded executors at the paper's size: (a) the Fig. 2 grids of
     all five rules and megha's Fig. 4 grid on the one-card mesh, bitwise
     the sweep and fig4 phases' grids; (b) the indivisible 15-point grid on
@@ -2130,7 +2215,7 @@ def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
     mesh = shard.sweep_mesh()
     out = dict(phase="shard", mesh=[str(d) for d in mesh], rates=list(SHARD_RATES),
                loads=[_shard_arrivals(r).offered_load(WORKERS) for r in SHARD_RATES],
-               horizon=STREAM_HORIZON, workers=WORKERS, megha_workers=GRID_WORKERS,
+               horizon=SHARD_CURVE_HORIZON, workers=WORKERS, megha_workers=GRID_WORKERS,
                **STREAM_WINDOW)
     check(len(mesh) == 1, "sweep_mesh() is the one card")
 
@@ -2184,14 +2269,10 @@ def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
     orders = simx_megha.gm_orders(torch.Generator().manual_seed(0), cfg)
     out["curve"] = {}
     curves = {}
+    horizon = SHARD_CURVE_HORIZON
     for name in STREAM_RULES:
-        horizon = SHARD_CURVE_HORIZON.get(name, STREAM_HORIZON)
         serial, walls = [], []
         for rate in SHARD_RATES:
-            if rate == STREAM_RATE and horizon == STREAM_HORIZON:
-                serial.append(strm["_runs"][name])
-                walls.append(strm["rules"][name]["wall_s"])
-                continue
             run, wall, _, _, _ = _stream_run(name, _shard_arrivals(rate), horizon=horizon,
                                              orders=orders if name == "megha" else None)
             serial.append(run)
@@ -2230,9 +2311,9 @@ def phase_shard(swp: dict, fig4: dict, strm: dict) -> dict:
               f"shard {name}: match launches = segments' rounds x "
               f"{STREAM_PER_ROUND[name]} + the rounds any lane borrowed in")
     runs, wall, launches, p2_launches, _ = _curve("megha", orders, use_kernel=False,
-                                                  horizon=SHARD_SHORT_HORIZON)
+                                                  horizon=SHARD_PLAIN_HORIZON)
     same = all(_runs_prefix_bitwise(a, b) for a, b in zip(runs, curves["megha"]))
-    out["plain_megha"] = dict(wall_s=wall, horizon=SHARD_SHORT_HORIZON,
+    out["plain_megha"] = dict(wall_s=wall, horizon=SHARD_PLAIN_HORIZON,
                               segments=len(runs[0].refills), bitwise_kernel=same,
                               match_launches=launches, p2_launches=p2_launches)
     check(same, "shard megha: the plain curve is bitwise the kernel curve")
@@ -2894,10 +2975,13 @@ def _lm_profile(runner: ModelRunner, pos: int, n: int = LM_PROFILE_STEPS) -> dic
 
 def _lm_decode_vs_forward(arch: str) -> tuple[dict, dict]:
     """(c): the full-width model in fp32 compute, weights drawn on the card
-    from a seeded generator: each decode step's logits against the
-    teacher-forced forward's at that position.  Returns the result and the
-    model's parameters, for (d)."""
+    from a seeded generator (fp32 parameters: no cast, one copy): each
+    decode step's logits against the teacher-forced forward's at that
+    position.  Decode embeds tokens only (the VLM's too, as the
+    reference's), so the forward runs with the frontend off.  Returns the
+    result and the model's parameters, for (d)."""
     cfg = dataclasses.replace(lm_config(arch), compute_dtype=torch.float32)
+    _reset_peak_memory()
     t0 = time.perf_counter()
     lm = lm_model.LanguageModel(cfg, generator=torch.Generator(device=DEVICE).manual_seed(1),
                                 device=DEVICE)
@@ -2906,7 +2990,8 @@ def _lm_decode_vs_forward(arch: str) -> tuple[dict, dict]:
     toks = torch.randint(0, cfg.vocab_size, (LM_CHECK_BATCH, LM_CHECK_STEPS), generator=gen,
                          dtype=torch.int32).to(DEVICE)
     with torch.inference_mode():
-        hidden, _ = lm(dict(tokens=toks))
+        hidden, _ = lm_model.forward(params, dict(tokens=toks),
+                                     dataclasses.replace(cfg, frontend=None))
         fwd = lm_layers.unembed_logits(lm_model._unembed_table(params, cfg), hidden, cfg)
         cache = lm_decode.init_cache(cfg, LM_CHECK_BATCH, LM_CHECK_STEPS, DEVICE)
         errs = []
@@ -2916,9 +3001,11 @@ def _lm_decode_vs_forward(arch: str) -> tuple[dict, dict]:
     scale = max(1.0, float(fwd.abs().max()))
     out = dict(arch=arch, params=sum(p.numel() for p in lm.parameters()),
                param_bytes=sum(p.numel() * p.element_size() for p in lm.parameters()),
-               batch=LM_CHECK_BATCH, steps=LM_CHECK_STEPS, max_abs_err=max(errs),
-               max_abs_logit=float(fwd.abs().max()), bound=LM_BOUND * scale,
-               finite=bool(torch.isfinite(fwd).all()), wall_s=time.perf_counter() - t0)
+               frontend=cfg.frontend, batch=LM_CHECK_BATCH, steps=LM_CHECK_STEPS,
+               max_abs_err=max(errs), max_abs_logit=float(fwd.abs().max()),
+               bound=LM_BOUND * scale, finite=bool(torch.isfinite(fwd).all()),
+               peak_memory=torch.cuda.max_memory_allocated(),
+               wall_s=time.perf_counter() - t0)
     check(out["finite"] and out["max_abs_err"] <= out["bound"],
           f"{arch}: decode matches the teacher-forced forward at full width")
     return out, dict(cfg=cfg, params=params, toks=toks)
@@ -2946,35 +3033,46 @@ def _lm_card_vs_cpu(model: dict) -> dict:
     return out
 
 
-def _lm_runner_vs_cpu(runner: ModelRunner) -> dict:
+def _lm_runner_vs_cpu(runner: ModelRunner, pos: int = LM_LATE_POS, layers: int | None = None,
+                      lanes: int | None = None) -> dict:
     """(e): the timed run's own state, bf16 at full width: from position
-    LM_LATE_POS, LM_CPU_STEPS of the runner's ticks on the card (all its
-    lanes, against its 256-token cache) and, from CPU copies of the same
-    compute-dtype weights and cache, ``decode_step`` on the CPU fed the same
-    tokens.  The logits and the cache rows written are held to the bf16
-    bound."""
-    cfg = runner.cfg
+    ``pos``, LM_CPU_STEPS of the runner's ticks on the card (all its lanes,
+    against its whole cache) and, from CPU copies of the same compute-dtype
+    weights and cache, ``decode_step`` on the CPU fed the same tokens.  The
+    logits and the cache rows written are held to the bf16 bound.  With
+    ``layers``, the ticks run the runner's first ``layers`` layers (views of
+    its weights and cache: the ticks write its cache); with ``lanes``, the
+    CPU steps that many of the lanes (each lane's step is its own)."""
+    if layers is not None:
+        view = copy.copy(runner)
+        view.cfg = dataclasses.replace(runner.cfg, num_layers=layers)
+        view.weights = dict(runner.weights,
+                            blocks=map_tree(runner.weights["blocks"], lambda a: a[:layers]))
+        view.cache = {k: v[:layers] for k, v in runner.cache.items()}
+        runner = view
+    cfg, n = runner.cfg, lanes or runner.slots
     t0 = time.perf_counter()
     cpu_weights = map_tree(runner.weights, lambda a: a.cpu())
-    cpu_cache = {k: v.cpu() for k, v in runner.cache.items()}
-    runner.pos = LM_LATE_POS
+    cpu_cache = {k: v[:, :n].cpu() for k, v in runner.cache.items()}
+    runner.pos = pos
     logit_err, logit_bound = [], []
     with torch.inference_mode():
         for i in range(LM_CPU_STEPS):
-            toks = runner.tokens.cpu()
+            toks = runner.tokens[:n].cpu()
             runner.tick()
             want, cpu_cache = lm_decode.decode_step(
-                cpu_weights, cpu_cache, {"tokens": toks, "pos": LM_LATE_POS + i}, cfg)
-            logit_err.append(float((runner.logits.cpu() - want).abs().max()))
+                cpu_weights, cpu_cache, {"tokens": toks, "pos": pos + i}, cfg)
+            logit_err.append(float((runner.logits[:n].cpu() - want).abs().max()))
             logit_bound.append(LM_BF16_BOUND * max(1.0, float(want.abs().max())))
-    rows = slice(LM_LATE_POS, LM_LATE_POS + LM_CPU_STEPS)
+    rows = slice(pos, pos + LM_CPU_STEPS)
     cache_err, cache_bound = [], []
     for k in ("k", "v"):
         want = cpu_cache[k][:, :, rows].float()
-        cache_err.append(float((runner.cache[k][:, :, rows].cpu().float() - want).abs().max()))
+        cache_err.append(float((runner.cache[k][:, :n, rows].cpu().float() - want).abs().max()))
         cache_bound.append(LM_BF16_BOUND * max(1.0, float(want.abs().max())))
-    out = dict(arch=cfg.name, compute_dtype=str(cfg.compute_dtype), lanes=runner.slots,
-               cache_len=runner.cache["k"].shape[2], positions=[LM_LATE_POS, runner.pos],
+    out = dict(arch=cfg.name, compute_dtype=str(cfg.compute_dtype), layers=cfg.num_layers,
+               lanes=runner.slots, lanes_on_cpu=n,
+               cache_len=runner.cache["k"].shape[2], positions=[pos, runner.pos],
                logit_max_abs_err=logit_err, logit_bound=logit_bound,
                cache_rows_max_abs_err=cache_err, cache_rows_bound=cache_bound,
                wall_s=time.perf_counter() - t0)
@@ -3572,6 +3670,208 @@ def phase_train() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase lm_dense: gemma, stablelm and llava served, hubert trained, full width
+# ---------------------------------------------------------------------------
+
+
+def _lmd_card_vs_cpu(arch: str) -> dict:
+    """(b): the first LMD_CPU_LAYERS layers of ``arch`` at full width in
+    fp32, drawn on the card (seed 3) and copied to the CPU: a decoder's
+    forward (frontend off) and LM_CPU_STEPS decode steps, llava's forward
+    with its projected patches prepended, the encoder's forward on frames
+    and its chunked-CE loss, each within LM_BOUND x max(1, max |value|)."""
+    cfg = dataclasses.replace(lm_config(arch), num_layers=LMD_CPU_LAYERS,
+                              compute_dtype=torch.float32)
+    text = dataclasses.replace(cfg, frontend=None)
+    t0 = time.perf_counter()
+    card = lm_model.LanguageModel(cfg, generator=torch.Generator(device=DEVICE).manual_seed(3),
+                                  device=DEVICE).tree()
+    cpu = map_tree(card, lambda a: a.cpu())
+    b, gen = LM_CHECK_BATCH, torch.Generator().manual_seed(4)
+    if cfg.frontend == "frames":
+        frames = next(train_batches(cfg, *LMD_ENCODER_SHAPE, seed=4, device="cpu"))
+    else:
+        toks = torch.randint(0, cfg.vocab_size, (b, LM_CPU_STEPS), generator=gen,
+                             dtype=torch.int32)
+    if cfg.frontend == "patch":
+        patches = torch.randn((b, cfg.frontend_tokens, lm_model.PATCH_DIM), generator=gen)
+
+    def run(params, dev) -> dict:
+        out = {}
+        with torch.inference_mode():
+            if cfg.frontend == "frames":
+                batch = {k: v.to(dev) for k, v in frames.items()}
+                out["hidden"] = lm_model.forward(params, batch, cfg)[0]
+                out["loss"] = lm_model.loss_fn(params, batch, cfg)
+                return {k: v.cpu() for k, v in out.items()}
+            hidden = lm_model.forward(params, {"tokens": toks.to(dev)}, text)[0]
+            out["forward_logits"] = lm_layers.unembed_logits(
+                lm_model._unembed_table(params, cfg), hidden, cfg)
+            if cfg.frontend == "patch":
+                out["patch_forward_hidden"] = lm_model.forward(
+                    params, {"tokens": toks.to(dev), "patches": patches.to(dev)}, cfg)[0]
+            cache = lm_decode.init_cache(cfg, b, LM_CPU_STEPS, dev)
+            for i in range(LM_CPU_STEPS):
+                out[f"decode_{i}"], cache = lm_decode.decode_step(
+                    params, cache, {"tokens": toks[:, i:i + 1].to(dev), "pos": i}, cfg)
+        return {k: v.cpu() for k, v in out.items()}
+
+    got, want = run(card, DEVICE), run(cpu, "cpu")
+    err = {k: float((got[k].float() - w.float()).abs().max()) for k, w in want.items()}
+    bound = {k: LM_BOUND * max(1.0, float(w.float().abs().max())) for k, w in want.items()}
+    finite = all(bool(torch.isfinite(w).all()) for w in want.values())
+    out = dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model, frontend=cfg.frontend,
+               compared={k: list(w.shape) for k, w in want.items()}, max_abs_err=err,
+               bound=bound, finite=finite, wall_s=time.perf_counter() - t0)
+    check(finite and all(err[k] <= bound[k] for k in err),
+          f"{arch}: the first {LMD_CPU_LAYERS} layers at full width, the card agrees with "
+          f"the CPU ({err})")
+    return out
+
+
+def _lmd_serve(arch: str) -> dict:
+    """(c): ``arch`` served in bf16 at full width on lm_serve's engine and
+    loop at lm_families' depth, alone on the card: (a)'s checks of phase
+    lm_families, then LMF_PROFILE_STEPS steps profiled, the unembedding
+    timed alone at the step's shape, the runner's first layers against the
+    CPU, and one tick counted for phase dryrun (c)."""
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    runner = ModelRunner(arch, LM_SERVE["slots_per_pod"], max_len=LMF_MAX_LEN, seed=0,
+                         cfg=lm_config(arch), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    serve = _lm_serve_run("lm_dense", runner, LMF_REQUESTS, build_s)
+    cfg = runner.cfg
+    serve.update(build_peak_memory=build_peak,
+                 weight_bytes=sum(x.numel() * x.element_size()
+                                  for x in tree_leaves(runner.weights)),
+                 cache_bytes=sum(x.numel() * x.element_size() for x in runner.cache.values()))
+    prof = _lm_profile(runner, LMF_PROFILE_POS, LMF_PROFILE_STEPS)
+    check(prof["device_ops_per_step"] > 0, f"lm_dense {arch}: the profiler saw the decode steps")
+    # the fp32 unembedding of the step (the table cast and the fp32
+    # product, as ``layers.unembed_logits`` computes it) alone
+    h = torch.randn((runner.slots, cfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(5)).to(cfg.compute_dtype)
+    table = lm_model._unembed_table(runner.weights, cfg)
+    with torch.inference_mode():
+        unembed_ms = device_ms(lambda: lm_layers.unembed_logits(table, h, cfg), iters=10, warm=2)
+    del h, table
+    prof.update(unembed_ms=unembed_ms,
+                unembed_share_of_step=unembed_ms / serve["decode_ms_per_step"])
+    late = _lm_runner_vs_cpu(runner, LMF_MAX_LEN - LM_CPU_STEPS, LMD_CPU_LAYERS, LMD_CPU_LANES)
+    tick = _tick_flops(runner)
+    del runner
+    torch.cuda.empty_cache()
+    return dict(serve=serve, profile=prof, runner_vs_cpu=late, tick_flops=tick)
+
+
+def _lmd_train() -> dict:
+    """(d): hubert_xlarge trained at full width through ``train_loop`` (the
+    loop ``launch/train.py`` runs) on the port's pipeline: LMD_TRAIN_STEPS
+    steps, the last on step 1's batch again; then one step of its first
+    layers card against CPU."""
+    cfg = lm_config(LMD_ENCODER)
+    opt = OptConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP)
+    _reset_peak_memory()
+    t0 = time.perf_counter()
+    data = train_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0, device=DEVICE)
+    first = next(data)
+    feed = itertools.chain([first], itertools.islice(data, LMD_TRAIN_STEPS - 2), [first])
+    with _step_spy(TRAIN_PROFILE_STEP) as (rec, _):
+        state, hist = train_loop_mod.train_loop(
+            cfg, opt, feed, steps=LMD_TRAIN_STEPS, log_every=LMD_TRAIN_STEPS,
+            accum_steps=TRAIN_ACCUM, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack([r["metrics"]["loss"] for r in rec]).tolist()
+    gnorms = torch.stack([r["metrics"]["grad_norm"] for r in rec]).tolist()
+    step_ms = [a.elapsed_time(b) for a, b in (r["events"] for r in rec)]
+    timed = step_ms[TRAIN_TIMED_FROM:]
+    ms = float(np.mean(timed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    total, active = lm_model.param_counts(cfg)
+    model_flops = 6.0 * active * tokens
+    bound_ms = model_flops / BF16_OPS_PER_S * 1e3
+    syncs = [r["syncs"] for r in rec]
+    run = dict(
+        arch=cfg.name, cfg=dict(layers=cfg.num_layers, d_model=cfg.d_model,
+                                heads=cfg.num_heads, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+                                causal=cfg.causal, use_rope=cfg.use_rope,
+                                frontend=cfg.frontend, param_dtype=str(cfg.param_dtype),
+                                compute_dtype=str(cfg.compute_dtype), remat=cfg.remat,
+                                remat_policy=cfg.remat_policy, loss_chunk=cfg.loss_chunk),
+        params=total, active_params=active, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        accum_steps=TRAIN_ACCUM, tokens_per_step=tokens, steps=len(rec), lr=TRAIN_LR,
+        warmup_steps=TRAIN_WARMUP, losses=losses, grad_norms=gnorms, history=hist,
+        repeated_batch_step=LMD_TRAIN_STEPS, learn_margin=TRAIN_LEARN_MARGIN,
+        step_ms=step_ms, timed_steps=[TRAIN_TIMED_FROM + 1, len(rec)], ms_per_step=ms,
+        ms_per_step_min=min(timed), ms_per_step_max=max(timed),
+        tokens_per_s=tokens * 1e3 / ms, model_flops_per_step=model_flops,
+        ops_bound_ms=bound_ms, model_flops_share=bound_ms / ms,
+        host_syncs_per_step=syncs, step_counter=int(state["opt"]["step"]), wall_s=wall,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        state_bytes=sum(x.numel() * x.element_size() for _, x in tree_items(state)),
+        reduced=dict(global_batch=[TRAIN_BATCH, 256]),
+        profile=_train_profile(*rec[TRAIN_PROFILE_STEP]["profile"], ms))
+    del state, first, data, feed
+    torch.cuda.empty_cache()
+    check(len(rec) == LMD_TRAIN_STEPS and all(map(math.isfinite, losses + gnorms)),
+          "lm_dense hubert: loss and grad norm finite at every step")
+    check(run["step_counter"] == LMD_TRAIN_STEPS, "lm_dense hubert: the step counter")
+    check(all(n == 0 for n in syncs[:-1]), "lm_dense hubert: no host sync in a step outside "
+          "the log step")
+    check(losses[-1] <= losses[0] - TRAIN_LEARN_MARGIN,
+          f"lm_dense hubert: after {LMD_TRAIN_STEPS - 1} updates the loss of step 1's batch is "
+          f"{TRAIN_LEARN_MARGIN} nats below step 1's ({losses})")
+    check(run["profile"]["device_ops"] > 0, "lm_dense hubert: the profiler saw the step")
+    cpu = _train_card_vs_cpu(dataclasses.replace(cfg, num_layers=TRAIN_CPU_LAYERS),
+                             *TRAIN_CPU_SHAPE)
+    return dict(run=run, card_vs_cpu=cpu)
+
+
+def phase_lm_dense() -> dict:
+    """gemma_7b, stablelm_12b and llava_next_mistral_7b served and
+    hubert_xlarge trained at full width: (a) decode against the forward,
+    (b) the first layers card against CPU, (c) the served loops, (d) the
+    encoder's train steps, the phase's wall against its budget."""
+    t_phase = time.perf_counter()
+    parts = {}
+    checks = []
+    for arch in LMD_SERVE_ARCHS:
+        r, model = _lm_decode_vs_forward(arch)
+        checks.append(r)
+        del model
+        torch.cuda.empty_cache()
+    parts["a"] = time.perf_counter() - t_phase
+    cpu = []
+    for arch in LMD_SERVE_ARCHS + (LMD_ENCODER,):
+        cpu.append(_lmd_card_vs_cpu(arch))
+        torch.cuda.empty_cache()
+    parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
+    served = {arch: _lmd_serve(arch) for arch in LMD_SERVE_ARCHS}
+    parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
+    train = _lmd_train()
+    parts["d"] = time.perf_counter() - t_phase - sum(parts.values())
+    wall = time.perf_counter() - t_phase
+    out = dict(phase="lm_dense", entry="launch.serve ModelRunner.tick (--real-decode); "
+               "train.loop.train_loop", decode_vs_forward=checks, card_vs_cpu=cpu,
+               serve=served, train=train,
+               reduced=dict(requests=[LMF_REQUESTS, LM_REQUESTS],
+                            decode_ticks=[LMF_MAX_LEN, LM_MAX_LEN],
+                            card_vs_cpu_layers={a: [LMD_CPU_LAYERS, lm_config(a).num_layers]
+                                                for a in LMD_SERVE_ARCHS + (LMD_ENCODER,)},
+                            runner_vs_cpu_lanes=[LMD_CPU_LANES, LM_SERVE["slots_per_pod"]],
+                            train_steps=LMD_TRAIN_STEPS,
+                            train_global_batch=[TRAIN_BATCH, 256]),
+               phase_wall_s=wall, part_walls_s=parts, budget_s=LMD_BUDGET_S,
+               within_budget=wall <= LMD_BUDGET_S)
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase dryrun: the distribution specs, the dry run and the H100 roofline
 # ---------------------------------------------------------------------------
 
@@ -3595,12 +3895,12 @@ def _roof_line(res: dict) -> dict:
                 activation_estimate_bytes=res["activation_resident_gb"] * 1e9)
 
 
-def phase_dryrun(lm: dict, lmf: dict, trn: dict) -> dict:
+def phase_dryrun(lm: dict, lmf: dict, lmd: dict, trn: dict) -> dict:
     """The dry run and the roofline: (a) three production cells on the H100
     meshes, every term finite; (b) the roofline of the steps phases
-    lm_serve, lm_families and train measured, on the one card, against
-    those measurements; (c) the runners' ticks counted on the card against
-    the meta trace and ``_lm_step_ops``."""
+    lm_serve, lm_families, lm_dense and train measured, on the one card,
+    against those measurements; (c) the runners' ticks counted on the card
+    against the meta trace and ``_lm_step_ops``."""
     t_phase = time.perf_counter()
     parts = {}
     production = []
@@ -3633,6 +3933,15 @@ def phase_dryrun(lm: dict, lmf: dict, trn: dict) -> dict:
          lmf["serve"]["decode_ms_per_step"], lmf["serve"]["max_memory_allocated"]),
         ("train", lm_config(TRAIN_ARCH), ShapeCell("train", "train", TRAIN_SEQ, TRAIN_BATCH),
          run["ms_per_step"], run["max_memory_allocated"]),
+    ) + tuple(
+        ("lm_dense", dataclasses.replace(lm_config(arch), param_dtype=torch.bfloat16),
+         ShapeCell("lm_dense", "decode", LMF_MAX_LEN, lanes),
+         lmd["serve"][arch]["serve"]["decode_ms_per_step"],
+         lmd["serve"][arch]["serve"]["max_memory_allocated"]) for arch in LMD_SERVE_ARCHS
+    ) + (
+        ("lm_dense", lm_config(LMD_ENCODER),
+         ShapeCell("lm_dense_train", "train", TRAIN_SEQ, TRAIN_BATCH),
+         lmd["train"]["run"]["ms_per_step"], lmd["train"]["run"]["max_memory_allocated"]),
     )
     calibration = []
     for name, cfg, cell, step_ms, peak in steps:
@@ -3649,17 +3958,21 @@ def phase_dryrun(lm: dict, lmf: dict, trn: dict) -> dict:
             state_over_peak=r["state_resident_bytes"] / peak,
             activation_estimate_over_peak=r["activation_estimate_bytes"] / peak,
             wall_s=time.perf_counter() - t0))
-        check(_finite_terms(res["roofline"]), f"dryrun {name}: every term finite and >= 0")
+        check(_finite_terms(res["roofline"]),
+              f"dryrun {name} {cfg.name}: every term finite and >= 0")
         check(step_ms >= DRYRUN_STEP_SLACK * r["step_ms"],
-              f"dryrun {name}: the measured step ({step_ms:.3f} ms) is no faster than "
+              f"dryrun {name} {cfg.name}: the measured step ({step_ms:.3f} ms) is no faster than "
               f"{DRYRUN_STEP_SLACK} x its roofline ({r['step_ms']:.3f} ms)")
         check(r["state_resident_bytes"] <= peak,
-              f"dryrun {name}: the predicted resident state is within the measured peak")
+              f"dryrun {name} {cfg.name}: the predicted resident state is within the "
+              "measured peak")
     parts["b"] = time.perf_counter() - t_phase - sum(parts.values())
 
     counts = []
     for name, cfg, tick in (("lm_serve", serve_cfg, lm["tick_flops"]),
-                            ("lm_families", lmf_cfg, lmf["tick_flops"])):
+                            ("lm_families", lmf_cfg, lmf["tick_flops"])) + tuple(
+            ("lm_dense", dataclasses.replace(lm_config(arch), param_dtype=torch.bfloat16),
+             lmd["serve"][arch]["tick_flops"]) for arch in LMD_SERVE_ARCHS):
         cell = ShapeCell(name, "decode", tick["cache_len"], tick["lanes"])
         meta, _ = lm_dryrun.trace_cell(cfg, cell, mesh)
         bf16, fp32 = _lm_step_ops(cfg, tick["lanes"], lm_decode.cache_len(cfg, cell.seq_len))
@@ -3669,10 +3982,12 @@ def phase_dryrun(lm: dict, lmf: dict, trn: dict) -> dict:
                            step_ops_bf16=bf16, step_ops_fp32=fp32,
                            step_ops_over_meta=(bf16 + fp32) / meta.get_total_flops()))
         check(tick["flops"] == meta.get_total_flops() > 0,
-              f"dryrun {name}: FlopCounterMode on the card counts the meta trace's FLOPs")
-        if cfg.name == LM_ARCH:
+              f"dryrun {name} {cfg.name}: FlopCounterMode on the card counts the meta "
+              "trace's FLOPs")
+        if cfg.name in (LM_ARCH,) + LMD_SERVE_ARCHS:
             check(bf16 + fp32 == meta.get_total_flops(),
-                  f"dryrun {name}: _lm_step_ops counts every product the trace counts")
+                  f"dryrun {name} {cfg.name}: _lm_step_ops counts every product the "
+                  "trace counts")
     parts["c"] = time.perf_counter() - t_phase - sum(parts.values())
     wall = time.perf_counter() - t_phase
     out = dict(phase="dryrun", entry="launch.dryrun.run_cell / trace_cell",
@@ -3743,15 +4058,15 @@ def main() -> int:
     run("fig4_profile", phase_fig4_profile, fig4_plans)
     fprov = run("fault_provenance", phase_fault_provenance, fig4, fig4_plans)
     del fig4_plans
-    shd = run("shard", phase_shard, swp, fig4, strm)
-    strm.pop("_runs")
+    shd = run("shard", phase_shard, swp, fig4)
     fig4.pop("_summaries")
     elong = run("eagle_long", phase_eagle_long)
     serve = run("serve", phase_serve)
     lm = run("lm_serve", phase_lm_serve)
     lmf = run("lm_families", phase_lm_families)
+    lmd = run("lm_dense", phase_lm_dense)
     trn = run("train", phase_train)
-    run("dryrun", phase_dryrun, lm, lmf, trn)
+    run("dryrun", phase_dryrun, lm, lmf, lmd, trn)
     run("serve_profile", phase_serve_profile)
     sdps = run("sdps", phase_sdps)
     run("cpu_parity", phase_cpu_parity)
@@ -3808,6 +4123,8 @@ def main() -> int:
         launches_by_path=dict(serve=serve["kernel_launches"]["match_tasks"],
                               lm_serve=lm["serve"]["kernel_launches"]["match_tasks"],
                               lm_families=lmf["serve"]["kernel_launches"]["match_tasks"],
+                              lm_dense={a: r["serve"]["kernel_launches"]["match_tasks"]
+                                        for a, r in lmd["serve"].items()},
                               sdps=sdps["kernel_launches"],
                               quickstart=ana["quickstart"]["kernel"]["kernel_launches"]),
         max_abs_err=max(single["sweep_err"], *(r["max_abs_err"] for r in single["rows"])),

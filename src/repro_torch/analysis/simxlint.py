@@ -469,6 +469,16 @@ def _lint_all(linters: list) -> None:
 # ---------------------------------------------------------------------------
 
 
+def lint_file(path) -> list[Finding]:
+    """Lint one file, as ``lint_paths([path])`` does: step scope is
+    resolved within that file alone.  A path that cannot be read raises
+    (``FileNotFoundError`` for a missing one), as in the reference."""
+    p = Path(path)
+    linter = _FileLinter(str(p), p.read_text())
+    _lint_all([linter])
+    return sorted(linter.findings, key=lambda x: (x.file, x.line, x.code))
+
+
 def lint_paths(paths: Iterable) -> list[Finding]:
     """Lint every ``.py`` file under the given files/directories; findings
     sorted by (file, line, code)."""

@@ -285,6 +285,33 @@ def test_lint_fixture_fires_every_rule():
     assert sorted(marked, key=lambda x: x[1]) == EXPECTED
 
 
+@pytest.mark.parametrize("kind", [str, Path], ids=["str", "Path"])
+def test_lint_file_is_lint_paths_of_that_file(kind):
+    """``lint_file(path)`` (the reference's one-file entry point) finds what
+    ``lint_paths([path])`` finds, as the same ``Finding`` records."""
+    got = simxlint.lint_file(kind(FIXTURE))
+    assert got == simxlint.lint_paths([kind(FIXTURE)])
+    assert [(f.code, f.line) for f in got] == EXPECTED
+    assert all(type(f) is simxlint.Finding for f in got)
+
+
+@pytest.mark.parametrize("module", sorted(p.relative_to(ROOT / "src").as_posix()
+                                          for p in (ROOT / "src" / "repro_torch").rglob("*.py")))
+def test_lint_file_on_every_port_module(module):
+    path = ROOT / "src" / module
+    assert simxlint.lint_file(path) == simxlint.lint_paths([path])
+
+
+def test_lint_file_missing_path_raises_as_the_reference(tmp_path):
+    missing = tmp_path / "nope.py"
+    with pytest.raises(FileNotFoundError):
+        jax_simxlint.lint_file(missing)
+    with pytest.raises(FileNotFoundError):
+        simxlint.lint_file(missing)
+    with pytest.raises(FileNotFoundError):
+        simxlint.lint_file(str(missing))
+
+
 def test_lint_fixture_suppressed_and_clean_twins_stay_silent():
     findings = simxlint.lint_paths([FIXTURE])
     src = FIXTURE.read_text().splitlines()

@@ -2,7 +2,8 @@
 serving runner (``repro_torch.launch.serve.ModelRunner``) on the CPU:
 
 - the port's own decode against its teacher-forced forward, as the
-  reference's ``test_decode_matches_forward`` (fp32, 2e-4);
+  reference's ``test_decode_matches_forward`` (fp32, 2e-4), and llava's
+  text-only decode against its backbone's forward (the frontend off);
 - the port's ``decode_step`` logits and caches against the reference's for
   8 steps, the reference's parameters carried across, fp32 at 2e-4 and
   bf16 at ``BF16_BOUND``;
@@ -66,11 +67,12 @@ def _tokens(cfg, b, t, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b"])
+@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b", "stablelm_12b"])
 def test_decode_matches_forward(arch):
     """MHA + qkv bias + tied embeddings (qwen), GQA (llama), GeGLU with
-    head_dim != d/H (gemma): stepwise decode reproduces the teacher-forced
-    forward's logits (fp32, the port's own ``init_params``)."""
+    head_dim != d/H (gemma), GQA 32/8 untied (stablelm): stepwise decode
+    reproduces the teacher-forced forward's logits (fp32, the port's own
+    ``init_params``)."""
     cfg = dataclasses.replace(smoke_config(get_config(arch)), compute_dtype=torch.float32)
     params = S.init_params(M.model_schema(cfg), torch.Generator().manual_seed(1), "cpu")
     b, t = 2, 8
@@ -82,6 +84,26 @@ def test_decode_matches_forward(arch):
         logits, cache = D.decode_step(params, cache, {"tokens": toks[:, i:i + 1], "pos": i}, cfg)
         err = float((logits - ref[:, i]).abs().max())
         assert err < 2e-4, (arch, i, err)
+
+
+def test_vlm_decode_matches_its_backbone_forward():
+    """llava's decode is text-only (it embeds tokens, as the reference's):
+    it reproduces the teacher-forced forward of the same weights with the
+    patch frontend off (fp32)."""
+    cfg = dataclasses.replace(smoke_config(get_config("llava_next_mistral_7b")),
+                              compute_dtype=torch.float32)
+    assert cfg.frontend == "patch"
+    params = S.init_params(M.model_schema(cfg), torch.Generator().manual_seed(1), "cpu")
+    text = dataclasses.replace(cfg, frontend=None)
+    b, t = 2, 8
+    toks = torch.from_numpy(_tokens(cfg, b, t))
+    hid, _ = M.forward(params, {"tokens": toks}, text)
+    ref = L.unembed_logits(M._unembed_table(params, cfg), hid, cfg)
+    cache = D.init_cache(cfg, b, t, "cpu")
+    for i in range(t):
+        logits, cache = D.decode_step(params, cache, {"tokens": toks[:, i:i + 1], "pos": i}, cfg)
+        err = float((logits - ref[:, i]).abs().max())
+        assert err < 2e-4, (i, err)
 
 
 def _decode_both(arch, dtype, steps, window=0):
@@ -105,7 +127,7 @@ def _decode_both(arch, dtype, steps, window=0):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b",
+@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b", "stablelm_12b",
                                   "llava_next_mistral_7b"])
 def test_decode_step_matches_reference(arch, dtype):
     """8 steps: logits and both caches against the reference's."""

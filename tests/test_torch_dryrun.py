@@ -257,13 +257,14 @@ def _chip_smoke():
 def test_chip_smokes_step_ops_count_what_the_trace_counts(arch):
     """``chip_smoke._lm_step_ops`` (the decode step's operations bound)
     counts exactly the products ``FlopCounterMode`` counts over the step
-    traced on the meta device: smoke configs at 4 lanes, and the two served
+    traced on the meta device: smoke configs at 4 lanes, and the five served
     models at full width (128 lanes against their caches)."""
     from repro_torch.models import decode as D
 
     cs = _chip_smoke()
     cases = [(smoke_config(get_config(arch)), 4, 32)]
-    if arch in ("qwen15_05b", "deepseek_v2_lite_16b"):
+    if arch in ("qwen15_05b", "deepseek_v2_lite_16b", "gemma_7b", "stablelm_12b",
+                "llava_next_mistral_7b"):
         cases.append((get_config(arch), 128, 256 if arch == "qwen15_05b" else 128))
     for cfg, b, t in cases:
         counter, _ = DR.trace_cell(cfg, ShapeCell("d", "decode", t, b), HOST)

@@ -763,7 +763,8 @@ def test_stream_segment_host_syncs_are_pinned(name):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b"])
+@pytest.mark.parametrize("arch", ["qwen15_05b", "llama3_8b", "gemma_7b", "stablelm_12b",
+                                  "llava_next_mistral_7b"])
 def test_smoke_decode_on_the_card_matches_the_cpu(arch, dtype, monkeypatch):
     """8 decode steps of the smoke config, B = 2, on the card and on the
     CPU from the same parameters: logits and caches within 2e-4 in fp32
@@ -798,6 +799,41 @@ def test_smoke_decode_on_the_card_matches_the_cpu(arch, dtype, monkeypatch):
     for k in ("k", "v"):
         ref = caches["cpu"][k].float()
         assert float((caches["cuda"][k].cpu().float() - ref).abs().max()) <= bound(ref), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_smoke_encoder_forward_on_the_card_matches_the_cpu(dtype, monkeypatch):
+    """hubert's smoke config (bidirectional, no rope, the frames frontend):
+    the encoder forward on a pipeline batch of frames and its chunked-CE
+    loss on the card and on the CPU from the same parameters, hidden states
+    and loss within 2e-4 in fp32 (TF32 off) and 0.02 x max(1, |value|) in
+    bf16."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.models import model as M
+    from repro_torch.models.schema import init_params, map_tree
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    cfg = dataclasses.replace(smoke_config(get_config("hubert_xlarge")), compute_dtype=cdt)
+    assert cfg.frontend == "frames" and not cfg.causal and not cfg.use_rope
+    cpu = init_params(M.model_schema(cfg), torch.Generator().manual_seed(1), "cpu")
+    card = map_tree(cpu, lambda a: a.cuda())
+    batch = next(batches(cfg, 2, 32, seed=0, device="cpu"))
+    on_card = {k: v.cuda() for k, v in batch.items()}
+
+    def bound(ref):
+        return 2e-4 if dtype == "f32" else 0.02 * max(1.0, float(ref.abs().max()))
+
+    with torch.no_grad():
+        want, got = M.forward(cpu, batch, cfg)[0], M.forward(card, on_card, cfg)[0]
+        assert float((got.cpu().float() - want.float()).abs().max()) <= bound(want.float())
+        want, got = M.loss_fn(cpu, batch, cfg), M.loss_fn(card, on_card, cfg)
+    assert bool(torch.isfinite(want)) and abs(float(got) - float(want)) <= bound(want)
 
 
 @pytest.mark.gpu
