@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.simx import runtime as rt
+from repro_torch.simx import spans
 from repro_torch.simx.faults import (
     FaultSchedule,
     gm_adoption,
@@ -133,7 +134,13 @@ def make_megha_step(
     The returned step carries ``step.borrow_rounds``, the number of rounds
     that entered the borrow pass, and ``step.point_borrow_rounds``
     (``int32[B]``, None before the first borrow), the rounds each point
-    borrowed in.
+    borrowed in.  The dispatch opens the spans ``megha.heartbeat``
+    (rollback, completions, heartbeat), ``megha.internal_match``,
+    ``megha.borrow`` (with ``megha.borrow_check`` around the host read)
+    and ``megha.head``, and counts ``megha.borrow_rounds`` and, per point,
+    ``megha.borrow_points`` beside the two counters above
+    (``repro_torch.simx.spans``: recorded under the profiler or in a
+    session).
 
     Under faults the heartbeat period ``hb + hb_extra_rounds`` and the
     adoption map are per point; both matches read the adopter's view
@@ -250,184 +257,192 @@ def make_megha_step(
         return torch.where(refresh, truth.unsqueeze(1), view)
 
     def dispatch(s, t, task_finish0, worker_finish0, truth, comp, lost_w):
-        head0 = s.head
-        B = head0.shape[0]
-        # -- 0. crash-loss rollback (the fault stage ran in the runtime) ----
-        if faults is not None:
-            # re-enqueue lost tasks: roll each GM's FIFO head back to the
-            # earliest lost position (several lost tasks of one GM: a min)
-            lt0 = torch.where(lost_w, s.worker_task, T).to(torch.int64)
-            head0 = rt.rollback_heads(head0, task_gm_pad[lt0], task_pos_pad[lt0])
-        t3 = t.reshape(B, 1, 1)
-        # launch start = round time + client->GM + GM->LM + LM->worker hops
-        start = t.reshape(B, 1) + 3 * cfg.hop
-
-        # -- 1. completions (truth/comp = the runtime's completion stage) ---
-        regain = (s.worker_gm.unsqueeze(1) == g_col) & (comp & ~s.worker_borrowed).unsqueeze(1)
-        view = s.view | regain
-        messages = s.messages + torch.sum(comp, dim=-1, dtype=torch.int32)  # LM -> GM
-
-        # -- 2. heartbeat (+ GM down windows / recovery resets) -------------
-        period, hb_messages, adopt = hb, G * L, None
-        if faults is not None:
-            period = hb + faults.hb_extra_rounds                  # delay perturbation
-            adopt, row_active, n_live = gm_adoption(gm_down_mask(faults, t), s.rnd)
-            hb_messages = n_live * L                              # live GMs only
-        do_hb = (s.rnd % period) == (period - 1)                  # bool[B]
-        view = torch.where(do_hb.reshape(B, 1, 1), truth.unsqueeze(1), view)
-        messages = messages + do_hb.to(torch.int32) * hb_messages
-        if faults is not None:
-            # §3.5 recovery: a returning GM rebuilds its view from LM truth
-            rec = gm_recovered_now(faults, t, cfg.dt)             # bool[B,G]
-            view = torch.where(rec[..., None], truth.unsqueeze(1), view)
-            messages = messages + L * torch.sum(rec, dim=-1, dtype=torch.int32)
-
-        # -- 3. internal match (FIFO windows, [B, G, W/G] arrays) -----------
-        wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[B,G,C]
-        wsubmit = rt.slice_rows(submit_c, head0, C)               # float32[B,G,C]
-        fpad = rt.finish_pad(task_finish0)
-        launched_w = rt.window_launched(fpad, wtask, T)           # bool[B,G,C]
-        queued_w = ~launched_w & (wsubmit <= t3)                  # bool[B,G,C]
-        if faults is not None:
-            queued_w = queued_w & row_active[..., None]  # frozen when no GM live
-        nq = torch.sum(queued_w, dim=-1, dtype=torch.int32)       # int32[B,G]
-        fifo = rt.sorted_fifo(queued_w, C)                        # int32[B,G,C]
-        avail_int = rt.take(adopted(view, adopt), int_ord)        # bool[B,G,wi]
-        ranks_i = match_fn(avail_int.reshape(B * G, wi), nq.reshape(B * G))
-        ranks_i = ranks_i.reshape(B, G, wi)                       # int32[B,G,wi]
-        sel_pos = torch.gather(fifo, -1, ranks_i.clamp(0, C - 1).to(torch.int64))
-        sel_task_i = torch.where(
-            ranks_i >= 0,
-            torch.gather(wtask, -1, sel_pos.clamp(0, C - 1).to(torch.int64)),
-            -1,
-        )                                                         # int32[B,G,wi]
-        proposed_i = sel_task_i >= 0
-        truth_int = rt.take(truth, int_ord)                       # bool[B,G,wi]
-        launch_i = proposed_i & truth_int
-        invalid_i = proposed_i & ~truth_int
-        # flat (g, i) -> worker coordinates via the static inverse perm
-        launch_w = rt.take(launch_i.reshape(B, G * wi), inv_int)  # bool[B,W]
-        task_w = torch.where(launch_w, rt.take(sel_task_i.reshape(B, G * wi), inv_int), T)
-        (task_finish, worker_finish, worker_task, worker_gm,
-         worker_borrowed) = launch_updates(
-            start, launch_w, task_w, part_gm,
-            task_finish0, worker_finish0, s.worker_task,
-            s.worker_gm, s.worker_borrowed,
-        )
-        truth = truth & ~launch_w
-        # the proposing GM marks every proposed internal worker busy in its
-        # own view (popped from the free pool when the batch was built)
-        proposed_own = rt.take(proposed_i.reshape(B, G * wi), inv_int)  # bool[B,W]
-        view = view & ~(proposed_own.unsqueeze(1) & (part_gm == g_col))
-        inconsistencies = s.inconsistencies + torch.sum(
-            invalid_i, dim=(1, 2), dtype=torch.int32)
-        inval_gl = (invalid_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
-        view = piggyback(view, truth, inval_gl, adopt)
-        batch_gl = (proposed_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
-        messages = messages + 2 * torch.sum(batch_gl, dim=(1, 2), dtype=torch.int32)
-        repartitions = s.repartitions
-        extra = ()
-        if telemetry:
-            # launches + piggybacked [GM, LM] view repairs (§3.4.1)
-            extra += (torch.sum(launch_w, dim=-1, dtype=torch.int32),
-                      torch.sum(inval_gl, dim=(1, 2), dtype=torch.int32))
-        if provenance:
-            # attempt = every queued task of a GM window (ranked this
-            # round); stale = per-task invalid proposals (§3.4), each
-            # written into a pad slot T that is cut off
-            att = torch.zeros((B, T + 1), dtype=torch.bool, device=dev).scatter(
-                -1, torch.where(queued_w, wtask, T).reshape(B, -1).to(torch.int64), True)
-            prov_attempt = att[:, :T]
-            stale_pad = torch.zeros((B, T + 1), dtype=torch.int32, device=dev).scatter_add(
-                -1, torch.where(invalid_i, sel_task_i, T).reshape(B, -1).to(torch.int64),
-                torch.ones((B, G * wi), dtype=torch.int32, device=dev))
-            extra += (stale_pad,)
-
-        # -- 4. borrow match (full [B, G, W] pass, only when queues outrun
-        #       the views): the deliberate host read, skipping the pass ---
-        placed_i = torch.sum(proposed_i, dim=-1, dtype=torch.int32)
-        need_b = torch.any(nq > placed_i, dim=-1)                 # bool[B]
-        if bool(torch.any(need_b)):  # simxlint: disable=TH001 (the reference's lax.cond)
-            step.borrow_rounds += 1
-            if step.point_borrow_rounds is None:
-                step.point_borrow_rounds = torch.zeros(B, dtype=torch.int32, device=dev)
-            step.point_borrow_rounds += need_b
-            # kept only when points may disagree: at B = 1 holding them
-            # would keep a second task_finish alive through the pass
-            old = (task_finish, worker_finish, worker_task, worker_gm, worker_borrowed,
-                   view, inconsistencies, repartitions, messages) + extra if B > 1 else None
-            fpad2 = rt.finish_pad(task_finish)
-            launched2 = rt.window_launched(fpad2, wtask, T)
-            queued2 = ~launched2 & (wsubmit <= t3)
+        with spans.span("megha.heartbeat"):
+            head0 = s.head
+            B = head0.shape[0]
+            # -- 0. crash-loss rollback (the fault stage ran in the runtime)
             if faults is not None:
-                queued2 = queued2 & row_active[..., None]
-            nq2 = torch.sum(queued2, dim=-1, dtype=torch.int32)
-            fifo2 = rt.sorted_fifo(queued2, C)
-            avail_ord = rt.take(adopted(view, adopt), orders)       # bool[B,G,W]
-            ranks = match_fn(avail_ord.reshape(B * G, W), nq2.reshape(B * G))
-            ranks = ranks.reshape(B, G, W)                          # int32[B,G,W]
-            sel_pos2 = torch.gather(fifo2, -1, ranks.clamp(0, C - 1).to(torch.int64))
-            sel_task = torch.where(
-                ranks >= 0,
-                torch.gather(wtask, -1, sel_pos2.clamp(0, C - 1).to(torch.int64)),
+                # re-enqueue lost tasks: roll each GM's FIFO head back to the
+                # earliest lost position (several lost tasks of one GM: a min)
+                lt0 = torch.where(lost_w, s.worker_task, T).to(torch.int64)
+                head0 = rt.rollback_heads(head0, task_gm_pad[lt0], task_pos_pad[lt0])
+            t3 = t.reshape(B, 1, 1)
+            # launch start = round time + client->GM + GM->LM + LM->worker hops
+            start = t.reshape(B, 1) + 3 * cfg.hop
+
+            # -- 1. completions (truth/comp = the runtime's completion stage) ---
+            regain = (s.worker_gm.unsqueeze(1) == g_col) & (comp & ~s.worker_borrowed).unsqueeze(1)
+            view = s.view | regain
+            messages = s.messages + torch.sum(comp, dim=-1, dtype=torch.int32)  # LM -> GM
+
+            # -- 2. heartbeat (+ GM down windows / recovery resets) ---------
+            period, hb_messages, adopt = hb, G * L, None
+            if faults is not None:
+                period = hb + faults.hb_extra_rounds                  # delay perturbation
+                adopt, row_active, n_live = gm_adoption(gm_down_mask(faults, t), s.rnd)
+                hb_messages = n_live * L                              # live GMs only
+            do_hb = (s.rnd % period) == (period - 1)                  # bool[B]
+            view = torch.where(do_hb.reshape(B, 1, 1), truth.unsqueeze(1), view)
+            messages = messages + do_hb.to(torch.int32) * hb_messages
+            if faults is not None:
+                # §3.5 recovery: a returning GM rebuilds its view from LM truth
+                rec = gm_recovered_now(faults, t, cfg.dt)             # bool[B,G]
+                view = torch.where(rec[..., None], truth.unsqueeze(1), view)
+                messages = messages + L * torch.sum(rec, dim=-1, dtype=torch.int32)
+
+        with spans.span("megha.internal_match"):
+            # -- 3. internal match (FIFO windows, [B, G, W/G] arrays) -------
+            wtask = rt.slice_rows(gm_tasks, head0, C)                 # int32[B,G,C]
+            wsubmit = rt.slice_rows(submit_c, head0, C)               # float32[B,G,C]
+            fpad = rt.finish_pad(task_finish0)
+            launched_w = rt.window_launched(fpad, wtask, T)           # bool[B,G,C]
+            queued_w = ~launched_w & (wsubmit <= t3)                  # bool[B,G,C]
+            if faults is not None:
+                queued_w = queued_w & row_active[..., None]  # frozen when no GM live
+            nq = torch.sum(queued_w, dim=-1, dtype=torch.int32)       # int32[B,G]
+            fifo = rt.sorted_fifo(queued_w, C)                        # int32[B,G,C]
+            avail_int = rt.take(adopted(view, adopt), int_ord)        # bool[B,G,wi]
+            ranks_i = match_fn(avail_int.reshape(B * G, wi), nq.reshape(B * G))
+            ranks_i = ranks_i.reshape(B, G, wi)                       # int32[B,G,wi]
+            sel_pos = torch.gather(fifo, -1, ranks_i.clamp(0, C - 1).to(torch.int64))
+            sel_task_i = torch.where(
+                ranks_i >= 0,
+                torch.gather(wtask, -1, sel_pos.clamp(0, C - 1).to(torch.int64)),
                 -1,
-            )
-            # ordered positions -> worker coordinates (inverse gather)
-            prop = rt.take(sel_task, inv_orders)                    # int32[B,G,W]
-            proposed = prop >= 0
-            repartitions = repartitions + torch.sum(
-                proposed & (part_gm != g_col), dim=(1, 2), dtype=torch.int32
-            )
-            # simultaneous claims: per-round rotating GM priority, one
-            # min-reduction over (priority, gm) packed into a single int
-            pri = (g_col + s.rnd.reshape(B, 1, 1)) % G              # int32[B,G,1]
-            enc = torch.where(proposed, (pri * G).expand(B, G, W) + g_col, G * G)
-            win_enc = torch.amin(enc, dim=1)                        # int32[B,W]
-            any_prop = win_enc < G * G
-            win_g = torch.where(any_prop, win_enc % G, 0)
-            launch = any_prop & truth                               # bool[B,W]
-            win_task = torch.where(
-                launch, prop[rt.point_rows(B, 2, dev), win_g.to(torch.int64), w_row], T
-            )
+            )                                                         # int32[B,G,wi]
+            proposed_i = sel_task_i >= 0
+            truth_int = rt.take(truth, int_ord)                       # bool[B,G,wi]
+            launch_i = proposed_i & truth_int
+            invalid_i = proposed_i & ~truth_int
+            # flat (g, i) -> worker coordinates via the static inverse perm
+            launch_w = rt.take(launch_i.reshape(B, G * wi), inv_int)  # bool[B,W]
+            task_w = torch.where(launch_w, rt.take(sel_task_i.reshape(B, G * wi), inv_int), T)
             (task_finish, worker_finish, worker_task, worker_gm,
              worker_borrowed) = launch_updates(
-                start, launch, win_task, win_g,
-                task_finish, worker_finish, worker_task,
-                worker_gm, worker_borrowed,
+                start, launch_w, task_w, part_gm,
+                task_finish0, worker_finish0, s.worker_task,
+                s.worker_gm, s.worker_borrowed,
             )
-            truth = truth & ~launch
-            view = view & ~proposed
-            launched_by_g = launch.unsqueeze(1) & (g_col == win_g.unsqueeze(1))
-            invalid = proposed & ~launched_by_g                     # bool[B,G,W]
-            inconsistencies = inconsistencies + torch.sum(
-                invalid, dim=(1, 2), dtype=torch.int32)
-            inval2_gl = invalid.reshape(B, G, L, wpl).any(dim=-1)
-            view = piggyback(view, truth, inval2_gl, adopt)
-            batch2 = proposed.reshape(B, G, L, wpl).any(dim=-1)
-            messages = messages + 2 * torch.sum(batch2, dim=(1, 2), dtype=torch.int32)
+            truth = truth & ~launch_w
+            # the proposing GM marks every proposed internal worker busy in its
+            # own view (popped from the free pool when the batch was built)
+            proposed_own = rt.take(proposed_i.reshape(B, G * wi), inv_int)  # bool[B,W]
+            view = view & ~(proposed_own.unsqueeze(1) & (part_gm == g_col))
+            inconsistencies = s.inconsistencies + torch.sum(
+                invalid_i, dim=(1, 2), dtype=torch.int32)
+            inval_gl = (invalid_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
+            view = piggyback(view, truth, inval_gl, adopt)
+            batch_gl = (proposed_i[..., None] & (lm_int[..., None] == l_row)).any(dim=-2)
+            messages = messages + 2 * torch.sum(batch_gl, dim=(1, 2), dtype=torch.int32)
+            repartitions = s.repartitions
+            extra = ()
             if telemetry:
-                extra = (extra[0] + torch.sum(launch, dim=-1, dtype=torch.int32),
-                         extra[1] + torch.sum(inval2_gl, dim=(1, 2), dtype=torch.int32)
-                         ) + extra[2:]
+                # launches + piggybacked [GM, LM] view repairs (§3.4.1)
+                extra += (torch.sum(launch_w, dim=-1, dtype=torch.int32),
+                          torch.sum(inval_gl, dim=(1, 2), dtype=torch.int32))
             if provenance:
-                stale_pad = extra[-1].scatter_add(
-                    -1, torch.where(invalid, prop, T).reshape(B, -1).to(torch.int64),
-                    torch.ones((B, G * W), dtype=torch.int32, device=dev))
-                extra = extra[:-1] + (stale_pad,)
-            if B > 1:
-                # a point that did not need the pass still proposed in it
-                # (its inconsistent proposals count): keep its old values
-                new = (task_finish, worker_finish, worker_task, worker_gm,
-                       worker_borrowed, view, inconsistencies, repartitions,
-                       messages) + extra
-                (task_finish, worker_finish, worker_task, worker_gm,
-                 worker_borrowed, view, inconsistencies, repartitions, messages,
-                 *extra) = (torch.where(rt.lift(need_b, a), a, b) for a, b in zip(new, old))
+                # attempt = every queued task of a GM window (ranked this
+                # round); stale = per-task invalid proposals (§3.4), each
+                # written into a pad slot T that is cut off
+                att = torch.zeros((B, T + 1), dtype=torch.bool, device=dev).scatter(
+                    -1, torch.where(queued_w, wtask, T).reshape(B, -1).to(torch.int64), True)
+                prov_attempt = att[:, :T]
+                stale_pad = torch.zeros((B, T + 1), dtype=torch.int32, device=dev).scatter_add(
+                    -1, torch.where(invalid_i, sel_task_i, T).reshape(B, -1).to(torch.int64),
+                    torch.ones((B, G * wi), dtype=torch.int32, device=dev))
+                extra += (stale_pad,)
 
-        # -- 5. advance each GM's FIFO head past its launched prefix --------
-        fpad3 = rt.finish_pad(task_finish)
-        launched3 = rt.window_launched(fpad3, wtask, T)            # bool[B,G,C]
-        head = torch.clamp(head0 + rt.launched_lead(launched3), max=gm_len)
+        with spans.span("megha.borrow"):
+            # -- 4. borrow match (full [B, G, W] pass, only when queues outrun
+            #       the views): the deliberate host read, skipping the pass ---
+            placed_i = torch.sum(proposed_i, dim=-1, dtype=torch.int32)
+            need_b = torch.any(nq > placed_i, dim=-1)                 # bool[B]
+            with spans.span("megha.borrow_check", read=True):
+                need = bool(torch.any(need_b))  # simxlint: disable=TH001 (reference's lax.cond)
+            if need:
+                step.borrow_rounds += 1
+                spans.count("megha.borrow_rounds", 1)
+                if step.point_borrow_rounds is None:
+                    step.point_borrow_rounds = torch.zeros(B, dtype=torch.int32, device=dev)
+                step.point_borrow_rounds += need_b
+                spans.count("megha.borrow_points", need_b)
+                # kept only when points may disagree: at B = 1 holding them
+                # would keep a second task_finish alive through the pass
+                old = (task_finish, worker_finish, worker_task, worker_gm, worker_borrowed,
+                       view, inconsistencies, repartitions, messages) + extra if B > 1 else None
+                fpad2 = rt.finish_pad(task_finish)
+                launched2 = rt.window_launched(fpad2, wtask, T)
+                queued2 = ~launched2 & (wsubmit <= t3)
+                if faults is not None:
+                    queued2 = queued2 & row_active[..., None]
+                nq2 = torch.sum(queued2, dim=-1, dtype=torch.int32)
+                fifo2 = rt.sorted_fifo(queued2, C)
+                avail_ord = rt.take(adopted(view, adopt), orders)       # bool[B,G,W]
+                ranks = match_fn(avail_ord.reshape(B * G, W), nq2.reshape(B * G))
+                ranks = ranks.reshape(B, G, W)                          # int32[B,G,W]
+                sel_pos2 = torch.gather(fifo2, -1, ranks.clamp(0, C - 1).to(torch.int64))
+                sel_task = torch.where(
+                    ranks >= 0,
+                    torch.gather(wtask, -1, sel_pos2.clamp(0, C - 1).to(torch.int64)),
+                    -1,
+                )
+                # ordered positions -> worker coordinates (inverse gather)
+                prop = rt.take(sel_task, inv_orders)                    # int32[B,G,W]
+                proposed = prop >= 0
+                repartitions = repartitions + torch.sum(
+                    proposed & (part_gm != g_col), dim=(1, 2), dtype=torch.int32
+                )
+                # simultaneous claims: per-round rotating GM priority, one
+                # min-reduction over (priority, gm) packed into a single int
+                pri = (g_col + s.rnd.reshape(B, 1, 1)) % G              # int32[B,G,1]
+                enc = torch.where(proposed, (pri * G).expand(B, G, W) + g_col, G * G)
+                win_enc = torch.amin(enc, dim=1)                        # int32[B,W]
+                any_prop = win_enc < G * G
+                win_g = torch.where(any_prop, win_enc % G, 0)
+                launch = any_prop & truth                               # bool[B,W]
+                win_task = torch.where(
+                    launch, prop[rt.point_rows(B, 2, dev), win_g.to(torch.int64), w_row], T
+                )
+                (task_finish, worker_finish, worker_task, worker_gm,
+                 worker_borrowed) = launch_updates(
+                    start, launch, win_task, win_g,
+                    task_finish, worker_finish, worker_task,
+                    worker_gm, worker_borrowed,
+                )
+                truth = truth & ~launch
+                view = view & ~proposed
+                launched_by_g = launch.unsqueeze(1) & (g_col == win_g.unsqueeze(1))
+                invalid = proposed & ~launched_by_g                     # bool[B,G,W]
+                inconsistencies = inconsistencies + torch.sum(
+                    invalid, dim=(1, 2), dtype=torch.int32)
+                inval2_gl = invalid.reshape(B, G, L, wpl).any(dim=-1)
+                view = piggyback(view, truth, inval2_gl, adopt)
+                batch2 = proposed.reshape(B, G, L, wpl).any(dim=-1)
+                messages = messages + 2 * torch.sum(batch2, dim=(1, 2), dtype=torch.int32)
+                if telemetry:
+                    extra = (extra[0] + torch.sum(launch, dim=-1, dtype=torch.int32),
+                             extra[1] + torch.sum(inval2_gl, dim=(1, 2), dtype=torch.int32)
+                             ) + extra[2:]
+                if provenance:
+                    stale_pad = extra[-1].scatter_add(
+                        -1, torch.where(invalid, prop, T).reshape(B, -1).to(torch.int64),
+                        torch.ones((B, G * W), dtype=torch.int32, device=dev))
+                    extra = extra[:-1] + (stale_pad,)
+                if B > 1:
+                    # a point that did not need the pass still proposed in it
+                    # (its inconsistent proposals count): keep its old values
+                    new = (task_finish, worker_finish, worker_task, worker_gm,
+                           worker_borrowed, view, inconsistencies, repartitions,
+                           messages) + extra
+                    (task_finish, worker_finish, worker_task, worker_gm,
+                     worker_borrowed, view, inconsistencies, repartitions, messages,
+                     *extra) = (torch.where(rt.lift(need_b, a), a, b) for a, b in zip(new, old))
+
+        with spans.span("megha.head"):
+            # -- 5. advance each GM's FIFO head past its launched prefix ----
+            fpad3 = rt.finish_pad(task_finish)
+            launched3 = rt.window_launched(fpad3, wtask, T)            # bool[B,G,C]
+            head = torch.clamp(head0 + rt.launched_lead(launched3), max=gm_len)
 
         upd = dict(
             task_finish=task_finish,

@@ -29,6 +29,12 @@ flags nothing of them is built, and the step issues the same operations
 as before them.  Callers read the state of a possibly-tuple carry with
 ``carry_state``.
 
+Each stage opens a span of ``repro_torch.simx.spans`` (``simx.faults``,
+``simx.complete``, ``simx.dispatch``, ``simx.advance``, and
+``simx.provenance`` / ``simx.telemetry`` where built), and each pass of
+``scan_rounds``' loop a ``simx.round`` span with the loop counter as its
+round index: recorded under the profiler or in a session, no-ops else.
+
 ``jax.lax.scan`` becomes a Python loop (``scan_rounds``), and the
 reference's ``mode="drop"`` scatters become scatters into a padded slot
 that is sliced off again: torch has no drop mode, and clamping the index
@@ -54,6 +60,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import match, ref
+from repro_torch.simx import spans
 from repro_torch.simx.faults import FaultSchedule, apply_worker_faults
 from repro_torch.simx.state import QueueState, SimxConfig, TaskArrays
 
@@ -440,27 +447,33 @@ def compose_step(
                 return unbatch_carry(out[0]), {k: v[0] for k, v in out[1].items()}
             return unbatch_carry(out)
         t = s.t
-        task_finish0, worker_finish0, lost_w, n_lost = fault_stage(
-            faults, t, cfg.dt, s.task_finish, s.worker_finish, s.worker_task, T
-        )
-        free, comp = completion_masks(worker_finish0, t, cfg.dt)
-        updates = dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w)
-        tel = updates.pop("telemetry", None)
-        pv = updates.pop("provenance", None)
-        if n_lost is not None:
-            updates["lost"] = s.lost + n_lost
-        new = s.replace(t=t + cfg.dt, rnd=s.rnd + 1, **updates)
+        with spans.span("simx.faults"):
+            task_finish0, worker_finish0, lost_w, n_lost = fault_stage(
+                faults, t, cfg.dt, s.task_finish, s.worker_finish, s.worker_task, T
+            )
+        with spans.span("simx.complete"):
+            free, comp = completion_masks(worker_finish0, t, cfg.dt)
+        with spans.span("simx.dispatch"):
+            updates = dispatch(s, t, task_finish0, worker_finish0, free, comp, lost_w)
+        with spans.span("simx.advance"):
+            tel = updates.pop("telemetry", None)
+            pv = updates.pop("provenance", None)
+            if n_lost is not None:
+                updates["lost"] = s.lost + n_lost
+            new = s.replace(t=t + cfg.dt, rnd=s.rnd + 1, **updates)
         out = new
         if provenance:
-            out = (new, advance_provenance(carry[1], s, new, task_finish0, tasks, pv or {}))
+            with spans.span("simx.provenance"):
+                out = (new, advance_provenance(carry[1], s, new, task_finish0, tasks, pv or {}))
         if not telemetry:
             return out
-        counters = dict(tel or {})
-        for f in TELEMETRY_CORE_COUNTERS:
-            counters[f] = getattr(new, f) - getattr(s, f)
-        if isinstance(new, QueueState):
-            for f in TELEMETRY_QUEUE_COUNTERS:
+        with spans.span("simx.telemetry"):
+            counters = dict(tel or {})
+            for f in TELEMETRY_CORE_COUNTERS:
                 counters[f] = getattr(new, f) - getattr(s, f)
+            if isinstance(new, QueueState):
+                for f in TELEMETRY_QUEUE_COUNTERS:
+                    counters[f] = getattr(new, f) - getattr(s, f)
         return out, counters
 
     return step
@@ -474,8 +487,9 @@ def scan_rounds(step: Callable, state, num_rounds: int):
     check_round_budget(num_rounds)
     if not is_batched(carry_state(state)):
         return unbatch_carry(scan_rounds(step, batch_carry(state), num_rounds))
-    for _ in range(num_rounds):
-        state = step(state)
+    for i in range(num_rounds):
+        with spans.span("simx.round", round_index=i):
+            state = step(state)
     return state
 
 

@@ -40,6 +40,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.simx import runtime as rt
+from repro_torch.simx import spans
 from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import (
@@ -384,7 +385,10 @@ def make_sparrow_step(
     busy until recovery; a pending job whose every queue entry sits on a
     currently dead worker is orphaned and rescued like one whose probes
     were all dropped.  ``faults=None`` builds the fault-free step; an
-    empty schedule is bitwise the same run.
+    empty schedule is bitwise the same run.  The dispatch opens the spans
+    ``sparrow.compact``, ``sparrow.insert`` and ``sparrow.bind``
+    (``repro_torch.simx.spans``: recorded under the profiler or in a
+    session).
 
     ``telemetry`` adds the per-round ``launches`` counter; ``provenance``
     the extras ``attempt`` (a job's probes were inserted, or it was
@@ -426,39 +430,42 @@ def make_sparrow_step(
         del comp, lost_w
         B = t.shape[0]
 
-        # -- 0. recycle completed jobs' slots, compact the queues -----------
-        resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
+        with spans.span("sparrow.compact"):
+            # -- 0. recycle completed jobs' slots, compact the queues -------
+            resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
 
-        # -- 1. windowed probe insertion (edge list is in arrival order) ----
-        win_j, win_w, lead, ins, lagged = probe_window_slice(
-            edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
-        resq, n_over = insert_probes(resq, fill, win_w, win_j, ins)
-        head = s.probe_head + lead
-        # every probe RPC counts (and costs a message), kept or dropped
-        messages = s.messages + lead
+        with spans.span("sparrow.insert"):
+            # -- 1. windowed probe insertion (edge list is in arrival order)
+            win_j, win_w, lead, ins, lagged = probe_window_slice(
+                edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
+            resq, n_over = insert_probes(resq, fill, win_w, win_j, ins)
+            head = s.probe_head + lead
+            # every probe RPC counts (and costs a message), kept or dropped
+            messages = s.messages + lead
 
-        # -- 2. late binding: idle workers serve their queue heads ----------
-        pend_task = torch.isinf(task_finish0) & (submit <= t[:, None])     # bool[B,T]
-        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
-            -1, job64.expand(B, T), pend_task.to(_I32))
-        active = (resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
-        job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
-        # orphan rescue: an inserted pending job with no live reservation
-        # anywhere (all probes dropped on full queues, or, under faults,
-        # every probed worker currently dead) may be served by any idle
-        # worker (dead workers never serve: worker_finish holds recovery)
-        dead = worker_dead(faults, t) if faults is not None else None
-        orphan = ((edge_end <= head[:, None]) & (pending[:, :-1] > 0)
-                  & ~jobs_with_reservation(resq, J, dead=dead))
-        rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
-        job_pick = torch.minimum(job_pick, rescue[:, None])
-        launch, task_pick = late_bind(
-            torch.where(idle, job_pick, J), pend_task, tasks.job, job_start)
-        # client->scheduler hop + worker->scheduler get-task RPC round trip
-        task_finish, worker_finish, worker_task = rt.apply_launch(
-            launch, task_pick, t + 3 * cfg.hop, dur_pad,
-            task_finish0, worker_finish0, s.worker_task, T)
-        messages = messages + 2 * torch.sum(launch, dim=-1, dtype=_I32)  # RPC + reply
+        with spans.span("sparrow.bind"):
+            # -- 2. late binding: idle workers serve their queue heads ------
+            pend_task = torch.isinf(task_finish0) & (submit <= t[:, None])     # bool[B,T]
+            pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
+                -1, job64.expand(B, T), pend_task.to(_I32))
+            active = (resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
+            job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
+            # orphan rescue: an inserted pending job with no live reservation
+            # anywhere (all probes dropped on full queues, or, under faults,
+            # every probed worker currently dead) may be served by any idle
+            # worker (dead workers never serve: worker_finish holds recovery)
+            dead = worker_dead(faults, t) if faults is not None else None
+            orphan = ((edge_end <= head[:, None]) & (pending[:, :-1] > 0)
+                      & ~jobs_with_reservation(resq, J, dead=dead))
+            rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
+            job_pick = torch.minimum(job_pick, rescue[:, None])
+            launch, task_pick = late_bind(
+                torch.where(idle, job_pick, J), pend_task, tasks.job, job_start)
+            # client->scheduler hop + worker->scheduler get-task RPC round trip
+            task_finish, worker_finish, worker_task = rt.apply_launch(
+                launch, task_pick, t + 3 * cfg.hop, dur_pad,
+                task_finish0, worker_finish0, s.worker_task, T)
+            messages = messages + 2 * torch.sum(launch, dim=-1, dtype=_I32)  # RPC + reply
 
         upd = dict(
             task_finish=task_finish,

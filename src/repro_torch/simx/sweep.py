@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.core.base import grid_workers
 from repro_torch.device import resolve_device
-from repro_torch.simx import engine, runtime
+from repro_torch.simx import engine, runtime, spans
 from repro_torch.simx.faults import FaultSchedule, fault_grid_schedule
 from repro_torch.simx.provenance import COMPONENTS, decompose_delays, init_provenance
 from repro_torch.simx.runtime import MatchFn, default_match_fn
@@ -85,46 +85,47 @@ def point_summary(
     ``dt``) adds the delay-breakdown columns ``mean_<component>``
     (``repro_torch.simx.provenance.COMPONENTS``): per-component nanmeans
     over completed jobs, summing to ``mean``."""
-    t = runtime.lift(state.t, state.task_finish)
-    done = state.task_finish <= t
-    delays, job_finish = runtime.job_delays_from_state(state.task_finish, state.t, tasks)
-    # min() before the subtraction: an unlaunched task has finish == inf,
-    # and min(inf, t) - (inf - d) = -inf clips to 0 without an inf - inf nan
-    busy = torch.minimum(
-        torch.clamp(
-            torch.minimum(state.task_finish, t) - (state.task_finish - tasks.duration),
-            min=0.0,
-        ),
-        tasks.duration,
-    )
-    W = state.worker_finish.shape[-1]
-    if has_queues is None:
-        has_queues = isinstance(state, QueueState)
-    zero = torch.zeros_like(state.lost)
-    out = {
-        "p50": torch.nanquantile(delays, 0.5, dim=-1),
-        "p95": torch.nanquantile(delays, 0.95, dim=-1),
-        "mean": torch.nanmean(delays, dim=-1),
-        "jobs_done": torch.sum(torch.isfinite(job_finish), dim=-1, dtype=torch.int32),
-        "tasks_done": torch.sum(done, dim=-1, dtype=torch.int32),
-        "lost": state.lost,
-        "mean_util": torch.sum(busy, dim=-1) / (W * torch.clamp(state.t, min=1e-9)),
-        "messages": state.messages,
-        "probes": state.probes,
-        "inconsistencies": state.inconsistencies,
-        "inconsistency_rate": state.inconsistencies.to(torch.float32)
-        / torch.tensor(float(max(tasks.num_tasks, 1)), dtype=torch.float32,
-                       device=state.lost.device),
-        "res_overflow": state.res_overflow if has_queues else zero,
-        "probe_lag": state.probe_lag if has_queues else zero,
-    }
-    if provenance is not None:
-        if dt is None:
-            raise ValueError("point_summary(provenance=...) needs dt")
-        comp = decompose_delays(provenance, state.task_finish, state.t, tasks, dt)
-        for key in COMPONENTS:
-            out[f"mean_{key}"] = torch.nanmean(comp[key], dim=-1)
-    return out
+    with spans.span("sweep.point_summary"):
+        t = runtime.lift(state.t, state.task_finish)
+        done = state.task_finish <= t
+        delays, job_finish = runtime.job_delays_from_state(state.task_finish, state.t, tasks)
+        # min() before the subtraction: an unlaunched task has finish == inf,
+        # and min(inf, t) - (inf - d) = -inf clips to 0 without an inf - inf nan
+        busy = torch.minimum(
+            torch.clamp(
+                torch.minimum(state.task_finish, t) - (state.task_finish - tasks.duration),
+                min=0.0,
+            ),
+            tasks.duration,
+        )
+        W = state.worker_finish.shape[-1]
+        if has_queues is None:
+            has_queues = isinstance(state, QueueState)
+        zero = torch.zeros_like(state.lost)
+        out = {
+            "p50": torch.nanquantile(delays, 0.5, dim=-1),
+            "p95": torch.nanquantile(delays, 0.95, dim=-1),
+            "mean": torch.nanmean(delays, dim=-1),
+            "jobs_done": torch.sum(torch.isfinite(job_finish), dim=-1, dtype=torch.int32),
+            "tasks_done": torch.sum(done, dim=-1, dtype=torch.int32),
+            "lost": state.lost,
+            "mean_util": torch.sum(busy, dim=-1) / (W * torch.clamp(state.t, min=1e-9)),
+            "messages": state.messages,
+            "probes": state.probes,
+            "inconsistencies": state.inconsistencies,
+            "inconsistency_rate": state.inconsistencies.to(torch.float32)
+            / torch.tensor(float(max(tasks.num_tasks, 1)), dtype=torch.float32,
+                           device=state.lost.device),
+            "res_overflow": state.res_overflow if has_queues else zero,
+            "probe_lag": state.probe_lag if has_queues else zero,
+        }
+        if provenance is not None:
+            if dt is None:
+                raise ValueError("point_summary(provenance=...) needs dt")
+            comp = decompose_delays(provenance, state.task_finish, state.t, tasks, dt)
+            for key in COMPONENTS:
+                out[f"mean_{key}"] = torch.nanmean(comp[key], dim=-1)
+        return out
 
 
 def probe_memory_bytes(
@@ -269,24 +270,25 @@ def build_grid(
     draws ``simulate_workload(seed=s)`` makes.  Pigeon and the oracle draw
     nothing; their seed copies of a load are identical, as in the
     reference."""
-    name = scheduler.lower()
-    rule = runtime.get_rule(name)
-    seeds = [int(s) for s in seeds]
-    L, S = submit_grid.shape[0], len(seeds)
-    B = L * S
-    point_tasks = tasks.replace(
-        submit=submit_grid.repeat_interleave(S, dim=0),
-        job_submit=job_submit_grid.repeat_interleave(S, dim=0),
-    )
-    draws = seed_draws(name, cfg, tasks, seeds, runtime.orders_as_draws(orders, draws))
-    # seeds repeat over loads: point b takes seed b % S
-    draws = {k: v.to(tasks.device).repeat((L,) + (1,) * (v.dim() - 1))
-             for k, v in draws.items()}
-    step = rule.build_step(cfg, point_tasks, draws, match_fn=match_fn, provenance=provenance)
-    state = rule.init(cfg, point_tasks, B)
-    if provenance:
-        state = (state, init_provenance(tasks.num_tasks, tasks.device, B))
-    return step, state, point_tasks
+    with spans.span("sweep.build_grid"):
+        name = scheduler.lower()
+        rule = runtime.get_rule(name)
+        seeds = [int(s) for s in seeds]
+        L, S = submit_grid.shape[0], len(seeds)
+        B = L * S
+        point_tasks = tasks.replace(
+            submit=submit_grid.repeat_interleave(S, dim=0),
+            job_submit=job_submit_grid.repeat_interleave(S, dim=0),
+        )
+        draws = seed_draws(name, cfg, tasks, seeds, runtime.orders_as_draws(orders, draws))
+        # seeds repeat over loads: point b takes seed b % S
+        draws = {k: v.to(tasks.device).repeat((L,) + (1,) * (v.dim() - 1))
+                 for k, v in draws.items()}
+        step = rule.build_step(cfg, point_tasks, draws, match_fn=match_fn, provenance=provenance)
+        state = rule.init(cfg, point_tasks, B)
+        if provenance:
+            state = (state, init_provenance(tasks.num_tasks, tasks.device, B))
+        return step, state, point_tasks
 
 
 def grid_state(
