@@ -25,7 +25,7 @@ qwen15_05b's and hubert_xlarge's full width, and the fast path's SDPS
 loop — and prints one JSON line per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
-               (match.cu, match_tasks.cu, p2_sketch.cu)
+               (match.cu, match_tasks.cu, p2_sketch.cu, queues.cu)
   kernel       the batched kernel (both designs: wide rows split over blocks,
                narrow rows one warp each) against its plain version over a
                sweep of widths (tile and narrow-threshold edges among them),
@@ -44,6 +44,14 @@ loop — and prints one JSON line per phase:
   kernel_single  the single-row kernel (both entry points, match_ranks and
                the fused match_tasks) likewise, at the serving and SDPS
                shapes
+  queues       the three reservation-queue kernels (compaction, the scan
+               for the pick's mask and the rescue, the head at the pick)
+               bitwise their plain versions at the benchmark cell's
+               [16, 50000, 40], the stream's [1, 50000, 16] and the widest
+               rows [2, 50000, 256], each timed with its plain version and
+               byte bound (their launches are counted in the runs of the
+               sweep, fig4, stream and shard phases: each kernel once a
+               round for sparrow and eagle, never for the other rules)
   megha_plain  kernel and plain-match runs in turns: final states bitwise
                equal, launches = rounds + borrow rounds, walls
   megha_sync   host synchronisations of one run, counted by torch
@@ -343,7 +351,7 @@ from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.configs import get_config as lm_config  # noqa: E402
 from repro_torch.configs import ShapeCell, list_archs, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import batches as train_batches  # noqa: E402
-from repro_torch.kernels import build, match, ops, p2, ref  # noqa: E402
+from repro_torch.kernels import build, match, ops, p2, queues, ref  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes  # noqa: E402
 from repro_torch.launch.serve import ModelRunner  # noqa: E402
@@ -399,6 +407,13 @@ BATCHED_SWEEP_WIDTHS = tuple(sorted(set(SWEEP_WIDTHS) | {
 #: a narrow row of R = 64 queue slots per worker (the queue cap) over
 #: 50,000 workers, for the dtype sweep
 NARROW_SHAPE = ("queue_pick_r64", 50_000, 64)
+
+#: the queue kernels' shapes: (caller, points, workers, slots, jobs)
+QUEUE_SHAPES = (("sparrow_cell", 16, 50_000, 40, 480), ("stream", 1, 50_000, 16, 193),
+                ("widest", 2, 50_000, 256, 480))
+#: the rules whose steps keep reservation queues: each queue kernel is
+#: launched once a round for them, never for the others
+QUEUE_RULES = ("sparrow", "eagle")
 
 #: bench_simx.py's SWEEP_FULL: the paper-scale Fig. 2 grid (3 loads x 2
 #: seeds = 6 points per scheduler; megha's trace and run at 49,984 workers)
@@ -823,12 +838,13 @@ def completed(metrics) -> int:
 def phase_build() -> dict:
     """Both sources at once, one nvcc each, then load and bind them."""
     t0 = time.perf_counter()
-    names = ("match", "match_tasks", "p2_sketch")
+    names = ("match", "match_tasks", "p2_sketch", "queues")
     with ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(build.build, names))
     match._batched_fns()  # load each library and bind its C signature
     match._single_fns()
     p2._library_fns()
+    queues._fns()
     out = dict(
         phase="build", seconds=time.perf_counter() - t0,
         kernels=[dict(name=i.name, library=i.library.name,
@@ -836,7 +852,7 @@ def phase_build() -> dict:
                  for i in infos],
     )
     for name, i in zip(names, infos):
-        want = 2 if name == "p2_sketch" else 6
+        want = {"p2_sketch": 2, "queues": 15}.get(name, 6)
         check(len(i.ptxas) == want, f"ptxas reports {want} kernel(s) of {name}.cu")
     check(all(k["spill_bytes"] == 0 for i in infos for k in i.ptxas),
           "no register spills")
@@ -1175,6 +1191,7 @@ def _grid_run(plan, draws: dict, use_kernel: bool, one_point: bool = False):
         sub, jsub, seeds = sub[-1:], jsub[-1:], seeds[:1]
         draws = {k: v[:1] for k, v in draws.items()}
     match.match_ranks_batched.launches = 0
+    _zero_queue_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, tasks, step = sweep.grid_state(
@@ -1218,10 +1235,13 @@ def phase_sweep(megha: dict) -> dict:
         draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
         draw_s = time.perf_counter() - t0
         all_draws[name] = draws
-        state, tasks, step, summ, wall, launches = _grid_run(plan, draws, True)
-        p_state, _, _, _, p_wall, p_launches = _grid_run(plan, draws, False)
-        o_state, _, _, _, o_wall, o_launches = _grid_run(plan, draws, True, one_point=True)
         rounds = plan.num_rounds
+        state, tasks, step, summ, wall, launches = _grid_run(plan, draws, True)
+        q_launches = _queue_launches(name, rounds, f"sweep {name}")
+        p_state, _, _, _, p_wall, p_launches = _grid_run(plan, draws, False)
+        _queue_launches(name, rounds, f"sweep {name} (plain match)")
+        o_state, _, _, _, o_wall, o_launches = _grid_run(plan, draws, True, one_point=True)
+        _queue_launches(name, rounds, f"sweep {name} (one point)")
         T = tasks.num_tasks
         borrow = getattr(step, "borrow_rounds", 0)
         r = dict(
@@ -1234,6 +1254,7 @@ def phase_sweep(megha: dict) -> dict:
                                      if getattr(step, "point_borrow_rounds", None) is not None
                                      else None),
             plain_run_launches=p_launches, one_point_launches=o_launches,
+            queue_launches=q_launches,
             kernel_and_plain_bitwise=states_equal(state, p_state),
             one_point_bitwise_grid_point=all(
                 np.array_equal(a, b) for a, b in zip(
@@ -1320,6 +1341,7 @@ def _fault_grid_run(plan, draws: dict, use_kernel: bool):
     step, summary, wall seconds, kernel launches), the wall as in
     ``_grid_run``."""
     match.match_ranks_batched.launches = 0
+    _zero_queue_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, step = sweep.fault_grid_state(
@@ -1355,6 +1377,7 @@ def phase_fig4() -> dict:
         plan = plans[name]
         draws = sweep.seed_draws(name, plan.cfg, plan.tasks, plan.seeds)
         state, step, summ, wall, launches = _fault_grid_run(plan, draws, True)
+        q_launches = _queue_launches(name, plan.num_rounds, f"fig4 {name}")
         p_state, _, _, p_wall, p_launches = _fault_grid_run(plan, draws, False)
         # the fraction-0, seed-0 point without a fault schedule
         torch.cuda.synchronize()
@@ -1379,7 +1402,7 @@ def phase_fig4() -> dict:
             borrow_rounds_per_point=(step.point_borrow_rounds.tolist()
                                      if getattr(step, "point_borrow_rounds", None) is not None
                                      else None),
-            plain_run_launches=p_launches,
+            plain_run_launches=p_launches, queue_launches=q_launches,
             kernel_and_plain_bitwise=states_equal(state, p_state),
             zero_fraction_bitwise_fault_free=all(
                 np.array_equal(a, b) for a, b in zip(
@@ -1829,6 +1852,7 @@ def _stream_run(name: str, arrivals, use_kernel: bool = True, horizon: float | N
     before the run and read just after it."""
     match.match_ranks_batched.launches = 0
     p2.p2_absorb.launches = 0
+    _zero_queue_launches()
     _reset_peak_memory()
     t0 = time.perf_counter()
     run = stream.run_steady_state(
@@ -1993,6 +2017,7 @@ def phase_stream(wl) -> dict:
     for name in STREAM_RULES:
         run, wall, launches, p2_launches, peak = _stream_run(
             name, _stream_arrivals(), orders=orders if name == "megha" else None)
+        q_launches = _queue_launches(name, run.rounds, f"{name} stream")
         runs[name] = run
         balanced = all(s["admitted"] == s["completed"] + s["running"] + s["pending"]
                        + s["unarrived"] + s["lost"] for s in run.refills)
@@ -2015,7 +2040,7 @@ def phase_stream(wl) -> dict:
             probes=run.probes, borrow_rounds=run.borrow_rounds,
             ledger_balanced_every_refill=balanced,
             kernel_launches=launches, expected_launches=want_launches,
-            p2_launches=p2_launches)
+            p2_launches=p2_launches, queue_launches=q_launches)
         check(balanced, f"{name} stream: ledger balanced at every refill")
         check(run.lost == 0, f"{name} stream: nothing lost")
         check(run.end_time >= STREAM_HORIZON, f"{name} stream: reached the horizon")
@@ -2142,6 +2167,7 @@ def _curve(name: str, orders, use_kernel: bool = True, horizon: float = STREAM_H
     read just after it."""
     match.match_ranks_batched.launches = 0
     p2.p2_absorb.launches = 0
+    _zero_queue_launches()
     _reset_peak_memory()
     t0 = time.perf_counter()
     runs = shard.sharded_steady_state(
@@ -2223,16 +2249,19 @@ def phase_shard(swp: dict, fig4: dict) -> dict:
     out["fig2"] = {}
     for name in SWEEP_RULES:
         match.match_ranks_batched.launches = 0
+        _zero_queue_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = shard.sharded_fig2_sweep(name, mesh=mesh, device=DEVICE, **SWEEP_FULL)
         wall = time.perf_counter() - t0
         launches = match.match_ranks_batched.launches
         want = swp["rules"][name]
+        q_launches = _queue_launches(name, want["num_rounds"], f"shard {name}")
         same = all(_np_equal(res[k].reshape(-1), v) for k, v in want["summary"].items())
         out["fig2"][name] = dict(wall_s=wall, serial_wall_s=want["wall_s"],
                                  kernel_launches=launches,
                                  serial_launches=want["kernel_launches"],
+                                 queue_launches=q_launches,
                                  n_devices=int(res["n_devices"]), bitwise_serial=same)
         check(same, f"shard {name}: the sharded Fig. 2 grid is bitwise the sweep phase's")
         check(launches == want["kernel_launches"],
@@ -2280,6 +2309,8 @@ def phase_shard(swp: dict, fig4: dict) -> dict:
         runs, wall, launches, p2_launches, peak = _curve(name, orders, horizon=horizon)
         curves[name] = runs
         segments = max(len(r.refills) for r in runs)
+        q_launches = _queue_launches(name, segments * STREAM_WINDOW["rounds_per_refill"],
+                                     f"shard {name} curve")
         base = STREAM_PER_ROUND[name] * segments * STREAM_WINDOW["rounds_per_refill"]
         borrow = [r.borrow_rounds for r in runs]
         bitwise = [_runs_bitwise(a, b) and all(
@@ -2295,7 +2326,7 @@ def phase_shard(swp: dict, fig4: dict) -> dict:
             segments=segments, tasks_completed=tasks, tasks_per_wall_s=tasks / wall,
             serial_walls_s=walls, wall_over_serial_sum=wall / sum(walls),
             kernel_launches=launches, base_launches=base, borrow_rounds_by_lane=borrow,
-            p2_launches=p2_launches,
+            p2_launches=p2_launches, queue_launches=q_launches,
             p50=[r.quantile(0.5) for r in runs], p99=[r.quantile(0.99) for r in runs],
             p999=[r.quantile(0.999) for r in runs],
             admission_lag_max=[float(r.series["admission_lag"].max()) for r in runs],
@@ -2451,6 +2482,82 @@ def phase_cpu_parity() -> dict:
               f"{name} grid: completes")
     emit(out)
     return out
+
+
+def _queue_inputs(gen: torch.Generator, p: int, w: int, r: int, j: int):
+    """Queues of live entries (ascending job ids) then J, and a table of
+    pending counts with zeros (the last slot the pad), on the card."""
+    jobs = torch.sort(torch.randint(0, j, (p, w, r), generator=gen, dtype=torch.int32),
+                      dim=-1).values
+    fill = torch.randint(0, r + 1, (p, w, 1), generator=gen)
+    resq = torch.where(torch.arange(r) < fill, jobs, j).to(torch.int32)
+    table = torch.randint(0, 3, (p, j + 1), generator=gen, dtype=torch.int32)
+    table[:, -1] = 0
+    return resq.to(DEVICE), table.to(DEVICE)
+
+
+def _zero_queue_launches() -> None:
+    for fn in (queues.queue_compact, queues.queue_scan, queues.queue_head):
+        fn.launches = 0
+
+
+def _queue_launches(name: str, rounds: int, what: str) -> dict:
+    """The queue kernels' launches since ``_zero_queue_launches``, read
+    just after a run of ``rounds`` rounds of ``name``: checked to be one
+    of each kernel a round for the rules with queues, none otherwise."""
+    n = dict(compact=queues.queue_compact.launches, scan=queues.queue_scan.launches,
+             head=queues.queue_head.launches)
+    want = rounds if name in QUEUE_RULES else 0
+    check(n["compact"] == n["scan"] == n["head"] == want,
+          f"{what}: each queue kernel launched {want} times in {rounds} rounds")
+    return dict(n, rounds=rounds)
+
+
+def phase_queues(gen: torch.Generator) -> dict:
+    """The three queue kernels bitwise their plain versions and timed at
+    QUEUE_SHAPES (CUDA events over 200 warm launches; the plain versions
+    over 20), each beside its byte bound: the queue read once and one
+    value written per entry (the head one per row, and the picked entry
+    read)."""
+    rows = []
+    for caller, p, w, r, j in QUEUE_SHAPES:
+        resq, table = _queue_inputs(gen, p, w, r, j)
+        entries, n_rows = p * w * r, p * w
+        buf, fill = queues.queue_compact(resq, table)
+        want, want_fill = ref.queue_compact_ref(resq, table)
+        out = buf[:-1].view(resq.shape)
+        check(torch.equal(out, want) and torch.equal(fill, want_fill),
+              f"queue_compact == plain at {caller}")
+        active, has_res = queues.queue_scan(out, table)
+        want_a, want_h = ref.queue_scan_ref(out, table)
+        check(torch.equal(active, want_a) and torch.equal(has_res, want_h),
+              f"queue_scan == plain at {caller}")
+        flat = active.reshape(-1, r)
+        ranks = match.match_ranks_batched(flat, torch.ones(
+            flat.shape[0], dtype=torch.int32, device=DEVICE))
+        head = queues.queue_head(out, ranks, j)
+        check(torch.equal(head, ref.queue_head_ref(out, ranks, j)),
+              f"queue_head == plain at {caller}")
+        torch.cuda.synchronize()
+        cases = (
+            ("queue_compact", lambda: queues.queue_compact(resq, table),
+             lambda: ref.queue_compact_ref(resq, table),
+             2 * 4 * entries + 4 * n_rows + 4 * p * (j + 1)),
+            ("queue_scan", lambda: queues.queue_scan(out, table),
+             lambda: ref.queue_scan_ref(out, table),
+             4 * entries + entries + p * j + 4 * p * (j + 1)),
+            ("queue_head", lambda: queues.queue_head(out, ranks, j),
+             lambda: ref.queue_head_ref(out, ranks, j),
+             4 * entries + 4 * n_rows + 4 * n_rows),
+        )
+        for kernel, fn, plain, nbytes in cases:
+            r_ = dict(phase="queues", kernel=kernel, caller=caller, shape=[p, w, r], jobs=j,
+                      ms=device_ms(fn), plain_ms=device_ms(plain, iters=20, warm=2),
+                      host_us=host_us(fn), bytes=nbytes,
+                      bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+            emit(r_)
+            rows.append(r_)
+    return rows
 
 
 def _single_row_cases(gen: torch.Generator):
@@ -4031,6 +4138,7 @@ def main() -> int:
     run("build", phase_build)
     kern = run("kernel", phase_kernel, gen)
     single = run("kernel_single", phase_kernel_single, gen)
+    qrows = run("queues", phase_queues, gen)
     wl = synthetic_trace(**TRACE)
     megha = run("megha", phase_megha, wl)
     plain = run("megha_plain", phase_megha_plain, wl, megha)
@@ -4153,6 +4261,20 @@ def main() -> int:
         lanes={k: kern["p2_lanes"][k] for k in (
             "shape", "valid_per_lane", "ms", "one_lane_ms", "plain_ms", "bound_ms",
             "bound_by", "bytes_ms", "ops_ms", "chain_ms", "library_ms")},
+    ), dict(
+        name="queues", route="cuda",
+        source="src/repro_torch/kernels/csrc/queues.cu",
+        replaces="none (fuses the element-wise queue passes that XLA fuses for "
+                 "src/repro/simx/sparrow.py; not a TPU kernel)",
+        launches_by_path={name: dict(
+            sweep=swp["rules"][name]["queue_launches"],
+            fig4=fig4["rules"][name]["queue_launches"],
+            stream=strm["rules"][name]["queue_launches"],
+            shard_fig2=shd["fig2"][name]["queue_launches"],
+            shard_curve=shd["curve"][name]["queue_launches"]) for name in QUEUE_RULES},
+        by_shape=[{k: r[k] for k in ("kernel", "caller", "shape", "ms", "plain_ms",
+                                     "bound_ms")} for r in qrows],
+        library_ms=None,
     )]})
     print(nvidia_smi(), flush=True)
     emit(dict(phase="total", wall_s=time.perf_counter() - t_start, phase_walls_s=walls))

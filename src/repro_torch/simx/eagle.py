@@ -45,13 +45,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import queues
 from repro_torch.simx import runtime as rt
-from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
+from repro_torch.simx.faults import FaultSchedule, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.sparrow import (
     ProbeLayout,
     build_probe_edges,
-    compact_queues,
     insert_probes,
     job_starts,
     late_bind,
@@ -60,6 +60,7 @@ from repro_torch.simx.sparrow import (
     probe_targets,
     probe_window_slice,
     queue_head_pick,
+    unfinished_jobs,
 )
 from repro_torch.simx.state import (
     EagleState,
@@ -226,7 +227,7 @@ def make_eagle_step(
         long_here = (worker_finish0 > tt) & rt.take(long_task, s.worker_task)   # [B,W]
 
         # -- 0. recycle completed jobs' slots, compact the queues -----------
-        resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
+        buf, fill = queues.queue_compact(s.resq, unfinished_jobs(task_finish0, tasks.job, t, J))
 
         # -- 1. windowed probe insertion with per-edge SSS re-routing -------
         win_j, win_w, lead, ins, lagged = probe_window_slice(
@@ -244,7 +245,8 @@ def make_eagle_step(
         else:
             wfin = win_w
             n_rej = torch.zeros_like(lead) if telemetry else 0
-        resq, n_over = insert_probes(resq, fill, wfin, win_j, ins)
+        resq, n_over = insert_probes(buf[:-1].view(s.resq.shape), fill, wfin, win_j, ins,
+                                     buf=buf)
         head = s.probe_head + lead
         probes = s.probes + lead + n_rej
         messages = s.messages + lead + 2 * n_rej                  # reject + resend
@@ -265,13 +267,11 @@ def make_eagle_step(
         pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
             -1, job64.expand(B, T), pend_task.to(_I32))
         idle = worker_finish <= tt
-        active = ((resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
-                  & idle[..., None])
+        active, has_res = queues.queue_scan(resq, pending, row_mask=idle, dead=dead)
         job_pick = queue_head_pick(resq, active, match_fn, J)    # int32[B,W]
         # orphan rescue: a pending short job with no live reservation
         # anywhere may be served by any idle worker
-        orphan = (short_job & (edge_end <= head[:, None]) & (pending[:, :-1] > 0)
-                  & ~jobs_with_reservation(resq, J, dead=dead))
+        orphan = short_job & (edge_end <= head[:, None]) & (pending[:, :-1] > 0) & ~has_res
         rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
         job_pick = torch.where(idle, torch.minimum(job_pick, rescue[:, None]), J)
         launch2, task2 = late_bind(job_pick, pend_task, tasks.job, job_start)

@@ -58,6 +58,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import ref
 from repro_torch.simx.state import spec
 
 
@@ -174,16 +175,12 @@ def jobs_with_reservation(
     sentinel dropped; here every entry that counts writes 1 into its job's
     slot and the rest write the pad slot J, which is cut off.  All writes
     carry the same value, so repeated indices give one result on any
-    device.  Sparrow and eagle use it for orphan rescue: a pending job with
-    no live entry anywhere (every probed worker down, or every probe
-    dropped on a full queue) may be served by any idle worker."""
-    exists = resq < num_jobs
-    if dead is not None:
-        exists = exists & ~dead[..., None]
-    lead = resq.shape[:-2]
-    idx = torch.where(exists, resq, num_jobs).reshape(lead + (-1,)).to(torch.int64)
-    out = torch.zeros(lead + (num_jobs + 1,), dtype=torch.uint8, device=resq.device)
-    return out.scatter(-1, idx, 1)[..., :num_jobs].to(torch.bool)
+    device.  Sparrow's and eagle's steps take the same set from
+    ``kernels.queues.queue_scan``, in the pass that builds the pick's mask,
+    for orphan rescue: a pending job with no live entry anywhere (every
+    probed worker down, or every probe dropped on a full queue) may be
+    served by any idle worker."""
+    return ref.jobs_with_reservation_ref(resq, num_jobs, dead)
 
 
 def gm_down_mask(fs: FaultSchedule, t: torch.Tensor) -> torch.Tensor:

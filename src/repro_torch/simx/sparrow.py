@@ -29,6 +29,11 @@ admission, and no target table is drawn.
 The reference's ``mode="drop"`` scatters become scatters into a pad slot
 that is cut off; only the pad slot ever receives repeated indices, so
 every scatter is deterministic on the card.
+
+The whole-queue passes of a round (compaction, the active mask with the
+jobs holding a reservation, the head at the pick) go through
+``repro_torch.kernels.queues``: one launch each on the card, the plain
+versions of ``kernels/ref.py`` on the CPU.
 """
 
 from __future__ import annotations
@@ -39,9 +44,10 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.kernels import queues, ref
 from repro_torch.simx import runtime as rt
 from repro_torch.simx import spans
-from repro_torch.simx.faults import FaultSchedule, jobs_with_reservation, worker_dead
+from repro_torch.simx.faults import FaultSchedule, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import (
     SimxConfig,
@@ -68,21 +74,6 @@ def _rows(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if mat.dim() == 2:
         return mat[idx]
     return mat[rt.point_rows(mat.shape[0], idx.dim(), mat.device), idx]
-
-
-def _scan_rows(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive int32 prefix sums of ``x`` (bool or int32) along its last
-    axis: one scan over the flattened tensor, less each row's preceding
-    total.  Integer sums are exact, so this equals ``torch.cumsum(x, -1)``
-    while the whole tensor's sum fits in int32.  On the card PyTorch scans
-    a last axis row by row, which is slow for many short rows (the ``[B, W,
-    R]`` queues) and for a few long ones (the ``[B, T]`` pending mask); a
-    flat scan is one device-wide pass."""
-    x = x.to(_I32)
-    if x.numel() >= 1 << 31:
-        return torch.cumsum(x, dim=-1, dtype=_I32)
-    flat = torch.cumsum(x.reshape(-1), dim=0, dtype=_I32).reshape(x.shape)
-    return flat - (flat[..., :1] - x[..., :1])
 
 
 def _rank_within_groups(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,7 +111,7 @@ def late_bind(
     pend_i = pend_task.to(_I32)
     pending = torch.zeros(lead + (J,), dtype=_I32, device=dev).scatter_add(
         -1, job64.expand(lead + (T,)), pend_i)
-    c = _scan_rows(pend_i)
+    c = ref.scan_rows(pend_i)
     base = torch.where(job_start > 0, at(c, torch.clamp(job_start - 1, min=0).to(_I64)), 0)
     prank = c - 1 - at(base, job64)                                    # int32[..., T]
     # (job, rank) -> task: job j's r-th pending task at job_start[j] + r;
@@ -240,6 +231,8 @@ def insert_probes(
     targets: torch.Tensor,
     jobs: torch.Tensor,
     ins: torch.Tensor,
+    *,
+    buf: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter this round's probe edges into the per-worker queues.
 
@@ -252,7 +245,13 @@ def insert_probes(
     stable sort by target), and edges whose slot lands past R are dropped
     and counted.  Returns ``(resq, n_overflow)``.  One sentinel catches
     both drops of the reference's scatter (target W, slot >= R): a flat
-    index into ``W * R + 1`` slots, the last cut off."""
+    index into the queues of every point and one pad slot after them.
+
+    With ``buf`` (``queues.queue_compact``'s buffer, whose first
+    ``resq.numel()`` entries are ``resq`` itself and whose last is that pad
+    slot) the kept edges are scattered into it in place and ``resq`` comes
+    back as that same view: no copy of the queues is made.  Without it the
+    queues are copied into such a buffer first."""
     W, R = resq.shape[-2:]
     C = targets.shape[-1]
     lead = targets.shape[:-1]
@@ -270,10 +269,32 @@ def insert_probes(
     tw = torch.where(keep, targets, W)
     _, rank = _rank_within_groups(tw)
     slot = rt.take(fill, torch.clamp(tw, 0, W - 1)) + rank
-    flat_idx = torch.where((tw < W) & (slot < R), tw * R + slot, W * R).to(_I64)
-    flat = torch.cat([resq.reshape(lead + (W * R,)), resq.new_zeros(lead + (1,))], -1)
-    resq = flat.scatter(-1, flat_idx, jobs)[..., : W * R].reshape(resq.shape)
+    if buf is None:
+        buf = torch.cat([resq.reshape(-1), resq.new_zeros(1)])
+        resq = buf[:-1].view(resq.shape)
+    n = resq.numel()
+    # each kept edge has its own (worker, slot) and only the pad slot n
+    # takes repeats, so the in-place scatter is deterministic; buf is the
+    # round's own (made by this round's compaction, or copied above), so no
+    # earlier state sees the write
+    point = torch.arange(0, n, W * R, dtype=_I64, device=resq.device).reshape(lead + (1,))
+    idx = torch.where((tw < W) & (slot < R), point + tw * R + slot, n)
+    buf.scatter_(0, idx.reshape(-1), jobs.expand(lead + (C,)).reshape(-1))
     return resq, torch.sum(keep & (slot >= R), dim=-1, dtype=_I32)
+
+
+def unfinished_jobs(
+    task_finish: torch.Tensor, job: torch.Tensor, t: torch.Tensor, num_jobs: int
+) -> torch.Tensor:
+    """int32[..., J + 1] — each job's tasks still unfinished at ``t``
+    (launched but running included), per point; the last slot is the pad.
+    ``job`` is shared or one row per point."""
+    lead = task_finish.shape[:-1]
+    T = job.shape[-1]
+    unfinished = torch.zeros(lead + (num_jobs + 1,), dtype=_I32, device=task_finish.device)
+    return unfinished.scatter_add(
+        -1, job.to(_I64).expand(lead + (T,)),
+        (task_finish > rt.lift(t, task_finish)).to(_I32))
 
 
 def compact_queues(
@@ -287,20 +308,13 @@ def compact_queues(
 
     An entry lives while its job still has an unfinished task (launched
     but running included); live entries slide to the front in order, dead
-    ones go to the pad column R, cut off.  ``job`` is shared or one row per
-    point.  Returns ``(resq, fill int32[..., W])``."""
-    R = resq.shape[-1]
-    lead = task_finish.shape[:-1]
-    T = job.shape[-1]
-    unfinished = torch.zeros(lead + (num_jobs + 1,), dtype=_I32, device=resq.device)
-    unfinished = unfinished.scatter_add(
-        -1, job.to(_I64).expand(lead + (T,)),
-        (task_finish > rt.lift(t, task_finish)).to(_I32))
-    live = (resq < num_jobs) & (rt.take(unfinished, torch.clamp(resq, max=num_jobs)) > 0)
-    pos = _scan_rows(live) - 1
-    out = torch.full(resq.shape[:-1] + (R + 1,), num_jobs, dtype=_I32, device=resq.device)
-    out = out.scatter(-1, torch.where(live, pos, R).to(_I64), resq)[..., :R]
-    return out, torch.sum(live, dim=-1, dtype=_I32)
+    ones leave, and the tail of each queue is J (one pass,
+    ``queues.queue_compact``).  ``job`` is shared or one row per point.
+    Returns ``(resq, fill int32[..., W])``.  The steps call
+    ``queues.queue_compact`` themselves, to hand its buffer to
+    ``insert_probes``."""
+    buf, fill = queues.queue_compact(resq, unfinished_jobs(task_finish, job, t, num_jobs))
+    return buf[:-1].view(resq.shape), fill
 
 
 def queue_head_pick(
@@ -311,16 +325,13 @@ def queue_head_pick(
 
     Rank-and-select with ``n = 1`` per worker row, through ``match_fn``
     over the queues flattened to ``[B * W, R]`` rows (the kernel
-    wrapper's narrow design: a warp per ``256 // R`` whole rows).  The
-    reference's ``argmax`` over bool becomes one over uint8 (the card has
-    no bool ``argmax``); its first-maximum rule is the same."""
+    wrapper's narrow design: a warp per ``256 // R`` whole rows); the
+    entry at each row's rank-0 slot is then read in one pass
+    (``queues.queue_head``)."""
     R = resq.shape[-1]
     rows = active.reshape(-1, R)
-    ranks = match_fn(rows, _ones(rows.shape[0], rows.device)).reshape(resq.shape)
-    picked = ranks == 0
-    slot = torch.argmax(picked.to(torch.uint8), dim=-1, keepdim=True)
-    head = torch.gather(resq, -1, slot)[..., 0]
-    return torch.where(torch.any(picked, dim=-1), head, num_jobs)
+    ranks = match_fn(rows, _ones(rows.shape[0], rows.device))
+    return queues.queue_head(resq, ranks, num_jobs)
 
 
 def probe_attempt(
@@ -432,13 +443,15 @@ def make_sparrow_step(
 
         with spans.span("sparrow.compact"):
             # -- 0. recycle completed jobs' slots, compact the queues -------
-            resq, fill = compact_queues(s.resq, task_finish0, tasks.job, t, J)
+            buf, fill = queues.queue_compact(
+                s.resq, unfinished_jobs(task_finish0, tasks.job, t, J))
 
         with spans.span("sparrow.insert"):
             # -- 1. windowed probe insertion (edge list is in arrival order)
             win_j, win_w, lead, ins, lagged = probe_window_slice(
                 edge_job, edge_worker, s.probe_head, C, job_submit_pad, t)
-            resq, n_over = insert_probes(resq, fill, win_w, win_j, ins)
+            resq, n_over = insert_probes(buf[:-1].view(s.resq.shape), fill, win_w, win_j,
+                                         ins, buf=buf)
             head = s.probe_head + lead
             # every probe RPC counts (and costs a message), kept or dropped
             messages = s.messages + lead
@@ -448,15 +461,14 @@ def make_sparrow_step(
             pend_task = torch.isinf(task_finish0) & (submit <= t[:, None])     # bool[B,T]
             pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
                 -1, job64.expand(B, T), pend_task.to(_I32))
-            active = (resq < J) & (rt.take(pending, torch.clamp(resq, max=J)) > 0)
-            job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
             # orphan rescue: an inserted pending job with no live reservation
             # anywhere (all probes dropped on full queues, or, under faults,
             # every probed worker currently dead) may be served by any idle
             # worker (dead workers never serve: worker_finish holds recovery)
             dead = worker_dead(faults, t) if faults is not None else None
-            orphan = ((edge_end <= head[:, None]) & (pending[:, :-1] > 0)
-                      & ~jobs_with_reservation(resq, J, dead=dead))
+            active, has_res = queues.queue_scan(resq, pending, dead=dead)
+            job_pick = queue_head_pick(resq, active, match_fn, J)              # int32[B,W]
+            orphan = (edge_end <= head[:, None]) & (pending[:, :-1] > 0) & ~has_res
             rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
             job_pick = torch.minimum(job_pick, rescue[:, None])
             launch, task_pick = late_bind(

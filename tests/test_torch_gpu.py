@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import match, ref
+from repro_torch.kernels import match, queues, ref
 from repro_torch.serve.engine import MeghaServeEngine, Request
 from repro_torch.simx import (
     COMPONENTS,
@@ -122,8 +122,9 @@ def _mixed_trace():
 def test_queue_rule_card_run_is_bitwise_plain_and_cpu(name, trace):
     """Sparrow and eagle on the card with the kernel, without it, and on
     the CPU, final states bitwise equal; one pick a round, and eagle's
-    central match beside it where long jobs run; with one queue slot a
-    worker, probes overflow and orphan rescue serves their jobs."""
+    central match beside it where long jobs run, and each queue kernel
+    once a round; with one queue slot a worker, probes overflow and orphan
+    rescue serves their jobs."""
     _need_card()
     if trace == "mixed":
         wl, W, kw = _mixed_trace(), 100, dict(dt=0.05)
@@ -134,9 +135,11 @@ def test_queue_rule_card_run_is_bitwise_plain_and_cpu(name, trace):
         wl = synthetic_trace(num_jobs=24, tasks_per_job=128, load=0.8, num_workers=1024,
                              seed=1)
         W, kw = 1024, dict(dt=0.02)
-    before = match.match_ranks_batched.launches
+    before, q_before = match.match_ranks_batched.launches, _counts()
     card = simulate_workload(name, wl, W, device="cuda", **kw)
     launches = match.match_ranks_batched.launches - before
+    # the queue passes: one launch of each kernel a round
+    assert [a - b for a, b in zip(_counts(), q_before)] == [int(card.state.rnd)] * 3
     plain = simulate_workload(name, wl, W, device="cuda", use_kernel=False, **kw)
     assert match.match_ranks_batched.launches == before + launches
     cpu = simulate_workload(name, wl, W, device="cpu", **kw)
@@ -152,6 +155,142 @@ def test_queue_rule_card_run_is_bitwise_plain_and_cpu(name, trace):
         assert int(card.state.res_overflow) > 0
     if trace == "mixed":
         assert int(card.state.probes) > int(card.state.probe_head) and int(card.state.long_head) > 0
+
+
+# ---------------------------------------------------------------------------
+# the reservation-queue kernels (``kernels.queues``, ``csrc/queues.cu``)
+# ---------------------------------------------------------------------------
+
+#: (points, workers, slots, jobs): the Sparrow cell's [16, 50000, 40] and
+#: the stream's [1, 50000, 16] at their job counts, the widest row (256),
+#: one unbatched queue, rows of 1, 7 and 33 slots (every lane-group width
+#: and ragged slots), no job at all, and a job table too large for shared
+#: memory (the kernels' device-memory variant)
+QUEUE_SHAPES = [((16,), 50_000, 40, 480), ((1,), 50_000, 16, 193), ((2,), 3000, 256, 480),
+                ((), 1000, 40, 480), ((3,), 777, 1, 5), ((2,), 500, 7, 60),
+                ((4,), 1000, 33, 0), ((2,), 2000, 40, 20_000)]
+
+
+def _queue_case(lead, w, r, j, gen):
+    """Queues with live entries first (ascending job ids, some repeated),
+    holes of J among them and J after them; a job table with zeros; idle
+    and dead rows; all on the card."""
+    shape = tuple(lead) + (w, r)
+    jobs = torch.sort(torch.randint(0, max(j, 1), shape, generator=gen, dtype=torch.int32),
+                      dim=-1).values
+    fill = torch.randint(0, r + 1, shape[:-1] + (1,), generator=gen)
+    live = (torch.arange(r) < fill) & (torch.rand(shape, generator=gen) < 0.9)
+    resq = torch.where(live, jobs, j).to(torch.int32)
+    table = torch.randint(0, 3, tuple(lead) + (j + 1,), generator=gen, dtype=torch.int32)
+    table[..., -1] = 0
+    idle = torch.rand(shape[:-1], generator=gen) < 0.6
+    dead = torch.rand(shape[:-1], generator=gen) < 0.2
+    return resq.cuda(), table.cuda(), idle.cuda(), dead.cuda()
+
+
+#: the three wrappers, kept here so their counters stay readable while a
+#: test replaces them in the module
+_QUEUE_FNS = (queues.queue_compact, queues.queue_scan, queues.queue_head)
+
+
+def _counts():
+    return tuple(fn.launches for fn in _QUEUE_FNS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,w,r,j", QUEUE_SHAPES)
+def test_queue_kernels_are_bitwise_their_plain_versions(lead, w, r, j):
+    """Each of the three kernels against its plain version in ``ref.py``
+    on the same card tensors: compaction (and its buffer's pad slot), the
+    scan with and without the row mask and the dead rows, and the head
+    after the n = 1 pick and after ranks with several zeros a row."""
+    _need_card()
+    gen = torch.Generator().manual_seed(w * 7 + r * 3 + j)
+    resq, table, idle, dead = _queue_case(lead, w, r, j, gen)
+    before = _counts()
+    buf, fill = queues.queue_compact(resq, table)
+    want, want_fill = ref.queue_compact_ref(resq, table)
+    torch.cuda.synchronize()
+    assert buf.shape == (resq.numel() + 1,) and int(buf[-1]) == j
+    assert torch.equal(buf[:-1].view(resq.shape), want) and torch.equal(fill, want_fill)
+    out = buf[:-1].view(resq.shape)
+    for row_mask, dead_w in ((None, None), (idle, None), (None, dead), (idle, dead)):
+        active, has_res = queues.queue_scan(out, table, row_mask, dead_w)
+        want_a, want_h = ref.queue_scan_ref(out, table, row_mask, dead_w)
+        torch.cuda.synchronize()
+        assert torch.equal(active, want_a) and torch.equal(has_res, want_h)
+    rows = active.reshape(-1, r)
+    ranks = match.match_ranks_batched(rows, torch.ones(rows.shape[0], dtype=torch.int32,
+                                                       device="cuda"))
+    many = torch.randint(-1, 2, resq.shape, generator=gen, dtype=torch.int32).cuda()
+    for rk in (ranks, many):
+        head = queues.queue_head(out, rk, j)
+        torch.cuda.synchronize()
+        assert torch.equal(head, ref.queue_head_ref(out, rk, j))
+    assert _counts() == (before[0] + 1, before[1] + 4, before[2] + 2)
+    if j > 0:
+        assert bool(active.any()) and bool(has_res.any()) and bool((head < j).any())
+
+
+@pytest.mark.gpu
+def test_queue_kernels_refuse_rows_past_256_slots():
+    _need_card()
+    resq = torch.zeros((2, 10, queues.MAX_LANES + 1), dtype=torch.int32, device="cuda")
+    table = torch.ones((2, 2), dtype=torch.int32, device="cuda")
+    before = _counts()
+    with pytest.raises(ValueError, match="at most 256"):
+        queues.queue_compact(resq, table)
+    with pytest.raises(ValueError, match="at most 256"):
+        queues.queue_scan(resq, table)
+    with pytest.raises(ValueError, match="at most 256"):
+        queues.queue_head(resq, torch.zeros_like(resq), 1)
+    assert _counts() == before
+
+
+def _plain_queue_passes(monkeypatch):
+    """The three wrappers replaced by their plain versions, on any device."""
+    def compact(resq, unfinished):
+        out, fill = ref.queue_compact_ref(resq, unfinished)
+        buf = torch.empty(resq.numel() + 1, dtype=torch.int32, device=resq.device)
+        buf[:-1].view(resq.shape).copy_(out)
+        buf[-1] = unfinished.shape[-1] - 1
+        return buf, fill
+
+    monkeypatch.setattr(queues, "queue_compact", compact)
+    monkeypatch.setattr(queues, "queue_scan", ref.queue_scan_ref)
+    monkeypatch.setattr(queues, "queue_head", ref.queue_head_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sparrow", "eagle"])
+def test_queue_grid_on_the_card_is_bitwise_the_plain_queue_passes(name, monkeypatch):
+    """A whole grid of B = 2 points through the queue kernels equals the
+    same grid with the plain queue passes on the card, final states
+    bitwise; each kernel launches once a round."""
+    _need_card()
+    kw = {k: v for k, v in SMALL_GRID.items() if k != "loads"}
+    tasks, sub, jsub = sweep.make_load_grid((0.8,), device="cuda", **kw)
+
+    def grid():
+        state, _, _ = sweep.grid_state(
+            name, SimxConfig(**SMALL_CFG), tasks, sub, jsub, (0, 1), GRID_ROUNDS,
+            match_fn=runtime.default_match_fn(True))
+        torch.cuda.synchronize()
+        return state
+
+    before = _counts()
+    card = grid()
+    launched = [a - b for a, b in zip(_counts(), before)]
+    assert card.t.shape == (2,)
+    assert launched == [GRID_ROUNDS] * 3
+    _plain_queue_passes(monkeypatch)
+    plain = grid()
+    assert [a - b for a, b in zip(_counts(), before)] == launched
+    want = convert.state_to_numpy(plain)
+    got = convert.state_to_numpy(card)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k
+    assert (card.task_finish <= card.t[:, None]).all()
 
 
 @pytest.mark.gpu
