@@ -16,18 +16,23 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 from portbench import harness  # noqa: E402
 
-CELLS = {"megha": "megha_synth_50k.fig2_l16s4", "sparrow": "sparrow_synth_50k.fig2_l8s2"}
+CELLS = {"megha": "megha_synth_50k.fig2_l16s4", "sparrow": "sparrow_synth_50k.fig2_l8s6"}
 TINY = dict(loads=[0.6, 0.95], scheduler_seeds=2, num_jobs=12, tasks_per_job=96)
+
+
+def shrink(cell: harness.Cell, **cfg) -> harness.Cell:
+    """``cell`` cut to the tiny size in place (``cfg`` overrides
+    configuration keys)."""
+    cell.cfg.update(num_workers=640, **cfg)
+    cell.traffic.update(TINY)
+    cell.checks["points"] = 2
+    return cell
 
 
 def tiny(rule: str, **cfg) -> harness.Cell:
     """The rule's cell of the manifest at the tiny size (``cfg`` overrides
     configuration keys)."""
-    cell = harness.resolve(ROOT, CELLS[rule])
-    cell.cfg.update(num_workers=640, **cfg)
-    cell.traffic.update(TINY)
-    cell.checks["points"] = 2
-    return cell
+    return shrink(harness.resolve(ROOT, CELLS[rule]), **cfg)
 
 
 @contextlib.contextmanager

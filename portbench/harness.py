@@ -288,10 +288,9 @@ class Run:
         inp = self.inputs
         loads = torch.tensor([inp.point(b)[0] for b in self.checked], device=self.device)
         seeds = torch.tensor([inp.point(b)[1] for b in self.checked], device=self.device)
-        name = self.cell.reference().DRAW
         return dict(job=inp.job, duration=inp.duration, job_ntasks=inp.job_ntasks,
                     submit=inp.submit[loads], job_submit=inp.job_submit[loads],
-                    **{name: inp.draws[name][seeds]})
+                    **{name: draw[seeds] for name, draw in inp.draws.items()})
 
     def reference(self, time_dtype=torch.float32) -> tuple[np.ndarray, dict]:
         """The plain reference at the checked points: finish times [K, T] and

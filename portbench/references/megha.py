@@ -40,8 +40,6 @@ from __future__ import annotations
 
 import torch
 
-DRAW = "orders"
-
 
 def _launch(state: dict, launch, task, start, dur_pad) -> torch.Tensor:
     """Record launches ``launch bool[K, W]`` of ``task int64[K, W]``:

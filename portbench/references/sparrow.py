@@ -42,8 +42,6 @@ import math
 
 import torch
 
-DRAW = "targets"
-
 
 def queue_slots(cfg: dict, num_probes: int) -> int:
     """R: the configuration's ``reserve_cap``, or twice the mean probes a

@@ -6,8 +6,9 @@ import shutil
 
 import pytest
 
-from portbench.cpu_cells import ROOT, run_tiny, tiny
-from portbench import harness, judge
+from portbench.cpu_cells import ROOT, run_tiny, shrink, tiny
+from portbench import harness, judge, traffic
+from repro_torch.simx import runtime
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -39,17 +40,36 @@ def test_manifest_follows_the_contract():
     assert used == {c["name"] for c in m["configs"]}
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in manifest()["workloads"]])
+CELL_NAMES = [w["name"] for w in manifest()["workloads"]]
+
+
+@pytest.mark.parametrize("cell", CELL_NAMES)
 def test_every_cell_resolves_its_files(cell):
     c = harness.resolve(ROOT, cell)
-    assert c.cfg["scheduler"] in ("megha", "sparrow")
     assert c.traffic["loads"] and c.checks["points"] >= 1
     assert set(c.checks["limits"]) == set(judge.NUMBERS)
-    assert c.reference().DRAW in ("orders", "targets")
     for m in c.end_to_end + c.per_layer:
         assert callable(c.reader(m["name"]).read)
     assert {m["name"] for m in c.end_to_end} >= {"setup_s", "sim_tasks_per_s"}
-    assert len(c.per_layer) == 9
+    # the per-layer entries the manifest lists for the cell, in its order
+    listed = [x["name"] for x in manifest()["per_layer"] if cell in x.get("workloads", [cell])]
+    assert [m["name"] for m in c.per_layer] == listed
+
+
+@pytest.mark.parametrize("cell", CELL_NAMES)
+def test_every_cell_meets_the_rule_contract(cell):
+    """The scheduler is a rule the port registers; at the tiny size its
+    draws file gives exactly the rule's draws, each with the seed axis; its
+    reference simulates.  (Each per-layer entry's reader is loaded by
+    ``test_every_cell_resolves_its_files``.)"""
+    c = shrink(harness.resolve(ROOT, cell))
+    rule = runtime.get_rule(c.cfg["scheduler"])
+    inp = traffic.build(c.cfg, c.traffic, 2**31 + 9, "cpu")
+    assert set(inp.draws) == set(rule.draw_dims)
+    for name, dims in rule.draw_dims.items():
+        assert inp.draws[name].dim() == dims + 1
+        assert inp.draws[name].shape[0] == len(inp.seeds)
+    assert callable(c.reference().simulate)
 
 
 def test_a_new_cell_is_found_by_name_in_a_copy(tmp_path):
@@ -62,7 +82,7 @@ def test_a_new_cell_is_found_by_name_in_a_copy(tmp_path):
     cfg = json.loads((bench / "configs" / "megha_synth_50k.json").read_text())
     cfg.update(num_workers=640)
     (bench / "configs" / "megha_tiny.json").write_text(json.dumps(cfg))
-    traffic = json.loads((bench / "traffic" / "fig2_l8s2.json").read_text())
+    traffic = json.loads((bench / "traffic" / "fig2_l8s6.json").read_text())
     traffic.update(loads=[0.5, 0.9], scheduler_seeds=2, num_jobs=12, tasks_per_job=96)
     (bench / "traffic" / "tiny_mix.json").write_text(json.dumps(traffic))
     checks = json.loads((bench / "checks" / "megha_synth_50k.fig2_l16s4.json").read_text())

@@ -1,26 +1,23 @@
 """The general traffic generator: a Fig. 2 grid's inputs, made from a seed.
 
-A traffic mix is a data file under ``portbench/traffic/`` (loads, scheduler
-seeds a load, jobs a point, tasks a job, task length, arrival law, the round
-budget's slack).  This module turns one mix and one configuration into the
-inputs both sides get: the trace of every load, the rules' random draws for
+A traffic mix is a data file under ``portbench/traffic/`` (the generator
+that makes its trace, loads, scheduler seeds a load, and the generator's own
+parameters).  This module turns one mix and one configuration into the
+inputs both sides get: the trace of every load, the rule's random draws for
 every scheduler seed, and the round budget.  It imports nothing of the
 program, so the reference can be handed the very same tensors.
 
-The trace is the paper's synthetic one (Megha, arXiv:2308.10178, Table 1
-and Eq. 6): jobs of ``tasks_per_job`` tasks of ``task_duration`` seconds,
-Poisson arrivals whose mean gap is
+Two kinds of file are found by name, so that a new trace shape or a new
+rule needs files only:
 
-    iat = tasks_per_job * task_duration / (load * num_workers),
-
-one set of unit gaps drawn from the seed with ``random.Random(seed)`` and
-scaled by each load's ``iat``, as ``workload/synth.py::synthetic_trace`` of
-the repository does, with one difference: the arrival law
-``poisson_fixed_span`` conditions the Poisson process on its span.  The unit
-gaps are rescaled so that the last job arrives at exactly ``(num_jobs - 1) *
-iat``.  The points of a Poisson process given their count and span are
-uniform over the span, so the arrivals stay Poisson, while every seed gets
-the same span, the same round budget and so the same number of rounds.
+* ``portbench/generators/<generator>.py`` (the mix's ``generator``) has
+  ``trace(cfg, traffic, seed)``: a dict of numpy arrays ``job int32[T]``,
+  ``duration float32[T]`` and ``job_ntasks int32[J]`` (tasks in job order)
+  and ``job_submit float32[L, J]``, one row per load of ``traffic["loads"]``;
+* ``portbench/draws/<scheduler>.py`` (the configuration's ``scheduler``)
+  has ``make(cfg, trace, seed, device)``: the rule's random draws for one
+  scheduler seed, a dict of tensors by the rule's names (``{}`` for a rule
+  that draws nothing), stacked here over the seeds.
 
 The round budget is the plan's rule (``fig2_plan``): arrival span + slack x
 the perfectly packed drain + the longest task + one heartbeat + 1 s, over
@@ -29,6 +26,7 @@ the perfectly packed drain + the longest task + one heartbeat + 1 s, over
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import random
@@ -38,7 +36,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ARRIVALS = ("poisson_fixed_span",)
+#: where the generator and draws files lie
+HERE = Path(__file__).resolve().parent
 
 
 def load_json(path: Path) -> dict:
@@ -85,29 +84,6 @@ class GridInputs:
         return divmod(b, len(self.seeds))
 
 
-def unit_arrivals(seed: int, num_jobs: int, arrivals: str) -> np.ndarray:
-    """float64[num_jobs] arrival times in units of the mean gap, the first
-    job at 0."""
-    if arrivals not in ARRIVALS:
-        raise ValueError(f"arrivals must be one of {ARRIVALS}, got {arrivals!r}")
-    rng = random.Random(seed)
-    gaps = np.array([rng.expovariate(1.0) for _ in range(num_jobs - 1)], np.float64)
-    out = np.zeros(num_jobs, np.float64)
-    if num_jobs > 1:
-        out[1:] = np.cumsum(gaps)
-        out *= (num_jobs - 1) / out[-1]
-        out[-1] = num_jobs - 1
-    return out
-
-
-def mean_gap(load: float, tasks_per_job: int, task_duration: float, num_workers: int) -> float:
-    """Eq. 6: the mean inter-arrival time that makes demand / capacity ==
-    ``load``."""
-    if not 0.0 < load <= 1.0:
-        raise ValueError("the paper evaluates load in (0, 1] only (§4.1)")
-    return tasks_per_job * task_duration / (load * num_workers)
-
-
 def round_budget(cfg: dict, traffic: dict, max_submit: float, durations: np.ndarray) -> int:
     """The plan's round budget for the slowest point (``max_submit`` its
     last arrival)."""
@@ -119,61 +95,35 @@ def round_budget(cfg: dict, traffic: dict, max_submit: float, durations: np.ndar
     return int(math.ceil(span / cfg["dt"]))
 
 
-def megha_orders(cfg: dict, seed: int, device) -> torch.Tensor:
-    """int32[G, W]: each GM's priority order, its own partitions' workers
-    shuffled first, then every other worker shuffled (Megha §3.3).  A
-    worker's partition belongs to GM ``(w % (W / L)) // (W / L / G)``."""
-    W, G, L = cfg["num_workers"], cfg["num_gms"], cfg["num_lms"]
-    if W % (G * L):
-        raise ValueError(f"{W} workers do not divide into {G} x {L} partitions")
-    per_lm = W // L
-    owner = (torch.arange(W, device=device) % per_lm) // (per_lm // G)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    keys = torch.rand((G, W), generator=gen, dtype=torch.float64, device=device)
-    keys = keys + 2.0 * (owner[None, :] != torch.arange(G, device=device)[:, None])
-    return torch.argsort(keys, dim=1, stable=True).to(torch.int32)
-
-
-def sparrow_targets(cfg: dict, job_ntasks: np.ndarray, seed: int, device) -> torch.Tensor:
-    """int32[J, kmax]: each job's probe targets, its first ``min(d n, W)``
-    entries a uniform ordered sample of distinct workers (batch sampling,
-    Sparrow §3.2): the workers of the ``kmax`` largest of W uniform scores,
-    in descending order of score."""
-    W = cfg["num_workers"]
-    kmax = int(min(cfg["probe_ratio"] * int(job_ntasks.max()), W))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    scores = torch.rand((len(job_ntasks), W), generator=gen, dtype=torch.float64,
-                        device=device)
-    return torch.topk(scores, kmax, dim=1).indices.to(torch.int32)
-
-
-#: rule -> (draw name, maker(cfg, job_ntasks, seed, device))
-DRAWS = {
-    "megha": ("orders", lambda cfg, nt, seed, dev: megha_orders(cfg, seed, dev)),
-    "sparrow": ("targets", sparrow_targets),
-}
+def load_part(kind: str, name: str):
+    """The module ``portbench/<kind>/<name>.py``; an error that names the
+    path where it is missing."""
+    path = HERE / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} file for {name!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def build(cfg: dict, traffic: dict, seed: int, device) -> GridInputs:
-    """One cell's inputs from ``seed``: the trace from ``random.Random(seed)``
-    and scheduler seed ``i`` drawn from ``seed + i``."""
+    """One cell's inputs from ``seed``: the mix's generator makes the trace
+    from ``seed``, and the rule's draws of scheduler seed ``i`` come from
+    ``seed + i``."""
     scheduler = cfg["scheduler"]
-    if scheduler not in DRAWS:
-        raise ValueError(f"no draws are defined for scheduler {scheduler!r}")
+    make = load_part("draws", scheduler).make
+    trace = load_part("generators", traffic["generator"]).trace(cfg, traffic, seed)
     loads = tuple(float(x) for x in traffic["loads"])
-    J, n = int(traffic["num_jobs"]), int(traffic["tasks_per_job"])
-    dur = float(traffic["task_duration"])
-    W = cfg["num_workers"]
-    unit = unit_arrivals(seed, J, traffic["arrivals"])
-    job_submit = np.stack([
-        (unit * mean_gap(load, n, dur, W)).astype(np.float32) for load in loads])
-    job = np.repeat(np.arange(J, dtype=np.int32), n)
-    durations = np.full(J * n, dur, np.float32)
-    ntasks = np.full(J, n, np.int32)
+    job_submit = trace["job_submit"]
+    if job_submit.shape[0] != len(loads):
+        raise ValueError(f"{traffic['generator']} made {job_submit.shape[0]} rows of "
+                         f"arrivals for {len(loads)} loads")
+    durations = trace["duration"]
     seeds = tuple(seed + i for i in range(int(traffic["scheduler_seeds"])))
-    name, maker = DRAWS[scheduler]
-    draws = {name: torch.stack([maker(cfg, ntasks, s, device) for s in seeds])}
-    jobs_t = torch.from_numpy(job).to(device)
+    per_seed = [make(cfg, trace, s, device) for s in seeds]
+    draws = {k: torch.stack([d[k] for d in per_seed]) for k in per_seed[0]}
+    jobs_t = torch.from_numpy(trace["job"]).to(device)
     job_submit_t = torch.from_numpy(job_submit).to(device)
     return GridInputs(
         scheduler=scheduler,
@@ -181,7 +131,7 @@ def build(cfg: dict, traffic: dict, seed: int, device) -> GridInputs:
         seeds=seeds,
         job=jobs_t,
         duration=torch.from_numpy(durations).to(device),
-        job_ntasks=torch.from_numpy(ntasks).to(device),
+        job_ntasks=torch.from_numpy(trace["job_ntasks"]).to(device),
         submit=job_submit_t[:, jobs_t.to(torch.int64)],
         job_submit=job_submit_t,
         draws=draws,
