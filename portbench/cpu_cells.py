@@ -1,8 +1,15 @@
 """What the benchmark's CPU tests share: the cells of ``BENCHMARK.json`` cut
 to a size a CPU test holds (640 workers, 2 loads x 2 scheduler seeds, 12
-jobs of 96 one-second tasks), run through the harness on the CPU."""
+jobs of 96 one-second tasks), run through the harness on the CPU.
+
+The rules the tests run are the manifest's: ``CELLS`` maps each
+configuration's ``scheduler`` to the first cell that runs it, in the
+manifest's order, so a rule that joins with its files and entries is
+compared with its reference, its control and its planted faults with no
+test edited."""
 
 import contextlib
+import json
 import sys
 import time
 from pathlib import Path
@@ -16,7 +23,20 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 from portbench import harness  # noqa: E402
 
-CELLS = {"megha": "megha_synth_50k.fig2_l16s4", "sparrow": "sparrow_synth_50k.fig2_l8s6"}
+
+def first_cells(root: Path) -> dict:
+    """Each scheduler of ``root/BENCHMARK.json``: the first cell that runs
+    it, in the manifest's order."""
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    scheduler = {c["name"]: json.loads((root / c["file"]).read_text())["scheduler"]
+                 for c in manifest["configs"]}
+    cells: dict = {}
+    for w in manifest["workloads"]:
+        cells.setdefault(scheduler[w["config"]], w["name"])
+    return cells
+
+
+CELLS = first_cells(ROOT)
 TINY = dict(loads=[0.6, 0.95], scheduler_seeds=2, num_jobs=12, tasks_per_job=96)
 
 

@@ -3,10 +3,11 @@
 Each test copies the benchmark into a fresh tree, adds files and manifest
 entries there and nothing else, and runs the copy's harness in a process of
 its own on the CPU: a trace generator under ``generators/`` that makes jobs
-of two sizes and two task lengths, run by Megha's and Sparrow's cells
-against the references as they are; and a rule's draws under ``draws/``
-(Pigeon, which draws nothing), which get through set-up and the window,
-while the comparison names the reference file still missing."""
+of two sizes and two task lengths, run by every configuration of the
+manifest against the references as they are; and a rule's draws under ``draws/``
+(Pigeon, which draws nothing, its reference taken out of the copy), which
+get through set-up and the window, while the comparison names the reference
+file still missing."""
 
 import json
 import shutil
@@ -96,7 +97,10 @@ def _in_copy(root, body: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("config", ["megha_synth_50k", "sparrow_synth_50k"])
+CONFIGS = [c["name"] for c in json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]]
+
+
+@pytest.mark.parametrize("config", CONFIGS)
 def test_a_new_trace_generator_needs_files_only(config, tmp_path):
     bench = _copy(tmp_path)
     (bench / "generators" / "two_sizes.py").write_text(TWO_SIZES)
@@ -125,6 +129,7 @@ def test_a_new_trace_generator_needs_files_only(config, tmp_path):
 def test_a_new_rule_needs_files_only(tmp_path):
     bench = _copy(tmp_path)
     (bench / "draws" / "pigeon.py").write_text(NO_DRAWS)
+    (bench / "references" / "pigeon.py").unlink(missing_ok=True)
     cfg = json.loads((bench / "configs" / "megha_synth_50k.json").read_text())
     cfg.update(scheduler="pigeon", num_workers=640, group_size=40, num_distributors=5,
                reserved_per_group=2, wfq_weight=4)
