@@ -25,7 +25,7 @@ qwen15_05b's and hubert_xlarge's full width, and the fast path's SDPS
 loop — and prints one JSON line per phase:
 
   build        nvcc time, registers / shared memory / spills per kernel
-               (match.cu, match_tasks.cu, p2_sketch.cu, queues.cu)
+               (match.cu, match_tasks.cu, p2_sketch.cu, queues.cu, tasks.cu)
   kernel       the batched kernel (both designs: wide rows split over blocks,
                narrow rows one warp each) against its plain version over a
                sweep of widths (tile and narrow-threshold edges among them),
@@ -52,6 +52,13 @@ loop — and prints one JSON line per phase:
                byte bound (their launches are counted in the runs of the
                sweep, fig4, stream and shard phases: each kernel once a
                round for sparrow and eagle, never for the other rules)
+  tasks        the task-axis pass (per-job unfinished and pending counts,
+               the pending list) bitwise its plain version at the Sparrow
+               cell's [48, 480000], at [16, 480000] and at the 4-lane
+               curve's lane-stacked [4, 196608], timed beside its plain
+               version and byte bound (its launches are counted with the
+               queue kernels': once a round for sparrow, twice for eagle,
+               never for the other rules)
   megha_plain  kernel and plain-match runs in turns: final states bitwise
                equal, launches = rounds + borrow rounds, walls
   megha_sync   host synchronisations of one run, counted by torch
@@ -351,7 +358,7 @@ from repro_torch.core import fastpath as FP  # noqa: E402
 from repro_torch.configs import get_config as lm_config  # noqa: E402
 from repro_torch.configs import ShapeCell, list_archs, smoke_config  # noqa: E402
 from repro_torch.data.pipeline import batches as train_batches  # noqa: E402
-from repro_torch.kernels import build, match, ops, p2, queues, ref  # noqa: E402
+from repro_torch.kernels import build, match, ops, p2, queues, ref, tasks  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes  # noqa: E402
 from repro_torch.launch.serve import ModelRunner  # noqa: E402
@@ -414,6 +421,12 @@ QUEUE_SHAPES = (("sparrow_cell", 16, 50_000, 40, 480), ("stream", 1, 50_000, 16,
 #: the rules whose steps keep reservation queues: each queue kernel is
 #: launched once a round for them, never for the others
 QUEUE_RULES = ("sparrow", "eagle")
+#: the task-axis pass's launches a round (sparrow's one, eagle's before and
+#: after its sticky launches; none for the other rules)
+TASK_SCANS_PER_ROUND = {"sparrow": 1, "eagle": 2}
+#: the task-axis pass's shapes: (caller, points, tasks, jobs, lane-stacked)
+TASK_SHAPES = (("sparrow_cell", 48, 480_000, 480, False), ("sparrow_16", 16, 480_000, 480, False),
+               ("stream_lanes", 4, 196_608, 192, True))
 
 #: bench_simx.py's SWEEP_FULL: the paper-scale Fig. 2 grid (3 loads x 2
 #: seeds = 6 points per scheduler; megha's trace and run at 49,984 workers)
@@ -838,13 +851,14 @@ def completed(metrics) -> int:
 def phase_build() -> dict:
     """Both sources at once, one nvcc each, then load and bind them."""
     t0 = time.perf_counter()
-    names = ("match", "match_tasks", "p2_sketch", "queues")
+    names = ("match", "match_tasks", "p2_sketch", "queues", "tasks")
     with ThreadPoolExecutor(len(names)) as pool:
         infos = list(pool.map(build.build, names))
     match._batched_fns()  # load each library and bind its C signature
     match._single_fns()
     p2._library_fns()
     queues._fns()
+    tasks._launch_fn()
     out = dict(
         phase="build", seconds=time.perf_counter() - t0,
         kernels=[dict(name=i.name, library=i.library.name,
@@ -852,7 +866,7 @@ def phase_build() -> dict:
                  for i in infos],
     )
     for name, i in zip(names, infos):
-        want = {"p2_sketch": 2, "queues": 15}.get(name, 6)
+        want = {"p2_sketch": 2, "queues": 15, "tasks": 2}.get(name, 6)
         check(len(i.ptxas) == want, f"ptxas reports {want} kernel(s) of {name}.cu")
     check(all(k["spill_bytes"] == 0 for i in infos for k in i.ptxas),
           "no register spills")
@@ -2497,19 +2511,23 @@ def _queue_inputs(gen: torch.Generator, p: int, w: int, r: int, j: int):
 
 
 def _zero_queue_launches() -> None:
-    for fn in (queues.queue_compact, queues.queue_scan, queues.queue_head):
+    for fn in (queues.queue_compact, queues.queue_scan, queues.queue_head, tasks.task_scan):
         fn.launches = 0
 
 
 def _queue_launches(name: str, rounds: int, what: str) -> dict:
-    """The queue kernels' launches since ``_zero_queue_launches``, read
-    just after a run of ``rounds`` rounds of ``name``: checked to be one
-    of each kernel a round for the rules with queues, none otherwise."""
+    """The queue kernels' and the task-axis pass's launches since
+    ``_zero_queue_launches``, read just after a run of ``rounds`` rounds of
+    ``name``: checked to be one of each queue kernel a round for the rules
+    with queues, none otherwise, and ``TASK_SCANS_PER_ROUND`` passes."""
     n = dict(compact=queues.queue_compact.launches, scan=queues.queue_scan.launches,
-             head=queues.queue_head.launches)
+             head=queues.queue_head.launches, task_scan=tasks.task_scan.launches)
     want = rounds if name in QUEUE_RULES else 0
     check(n["compact"] == n["scan"] == n["head"] == want,
           f"{what}: each queue kernel launched {want} times in {rounds} rounds")
+    want_t = rounds * TASK_SCANS_PER_ROUND.get(name, 0)
+    check(n["task_scan"] == want_t,
+          f"{what}: the task-axis pass launched {want_t} times in {rounds} rounds")
     return dict(n, rounds=rounds)
 
 
@@ -2557,6 +2575,60 @@ def phase_queues(gen: torch.Generator) -> dict:
                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
             emit(r_)
             rows.append(r_)
+    return rows
+
+
+def _task_inputs(gen: torch.Generator, p: int, n: int, j: int, lanes: bool):
+    """A round of the Fig. 2 grid on the task axis, on the card: jobs of
+    n // j tasks in job order (``lanes``: one row per point, jobs of
+    random sizes, the last tenth the pad job j), submits per point by job
+    (two jobs a second), t mid-arrival; tasks of jobs submitted more than
+    a second ago finished or running, the later ones unlaunched."""
+    if lanes:
+        job = torch.sort(torch.randint(0, j, (p, n), generator=gen), -1).values
+        job[:, n - n // 10:] = j
+    else:
+        job = torch.arange(j).repeat_interleave(n // j).expand(p, n)
+    t = 0.5 * j * (0.3 + 0.4 * torch.rand(p, generator=gen))
+    sub = 0.5 * job.float() + 0.5 * torch.rand(p, 1, generator=gen)
+    old = sub <= t[:, None] - 1.0
+    fin = torch.where(old, t[:, None] + 1.0 - 2.0 * torch.rand(p, n, generator=gen),
+                      float("inf"))
+    job = job.to(torch.int32)
+    return (fin.float().to(DEVICE), sub.float().to(DEVICE),
+            (job if lanes else job[0].contiguous()).to(DEVICE), t.float().to(DEVICE))
+
+
+def phase_tasks(gen: torch.Generator) -> list[dict]:
+    """The task-axis pass bitwise its plain version at TASK_SHAPES (both
+    counts, each row's list up to its pending total), then timed (CUDA
+    events over 200 warm launches; the plain version over 20) beside its
+    byte bound: task_finish and submit read once, the job row(s) once,
+    each pending task's slot and the two tables written once."""
+    rows = []
+    for caller, p, n, j, lanes in TASK_SHAPES:
+        fin, sub, job, t = _task_inputs(gen, p, n, j, lanes)
+        got = tasks.task_scan(fin, sub, job, t, j)
+        want = ref.task_scan_ref(fin, sub, job, t, j)
+        total = want[1].sum(-1, dtype=torch.int32)
+        listed = torch.arange(n, device=DEVICE) < total[:, None]
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and torch.equal(torch.where(listed, got[2], n), want[2]),
+              f"task_scan == plain at {caller}")
+        check(torch.equal(tasks.task_scan(fin, None, job, t, j)[0], want[0]),
+              f"task_scan's unfinished counts alone == plain at {caller}")
+        pending = int(total.sum())
+        nbytes = 8 * p * n + 4 * job.numel() + 4 * p + 4 * pending + 2 * 4 * p * (j + 1)
+        r_ = dict(phase="tasks", kernel="task_scan", caller=caller, shape=[p, n], jobs=j,
+                  lane_stacked=lanes, pending_share=pending / (p * n),
+                  ms=device_ms(lambda: tasks.task_scan(fin, sub, job, t, j)),
+                  plain_ms=device_ms(lambda: ref.task_scan_ref(fin, sub, job, t, j),
+                                     iters=20, warm=2),
+                  host_us=host_us(lambda: tasks.task_scan(fin, sub, job, t, j)),
+                  bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        r_["bound_share"] = r_["bound_ms"] / r_["ms"]
+        emit(r_)
+        rows.append(r_)
     return rows
 
 
@@ -4139,6 +4211,7 @@ def main() -> int:
     kern = run("kernel", phase_kernel, gen)
     single = run("kernel_single", phase_kernel_single, gen)
     qrows = run("queues", phase_queues, gen)
+    trows = run("tasks", phase_tasks, gen)
     wl = synthetic_trace(**TRACE)
     megha = run("megha", phase_megha, wl)
     plain = run("megha_plain", phase_megha_plain, wl, megha)
@@ -4274,6 +4347,21 @@ def main() -> int:
             shard_curve=shd["curve"][name]["queue_launches"]) for name in QUEUE_RULES},
         by_shape=[{k: r[k] for k in ("kernel", "caller", "shape", "ms", "plain_ms",
                                      "bound_ms")} for r in qrows],
+        library_ms=None,
+    ), dict(
+        name="tasks", route="cuda",
+        source="src/repro_torch/kernels/csrc/tasks.cu",
+        replaces="none (the per-job counts and late binding's pending ranks that XLA "
+                 "fuses in src/repro/simx/sparrow.py and eagle.py; not a TPU kernel)",
+        launches_by_path={name: dict(
+            sweep=swp["rules"][name]["queue_launches"]["task_scan"],
+            fig4=fig4["rules"][name]["queue_launches"]["task_scan"],
+            stream=strm["rules"][name]["queue_launches"]["task_scan"],
+            shard_fig2=shd["fig2"][name]["queue_launches"]["task_scan"],
+            shard_curve=shd["curve"][name]["queue_launches"]["task_scan"])
+            for name in QUEUE_RULES},
+        by_shape=[{k: r[k] for k in ("caller", "shape", "ms", "plain_ms", "bound_ms")}
+                  for r in trows],
         library_ms=None,
     )]})
     print(nvidia_smi(), flush=True)

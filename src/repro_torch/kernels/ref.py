@@ -11,7 +11,8 @@ Beside them, the reservation-queue passes of the sparrow and eagle rules
 ``jobs_with_reservation_ref`` and ``scan_rows``): the element-wise chains
 that ``repro_torch/simx/sparrow.py`` ran over the queues, moved here
 unchanged, which ``queues.py`` runs for a tensor on the CPU and its CUDA
-kernels are held against.
+kernels are held against; and ``task_scan_ref``, the rules' pass over the
+task axis (per-job counts and the pending list), behind ``tasks.py``.
 """
 
 from __future__ import annotations
@@ -166,3 +167,39 @@ def queue_head_ref(resq: torch.Tensor, ranks: torch.Tensor, num_jobs: int) -> to
     slot = torch.argmax(picked.to(torch.uint8), dim=-1, keepdim=True)
     head = torch.gather(resq, -1, slot)[..., 0]
     return torch.where(torch.any(picked, dim=-1), head, num_jobs)
+
+
+# ---------------------------------------------------------------------------
+# the task axis (``tasks.py``)
+# ---------------------------------------------------------------------------
+
+
+def task_scan_ref(
+    task_finish: torch.Tensor,
+    submit: torch.Tensor | None,
+    job: torch.Tensor,
+    t: torch.Tensor,
+    num_jobs: int,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """``(unfinished, pending, plist)`` over ``task_finish float32[*P, T]``
+    at ``t [*P]``, ``job`` and ``submit`` shared (``[T]``) or one row per
+    point: each job's tasks with ``task_finish > t`` and its tasks not yet
+    launched (``isinf``) with ``submit <= t`` (``int32[*P, J + 1]``, the
+    last slot the pad job), and each point's pending tasks in ascending
+    order, then T (``int32[*P, T]``; the kernel leaves that tail unwritten).
+    The pending list is a compaction: each pending task goes to its rank
+    among the row's pending tasks, the rest to a pad slot that is cut off.
+    With ``submit`` None only ``unfinished`` (the rest None)."""
+    lead, T = task_finish.shape[:-1], task_finish.shape[-1]
+    tt = t[..., None]
+    idx = job.to(torch.int64).expand(lead + (T,))
+    table = torch.zeros(lead + (num_jobs + 1,), dtype=torch.int32, device=task_finish.device)
+    unfinished = table.scatter_add(-1, idx, (task_finish > tt).to(torch.int32))
+    if submit is None:
+        return unfinished, None, None
+    pend = torch.isinf(task_finish) & (submit <= tt)
+    pending = table.scatter_add(-1, idx, pend.to(torch.int32))
+    rank = torch.where(pend, scan_rows(pend) - 1, T).to(torch.int64)
+    task = torch.arange(T, dtype=torch.int32, device=task_finish.device).expand(lead + (T,))
+    plist = torch.full(lead + (T + 1,), T, dtype=torch.int32, device=task_finish.device)
+    return unfinished, pending, plist.scatter(-1, rank, task)[..., :T]

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import queues
+from repro_torch.kernels import tasks as task_axis
 from repro_torch.simx import runtime as rt
 from repro_torch.simx.faults import FaultSchedule, worker_dead
 from repro_torch.simx.runtime import MatchFn, default_match_fn
@@ -53,14 +54,12 @@ from repro_torch.simx.sparrow import (
     ProbeLayout,
     build_probe_edges,
     insert_probes,
-    job_starts,
     late_bind,
     probe_attempt,
     probe_mask,
     probe_targets,
     probe_window_slice,
     queue_head_pick,
-    unfinished_jobs,
 )
 from repro_torch.simx.state import (
     EagleState,
@@ -178,8 +177,6 @@ def make_eagle_step(
                                                                 float("inf"))], -1)
     w_row = torch.arange(W, dtype=_I32, device=dev)
     j_idx = torch.arange(J, dtype=_I32, device=dev)
-    job_start = job_starts(tasks)
-    job64 = tasks.job.to(_I64)
     if layout is None:
         # central FIFO: long task ids in submit (== task id) order, + CL sentinels
         long_ids = np.nonzero(
@@ -226,8 +223,11 @@ def make_eagle_step(
             dead = worker_dead(faults, t)                         # bool[B,W]
         long_here = (worker_finish0 > tt) & rt.take(long_task, s.worker_task)   # [B,W]
 
-        # -- 0. recycle completed jobs' slots, compact the queues -----------
-        buf, fill = queues.queue_compact(s.resq, unfinished_jobs(task_finish0, tasks.job, t, J))
+        # -- 0. one pass over the tasks (per-job unfinished and pending
+        # counts, the pending list), then recycle completed jobs' slots and
+        # compact the queues
+        unfinished, pending, plist = task_axis.task_scan(task_finish0, submit, tasks.job, t, J)
+        buf, fill = queues.queue_compact(s.resq, unfinished)
 
         # -- 1. windowed probe insertion with per-edge SSS re-routing -------
         win_j, win_w, lead, ins, lagged = probe_window_slice(
@@ -252,20 +252,16 @@ def make_eagle_step(
         messages = s.messages + lead + 2 * n_rej                  # reject + resend
 
         # -- 2. sticky batch draining: completed workers keep their job -----
-        pend_task = torch.isinf(task_finish0) & (submit <= tt)
-        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
-            -1, job64.expand(B, T), pend_task.to(_I32))
         prev_job = rt.take(job_pad, s.worker_task)                # int32[B,W], J = none
         sticky_pick = torch.where(comp & (rt.take(pending, prev_job) > 0), prev_job, J)
-        launch1, task1 = late_bind(sticky_pick, pend_task, tasks.job, job_start)
+        launch1, task1 = late_bind(sticky_pick, pending, plist)
         # the worker already holds the job's spec: no extra hops
         task_finish, worker_finish, worker_task = apply_launch(
             launch1, task1, t, task_finish0, worker_finish0, s.worker_task)
 
         # -- 3. late binding: idle workers serve their queue heads ----------
-        pend_task = torch.isinf(task_finish) & (submit <= tt)
-        pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
-            -1, job64.expand(B, T), pend_task.to(_I32))
+        # (the pending counts and list again, after the sticky launches)
+        _, pending, plist = task_axis.task_scan(task_finish, submit, tasks.job, t, J)
         idle = worker_finish <= tt
         active, has_res = queues.queue_scan(resq, pending, row_mask=idle, dead=dead)
         job_pick = queue_head_pick(resq, active, match_fn, J)    # int32[B,W]
@@ -274,7 +270,7 @@ def make_eagle_step(
         orphan = short_job & (edge_end <= head[:, None]) & (pending[:, :-1] > 0) & ~has_res
         rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
         job_pick = torch.where(idle, torch.minimum(job_pick, rescue[:, None]), J)
-        launch2, task2 = late_bind(job_pick, pend_task, tasks.job, job_start)
+        launch2, task2 = late_bind(job_pick, pending, plist)
         start = t + 3 * cfg.hop  # get-task RPC round trip + launch
         task_finish, worker_finish, worker_task = apply_launch(
             launch2, task2, start, task_finish, worker_finish, worker_task)

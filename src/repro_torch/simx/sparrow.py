@@ -32,8 +32,10 @@ every scatter is deterministic on the card.
 
 The whole-queue passes of a round (compaction, the active mask with the
 jobs holding a reservation, the head at the pick) go through
-``repro_torch.kernels.queues``: one launch each on the card, the plain
-versions of ``kernels/ref.py`` on the CPU.
+``repro_torch.kernels.queues``, and the round's pass over the task axis
+(each job's unfinished and pending counts, the list of pending tasks that
+late binding reads) through ``repro_torch.kernels.tasks``: one launch each
+on the card, the plain versions of ``kernels/ref.py`` on the CPU.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels import queues, ref
+from repro_torch.kernels import queues
+from repro_torch.kernels import tasks as task_axis
 from repro_torch.simx import runtime as rt
 from repro_torch.simx import spans
 from repro_torch.simx.faults import FaultSchedule, worker_dead
@@ -90,41 +93,26 @@ def _rank_within_groups(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
 
 
 def late_bind(
-    job_pick: torch.Tensor, pend_task: torch.Tensor, job: torch.Tensor, job_start: torch.Tensor
+    job_pick: torch.Tensor, pending: torch.Tensor, plist: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Late-binding core shared by the sparrow and eagle rules: worker
     ``w`` serves job ``job_pick[w]`` (J = no claim); the k-th serving
     worker of job j (worker-index order, capped at j's pending count) gets
-    j's k-th pending task.  Tasks are contiguous per job (``job_start``
-    the first task of each job), so one cumsum over ``pend_task`` gives
-    the within-job pending ranks.  ``job_pick int32[..., W]`` and
-    ``pend_task bool[..., T]`` share their leading (point) axes; ``job``
-    and ``job_start`` are shared (``[T]``, ``[J]``) or one row per point
-    (``[B, T]``, ``[B, J]``: lane-stacked windows).  Returns ``(launch
-    bool[..., W], task int32[..., W])`` with T meaning none."""
-    T, W, J = job.shape[-1], job_pick.shape[-1], job_start.shape[-1]
-    dev = job_pick.device
-    lead = pend_task.shape[:-1]
-    job64 = job.to(_I64)
-    # src[..., idx] with a shared idx, per point with per-point rows
-    at = rt.take if job.dim() > 1 else (lambda src, idx: src[..., idx])
-    pend_i = pend_task.to(_I32)
-    pending = torch.zeros(lead + (J,), dtype=_I32, device=dev).scatter_add(
-        -1, job64.expand(lead + (T,)), pend_i)
-    c = ref.scan_rows(pend_i)
-    base = torch.where(job_start > 0, at(c, torch.clamp(job_start - 1, min=0).to(_I64)), 0)
-    prank = c - 1 - at(base, job64)                                    # int32[..., T]
-    # (job, rank) -> task: job j's r-th pending task at job_start[j] + r;
-    # tasks that are not pending write the pad slot T, cut off
-    dest = torch.where(pend_task, rt.take(job_start, job64) + prank, T).to(_I64)
-    t_row = torch.arange(T, dtype=_I32, device=dev).expand(lead + (T,))
-    slot = torch.full(lead + (T + 1,), T, dtype=_I32, device=dev).scatter(
-        -1, dest, t_row)[..., :T]
+    j's k-th pending task.  ``pending int32[..., J + 1]`` counts each job's
+    pending tasks and ``plist int32[..., T]`` lists them in ascending order
+    (``kernels.tasks.task_scan``).  Tasks are contiguous per job in job-id
+    order, so job j's pending tasks are the ``pending[j]`` entries of
+    ``plist`` after the pending tasks of the jobs before it.  The three
+    share their leading (point) axes.  Returns ``(launch bool[..., W], task
+    int32[..., W])`` with T meaning none."""
+    T, J = plist.shape[-1], pending.shape[-1] - 1
     _, rank = _rank_within_groups(job_pick)
     jp = torch.clamp(job_pick, 0, J - 1)
-    serve = (job_pick < J) & (rank < rt.take(pending, jp))
-    pos = rt.take(job_start, jp) + rank
-    task_pick = torch.where(serve, rt.take(slot, torch.clamp(pos, 0, T - 1)), T)
+    per_job = pending[..., :J]
+    before = torch.cumsum(per_job, dim=-1, dtype=_I32) - per_job      # int32[..., J]
+    serve = (job_pick < J) & (rank < rt.take(per_job, jp))
+    pos = rt.take(before, jp) + rank
+    task_pick = torch.where(serve, rt.take(plist, torch.clamp(pos, 0, T - 1)), T)
     return serve, task_pick
 
 
@@ -288,13 +276,9 @@ def unfinished_jobs(
 ) -> torch.Tensor:
     """int32[..., J + 1] — each job's tasks still unfinished at ``t``
     (launched but running included), per point; the last slot is the pad.
-    ``job`` is shared or one row per point."""
-    lead = task_finish.shape[:-1]
-    T = job.shape[-1]
-    unfinished = torch.zeros(lead + (num_jobs + 1,), dtype=_I32, device=task_finish.device)
-    return unfinished.scatter_add(
-        -1, job.to(_I64).expand(lead + (T,)),
-        (task_finish > rt.lift(t, task_finish)).to(_I32))
+    ``job`` is shared or one row per point.  The steps take it, with the
+    pending counts and list, from their one ``task_scan`` a round."""
+    return task_axis.task_scan(task_finish, None, job, t, num_jobs)[0]
 
 
 def compact_queues(
@@ -346,13 +330,6 @@ def probe_attempt(
     att_j = torch.zeros((B, J + 1), dtype=torch.bool, device=orphan.device).scatter(
         -1, torch.where(ins, win_j, J).to(_I64), True)[:, :J] | orphan
     return att_j[:, job.to(_I64)]
-
-
-def job_starts(tasks: TaskArrays) -> torch.Tensor:
-    """int32[J] — each job's first task (tasks are exported contiguously
-    per job); ``[L, J]`` for lane-stacked windows."""
-    csum = torch.cumsum(tasks.job_ntasks, dim=-1, dtype=_I32)
-    return torch.cat([csum.new_zeros(csum.shape[:-1] + (1,)), csum[..., :-1]], dim=-1)
 
 
 @dataclass(frozen=True)
@@ -431,20 +408,19 @@ def make_sparrow_step(
                                                                 float("inf"))], -1)
     j_idx = torch.arange(J, dtype=_I32, device=dev)
     dur_pad = rt.pad_last(tasks.duration, 0.0)
-    job_start = job_starts(tasks)
-    job64 = tasks.job.to(_I64)
 
     def dispatch(s, t, task_finish0, worker_finish0, idle, comp, lost_w):
         # completions are implicit (a worker is idle iff worker_finish <=
         # t) and task_finish was recorded at launch; a crash-lost task
         # simply re-pends, so ``lost_w`` goes unused
         del comp, lost_w
-        B = t.shape[0]
 
         with spans.span("sparrow.compact"):
-            # -- 0. recycle completed jobs' slots, compact the queues -------
-            buf, fill = queues.queue_compact(
-                s.resq, unfinished_jobs(task_finish0, tasks.job, t, J))
+            # -- 0. one pass over the tasks: per-job unfinished and pending
+            # counts, the pending list; then recycle completed jobs' slots
+            # and compact the queues
+            unfinished, pending, plist = task_axis.task_scan(task_finish0, submit, tasks.job, t, J)
+            buf, fill = queues.queue_compact(s.resq, unfinished)
 
         with spans.span("sparrow.insert"):
             # -- 1. windowed probe insertion (edge list is in arrival order)
@@ -458,9 +434,6 @@ def make_sparrow_step(
 
         with spans.span("sparrow.bind"):
             # -- 2. late binding: idle workers serve their queue heads ------
-            pend_task = torch.isinf(task_finish0) & (submit <= t[:, None])     # bool[B,T]
-            pending = torch.zeros((B, J + 1), dtype=_I32, device=dev).scatter_add(
-                -1, job64.expand(B, T), pend_task.to(_I32))
             # orphan rescue: an inserted pending job with no live reservation
             # anywhere (all probes dropped on full queues, or, under faults,
             # every probed worker currently dead) may be served by any idle
@@ -471,8 +444,7 @@ def make_sparrow_step(
             orphan = (edge_end <= head[:, None]) & (pending[:, :-1] > 0) & ~has_res
             rescue = torch.amin(torch.where(orphan, j_idx, J), dim=-1)
             job_pick = torch.minimum(job_pick, rescue[:, None])
-            launch, task_pick = late_bind(
-                torch.where(idle, job_pick, J), pend_task, tasks.job, job_start)
+            launch, task_pick = late_bind(torch.where(idle, job_pick, J), pending, plist)
             # client->scheduler hop + worker->scheduler get-task RPC round trip
             task_finish, worker_finish, worker_task = rt.apply_launch(
                 launch, task_pick, t + 3 * cfg.hop, dur_pad,

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import match, queues, ref
+from repro_torch.kernels import tasks as task_axis
 from repro_torch.serve.engine import MeghaServeEngine, Request
 from repro_torch.simx import (
     COMPONENTS,
@@ -136,10 +137,14 @@ def test_queue_rule_card_run_is_bitwise_plain_and_cpu(name, trace):
                              seed=1)
         W, kw = 1024, dict(dt=0.02)
     before, q_before = match.match_ranks_batched.launches, _counts()
+    t_before = task_axis.task_scan.launches
     card = simulate_workload(name, wl, W, device="cuda", **kw)
     launches = match.match_ranks_batched.launches - before
-    # the queue passes: one launch of each kernel a round
+    # the queue passes: one launch of each kernel a round; the task-axis
+    # pass once a round for sparrow, twice for eagle
     assert [a - b for a, b in zip(_counts(), q_before)] == [int(card.state.rnd)] * 3
+    assert (task_axis.task_scan.launches - t_before
+            == TASK_SCANS_PER_ROUND[name] * int(card.state.rnd))
     plain = simulate_workload(name, wl, W, device="cuda", use_kernel=False, **kw)
     assert match.match_ranks_batched.launches == before + launches
     cpu = simulate_workload(name, wl, W, device="cpu", **kw)
@@ -247,8 +252,119 @@ def test_queue_kernels_refuse_rows_past_256_slots():
     assert _counts() == before
 
 
+# ---------------------------------------------------------------------------
+# the task-axis pass (``kernels.tasks``, ``csrc/tasks.cu``)
+# ---------------------------------------------------------------------------
+
+#: task_scan launches a round: sparrow's one pass, eagle's two (before and
+#: after its sticky launches)
+TASK_SCANS_PER_ROUND = {"sparrow": 1, "eagle": 2}
+
+_TASK_TILE = task_axis.TILE_TASKS
+#: the wrapper, kept here so its counter stays readable while a test
+#: replaces it in the module
+_TASK_SCAN = task_axis.task_scan
+#: (points, tasks, jobs, job layout): the Sparrow cell's [48, 480000] of 480
+#: jobs of 1,000 and its 16-point [16, 480000]; the 4-lane stream curve's
+#: [4, 196608] lane-stacked windows; one unbatched row; rows at a tile's
+#: edges and ragged rows (scalar loads where a row is not 16-byte aligned);
+#: many small jobs (some empty); jobs in no order
+TASK_SHAPES = [((48,), 480_000, 480, "even"), ((16,), 480_000, 480, "even"),
+               ((4,), 196_608, 192, "lanes"), ((), 10_000, 10, "even"),
+               ((3,), _TASK_TILE - 1, 3, "even"), ((3,), _TASK_TILE, 5, "even"),
+               ((3,), _TASK_TILE + 1, 4, "small"), ((2,), 8194, 4, "even"),
+               ((2,), 30_000, 7_000, "small"), ((2,), 50_000, 300, "unsorted")]
+TASK_MODES = ["mixed", "all_pending", "none_pending", "unfinished_only"]
+
+
+def _task_job_rows(lead, T, J, layout, gen):
+    """int32 job ids: ``even`` T // J tasks a job in job order, the rest the
+    pad job J; ``small`` sorted random ids (jobs of any size, some empty);
+    ``unsorted`` random ids; ``lanes`` one sorted row per point, its last
+    tenth the pad job."""
+    if layout == "even":
+        k = T // J
+        return torch.cat([torch.arange(J).repeat_interleave(k),
+                          torch.full((T - J * k,), J)]).to(torch.int32)
+    if layout == "lanes":
+        rows = torch.sort(torch.randint(0, J, tuple(lead) + (T,), generator=gen), -1).values
+        rows[..., T - T // 10:] = J
+        return rows.to(torch.int32)
+    ids = torch.randint(0, J, (T,), generator=gen, dtype=torch.int32)
+    return torch.sort(ids).values if layout == "small" else ids
+
+
+def _task_case(lead, T, J, layout, mode, gen):
+    """A round's task axis on the card: finish times finished, running or
+    unlaunched (inf), submits per point (a tenth equal to t), t per point."""
+    shape = tuple(lead) + (T,)
+    t = (1.0 + 3.0 * torch.rand(tuple(lead), generator=gen)).float()
+    fin = 5.0 * torch.rand(shape, generator=gen)
+    fin = torch.where(torch.rand(shape, generator=gen) < 0.1, t[..., None], fin)
+    sub = 5.0 * torch.rand(shape, generator=gen)
+    sub = torch.where(torch.rand(shape, generator=gen) < 0.1, t[..., None], sub)
+    unlaunched = torch.rand(shape, generator=gen) < 0.45
+    if mode == "all_pending":
+        unlaunched, sub = torch.ones_like(unlaunched), torch.zeros_like(sub)
+    elif mode == "none_pending":
+        unlaunched = torch.zeros_like(unlaunched)
+    fin = torch.where(unlaunched, float("inf"), fin).float()
+    job = _task_job_rows(lead, T, J, layout, gen)
+    return fin.cuda(), sub.float().cuda(), job.cuda(), t.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", TASK_MODES)
+@pytest.mark.parametrize("lead,T,J,layout", TASK_SHAPES)
+def test_task_scan_is_bitwise_its_plain_version(lead, T, J, layout, mode):
+    """The kernel against its plain version on the same card tensors: both
+    counts, and each row's pending list up to the row's pending total (the
+    kernel leaves the rest unwritten); one launch a call."""
+    _need_card()
+    gen = torch.Generator().manual_seed(T * 3 + J + TASK_MODES.index(mode))
+    fin, sub, job, t = _task_case(lead, T, J, layout, mode, gen)
+    sub = None if mode == "unfinished_only" else sub
+    before = task_axis.task_scan.launches
+    got = task_axis.task_scan(fin, sub, job, t, J)
+    want = ref.task_scan_ref(fin, sub, job, t, J)
+    torch.cuda.synchronize()
+    assert task_axis.task_scan.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    if sub is None:
+        assert got[1:] == (None, None)
+        return
+    assert torch.equal(got[1], want[1])
+    total = want[1].sum(-1, dtype=torch.int32)
+    listed = torch.arange(T, device="cuda") < total[..., None]
+    assert torch.equal(torch.where(listed, got[2], T), want[2])
+    if mode == "all_pending":
+        assert bool((total == T).all())
+    if mode == "mixed":
+        assert bool((total > 0).all()) and bool((total < T).all())
+
+
+@pytest.mark.gpu
+def test_task_scan_shares_the_look_back_scratch_with_the_match():
+    """The list's look-back words are the match kernels' scratch on the
+    stream (epoch-tagged): launches of both in turn stay bitwise."""
+    _need_card()
+    gen = torch.Generator().manual_seed(5)
+    fin, sub, job, t = _task_case((8,), 50_000, 50, "even", "mixed", gen)
+    avail = (torch.rand((8, 49_984), generator=gen) < 0.4).cuda()
+    n = torch.full((8,), 10_000, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        got = task_axis.task_scan(fin, sub, job, t, 50)
+        ranks = match.match_ranks_batched(avail, n)
+        want = ref.task_scan_ref(fin, sub, job, t, 50)
+        total = want[1].sum(-1, dtype=torch.int32)
+        listed = torch.arange(50_000, device="cuda") < total[..., None]
+        assert torch.equal(torch.where(listed, got[2], 50_000), want[2])
+        assert torch.equal(ranks, ref.match_ranks_batched_ref(avail, n))
+
+
 def _plain_queue_passes(monkeypatch):
-    """The three wrappers replaced by their plain versions, on any device."""
+    """The three queue wrappers and the task-axis pass replaced by their
+    plain versions, on any device."""
     def compact(resq, unfinished):
         out, fill = ref.queue_compact_ref(resq, unfinished)
         buf = torch.empty(resq.numel() + 1, dtype=torch.int32, device=resq.device)
@@ -259,14 +375,16 @@ def _plain_queue_passes(monkeypatch):
     monkeypatch.setattr(queues, "queue_compact", compact)
     monkeypatch.setattr(queues, "queue_scan", ref.queue_scan_ref)
     monkeypatch.setattr(queues, "queue_head", ref.queue_head_ref)
+    monkeypatch.setattr(task_axis, "task_scan", ref.task_scan_ref)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["sparrow", "eagle"])
 def test_queue_grid_on_the_card_is_bitwise_the_plain_queue_passes(name, monkeypatch):
-    """A whole grid of B = 2 points through the queue kernels equals the
-    same grid with the plain queue passes on the card, final states
-    bitwise; each kernel launches once a round."""
+    """A whole grid of B = 2 points through the queue kernels and the
+    task-axis pass equals the same grid with their plain versions on the
+    card, final states bitwise; each queue kernel launches once a round,
+    the task-axis pass once (sparrow) or twice (eagle)."""
     _need_card()
     kw = {k: v for k, v in SMALL_GRID.items() if k != "loads"}
     tasks, sub, jsub = sweep.make_load_grid((0.8,), device="cuda", **kw)
@@ -278,14 +396,17 @@ def test_queue_grid_on_the_card_is_bitwise_the_plain_queue_passes(name, monkeypa
         torch.cuda.synchronize()
         return state
 
-    before = _counts()
+    before, t_before = _counts(), _TASK_SCAN.launches
     card = grid()
     launched = [a - b for a, b in zip(_counts(), before)]
+    scans = _TASK_SCAN.launches - t_before
     assert card.t.shape == (2,)
     assert launched == [GRID_ROUNDS] * 3
+    assert scans == TASK_SCANS_PER_ROUND[name] * GRID_ROUNDS
     _plain_queue_passes(monkeypatch)
     plain = grid()
     assert [a - b for a, b in zip(_counts(), before)] == launched
+    assert _TASK_SCAN.launches - t_before == scans
     want = convert.state_to_numpy(plain)
     got = convert.state_to_numpy(card)
     for k in want:

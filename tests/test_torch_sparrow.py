@@ -28,6 +28,7 @@ from repro.simx import simulate_workload as jax_simulate_workload
 from repro.simx import sparrow as jax_sparrow
 from repro.simx import state as jax_state
 from repro.workload import synth as jax_synth
+from repro_torch.kernels.tasks import task_scan
 from repro_torch.sim.simulator import run_simulation
 from repro_torch.simx import (
     SimxConfig,
@@ -220,11 +221,25 @@ def _helper_args(name, rng):
     raise KeyError(name)
 
 
+def _pending_of(pend, job, num_jobs):
+    """``(pending, plist)`` of the pending mask ``pend`` (the port's
+    ``late_bind`` reads these, the reference's the mask): the task scan
+    with every pending task unlaunched and submitted at t = 0, every other
+    one finished."""
+    fin = torch.where(pend, math.inf, 0.0)
+    zero = torch.zeros(pend.shape[:-1])
+    _, pending, plist = task_scan(fin, torch.zeros_like(fin), job, zero, num_jobs)
+    return pending, plist
+
+
 def _call(mod, name, args, torch_side: bool):
     conv = (lambda a: _t(a) if isinstance(a, (np.ndarray, np.generic)) else a) if torch_side \
         else (lambda a: jnp.asarray(a) if isinstance(a, (np.ndarray, np.generic)) else a)
     args = [conv(a) for a in args]
-    if name == "queue_head_pick":
+    if name == "late_bind" and torch_side:
+        pick, pend, job, job_start = args
+        out = mod.late_bind(pick, *_pending_of(pend, job, job_start.shape[-1]))
+    elif name == "queue_head_pick":
         resq, active, J = args
         fn = rt.default_match_fn() if torch_side else jax_rt.default_match_fn()
         out = mod.queue_head_pick(resq, active, fn, J)
