@@ -63,8 +63,10 @@ from repro_torch.simx.sparrow import (
 )
 from repro_torch.simx.state import (
     EagleState,
+    FifoRows,
     SimxConfig,
     TaskArrays,
+    fifo_rows,
     init_eagle_state,
     probe_edge_layout,
     spec,
@@ -83,12 +85,13 @@ def eagle_probe_mask(targets: torch.Tensor, cfg: SimxConfig, tasks: TaskArrays) 
 
 @dataclass(frozen=True)
 class EagleLayout:
-    """The streaming window's layout (the reference's ``EagleLayout``):
+    """Eagle's layout (the reference's ``EagleLayout``), built by
+    ``eagle_layout`` for a fixed trace and for the streaming window alike:
     the short-path probe edges (a ``ProbeLayout``; long jobs get no edges),
-    the per-job SSS re-route rotations (sampled on the host per *global*
-    job id at admission, so carried jobs keep them across refills) and the
-    central long FIFO.  ``long_fifo`` lists the window's long task ids in
-    submit order padded with the window sentinel ``T``; ``n_long`` (a
+    the per-job SSS re-route rotations (the stream samples them per
+    *global* job id at admission, so carried jobs keep them across
+    refills) and the central long FIFO.  ``long_fifo`` lists the long task
+    ids in submit order padded with the sentinel ``T``; ``n_long`` (a
     tensor: it changes at every refill) clamps the central head;
     ``long_window`` is the static central match window CL the FIFO was
     padded for."""
@@ -96,9 +99,24 @@ class EagleLayout:
     probes: ProbeLayout
     off1: torch.Tensor = spec("int32[J]")
     off2: torch.Tensor = spec("int32[J]")
-    long_fifo: torch.Tensor = spec("int32[?]")  # T_cap + long_window ids
+    long_fifo: torch.Tensor = spec("int32[?]")  # capacity + long_window ids
     n_long: torch.Tensor = spec("int32[]")
     long_window: int = 1
+
+
+def eagle_layout(cfg: SimxConfig, probes: ProbeLayout, off1: torch.Tensor, off2: torch.Tensor,
+                 task_long: np.ndarray, device,
+                 capacity: int | None = None) -> tuple[EagleLayout, FifoRows]:
+    """Eagle's layout of a task set: the probe edges and rotations as
+    given, and the central FIFO of the long tasks (``task_long`` bool[T]; T
+    the sentinel) built here, with its host row.  It holds ``capacity``
+    tasks (the stream's task slots; None: the long-task count) plus the
+    window CL = min(max(capacity, 1), max(W - R, 64))."""
+    cap = int(np.count_nonzero(task_long)) if capacity is None else capacity
+    CL = min(max(cap, 1), max(cfg.num_workers - cfg.short_reserved, 64))
+    fifo = fifo_rows(np.where(task_long, 0, -1), 1, cap + CL, task_long.size)
+    return EagleLayout(probes, off1, off2, torch.from_numpy(fifo.rows[0]).to(device),
+                       torch.tensor(int(fifo.lens[0]), dtype=_I32, device=device), CL), fifo
 
 
 def make_eagle_step(
@@ -140,9 +158,9 @@ def make_eagle_step(
     for short jobs, entity ``num_gms`` for the central scheduler).
 
     ``layout`` (an ``EagleLayout``, the streaming window's) replaces the
-    draws (pass None) and the central FIFO derived from ``tasks``; SSS and
-    the central match are then always built in, and the central head is
-    clamped by the layout's ``n_long``.  It does not compose with a fault
+    draws (pass None); without one the step builds the fixed trace's with
+    ``eagle_layout`` from the draws.  With a given layout SSS and the
+    central match are always built in; it does not compose with a fault
     schedule.  Lane-stacked windows (every ``tasks`` field and layout
     tensor ``[L, ...]``) step L = B lanes."""
     if match_fn is None:
@@ -150,22 +168,34 @@ def make_eagle_step(
     dev = tasks.device
     W, T, J = cfg.num_workers, tasks.num_tasks, tasks.num_jobs
     R = cfg.short_reserved
-    if layout is None:
-        edge_job, edge_worker, edge_end, _, C = build_probe_edges(
-            draws["targets"], cfg, tasks, short_only=True)
-        off1 = draws["off1"].to(device=dev, dtype=_I32)
-        off2 = draws["off2"].to(device=dev, dtype=_I32)
-    else:
-        if faults is not None:
-            raise NotImplementedError(
-                "streaming layout does not compose with fault schedules"
-            )
-        pl = layout.probes
-        edge_job, edge_worker, edge_end = (
-            pl.edge_job.to(dev), pl.edge_worker.to(dev), pl.edge_end.to(dev))
-        C = pl.window
-        off1 = layout.off1.to(device=dev, dtype=_I32)
-        off2 = layout.off2.to(device=dev, dtype=_I32)
+    if layout is not None and faults is not None:
+        raise NotImplementedError(
+            "streaming layout does not compose with fault schedules"
+        )
+    # a refill may bring long jobs into any window: with a given layout
+    # both long-path stages stay built in, clamped by the window's count
+    use_central = True
+    if not layout:
+        # a fixed trace: the draws' probe edges and rotations
+        *edges, _, C = build_probe_edges(draws["targets"], cfg, tasks, short_only=True)
+        task_long = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
+                     >= cfg.long_threshold)
+        layout, fifo = eagle_layout(cfg, ProbeLayout(*edges, C), draws["off1"], draws["off2"],
+                                    task_long, dev)
+        # structural, as in the reference: a trace with no long job has no
+        # central queue, and no SSS rejections unless dead workers bounce
+        # probes, so those stages are left out
+        use_central = bool(fifo.lens[0])
+    use_sss = use_central or faults is not None
+    pl = layout.probes
+    edge_job, edge_worker, edge_end = (
+        pl.edge_job.to(dev), pl.edge_worker.to(dev), pl.edge_end.to(dev))
+    C = pl.window
+    off1 = layout.off1.to(device=dev, dtype=_I32)
+    off2 = layout.off2.to(device=dev, dtype=_I32)
+    long_fifo = layout.long_fifo.to(dev)
+    CL = layout.long_window
+    NL = layout.n_long.to(dev)
     short_job = tasks.job_est < cfg.long_threshold              # bool[J] ([L, J] in lanes)
     long_task = rt.pad_last(~rt.take(short_job, tasks.job), False)   # bool[T+1]
     job_pad = rt.pad_last(tasks.job, J)
@@ -177,33 +207,13 @@ def make_eagle_step(
                                                                 float("inf"))], -1)
     w_row = torch.arange(W, dtype=_I32, device=dev)
     j_idx = torch.arange(J, dtype=_I32, device=dev)
-    if layout is None:
-        # central FIFO: long task ids in submit (== task id) order, + CL sentinels
-        long_ids = np.nonzero(
-            tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()] >= cfg.long_threshold)[0]
-        NL = int(long_ids.size)
-        CL = min(max(NL, 1), max(W - R, 64))
-        long_fifo = torch.from_numpy(
-            np.concatenate([long_ids, np.full(CL, T)]).astype(np.int32)).to(dev)
-        # structural, as in the reference: a trace with no long job has no
-        # central queue, and no SSS rejections unless dead workers bounce
-        # probes, so those stages are left out
-        use_sss = bool(NL) or faults is not None
-        use_central = bool(NL)
-    else:
-        long_fifo = layout.long_fifo.to(dev)
-        CL = layout.long_window
-        # a refill may bring long jobs into any window: both long-path
-        # stages stay built in, clamped by the window's real count
-        use_sss = use_central = True
-        NL = layout.n_long.to(dev)
     long_partition = w_row >= R
     if faults is not None:
         # task -> central-FIFO position for crash-loss head rollback
         # (short tasks and the T pad map to NL: the min below ignores them)
-        long_pos_np = np.full(T + 1, NL, np.int32)
-        long_pos_np[long_ids] = np.arange(NL, dtype=np.int32)
-        long_pos = torch.from_numpy(long_pos_np).to(dev)
+        n_long = int(fifo.lens[0])
+        long_pos = torch.from_numpy(np.append(
+            np.where(task_long, fifo.pos, n_long), n_long).astype(np.int32)).to(dev)
 
     def apply_launch(launch, task_pick, start, task_finish, worker_finish, worker_task):
         return rt.apply_launch(launch, task_pick, start, dur_pad,
@@ -217,7 +227,7 @@ def make_eagle_step(
         dead = None
         if faults is not None:
             # lost long tasks re-enter the central FIFO: roll the head back
-            if NL:
+            if use_central:
                 lt0 = torch.where(lost_w, s.worker_task, T).to(_I64)
                 long_head = torch.minimum(long_head, torch.amin(long_pos[lt0], dim=-1))
             dead = worker_dead(faults, t)                         # bool[B,W]
@@ -356,8 +366,22 @@ def _build_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[EagleLayout] = None,
 ) -> Callable[[EagleState], EagleState]:
-    return make_eagle_step(cfg, tasks, draws, match_fn, faults, telemetry, provenance)
+    return make_eagle_step(cfg, tasks, draws, match_fn, faults, telemetry, provenance, layout)
+
+
+def _stream_layout(cfg: SimxConfig, win) -> tuple[EagleLayout, dict]:
+    """The window's layout: the probe edges and rotations each job drew at
+    admission, and the central FIFO of its long jobs' tasks."""
+    n = len(win.jobs)
+    offs = np.zeros((2, win.J_cap), np.int32)
+    offs[0, :n] = [wj.off1 for wj in win.jobs]
+    offs[1, :n] = [wj.off2 for wj in win.jobs]
+    off1, off2 = torch.from_numpy(offs).to(win.device)
+    long = win.per_task(np.array([wj.est >= cfg.long_threshold for wj in win.jobs], bool), False)
+    layout, fifo = eagle_layout(cfg, win.probe_layout(), off1, off2, long, win.device, win.T_cap)
+    return layout, {"long_head": fifo}
 
 
 RULE = rt.register_rule(
@@ -368,5 +392,6 @@ RULE = rt.register_rule(
         has_queues=True,
         draw=draw,
         draw_dims={"targets": 2, "off1": 1, "off2": 1},
+        stream_layout=_stream_layout,
     )
 )

@@ -32,9 +32,10 @@ Python ``if`` on a device scalar, one host sync per round.  The step runs
 a batch of grid points at once (see ``make_megha_step``); a single run is
 a batch of one.
 
-Under the streaming engine (``repro_torch.simx.stream``) the per-GM FIFO
-layout of the window is an argument (``MeghaLayout``) rather than derived
-from the trace when the step is built.
+The step reads its per-GM FIFOs from a ``MeghaLayout``, which
+``megha_layout`` builds for a fixed trace when the step is built and for
+the streaming engine's window (``repro_torch.simx.stream``) at every
+refill, which passes it in.
 """
 
 from __future__ import annotations
@@ -55,9 +56,11 @@ from repro_torch.simx.faults import (
 )
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import (
+    FifoRows,
     MeghaState,
     SimxConfig,
     TaskArrays,
+    fifo_rows,
     init_megha_state,
     spec,
 )
@@ -86,16 +89,37 @@ def gm_orders(generator: torch.Generator, cfg: SimxConfig) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class MeghaLayout:
-    """The streaming window's per-GM task layout (the reference's
-    ``MeghaLayout``).  ``gm_tasks`` rows list each GM's window-task ids in
-    submit order (GM = global job id % G, so a carried job keeps its GM
-    across refills), padded with the window sentinel ``T``; ``gm_len``
-    holds the real row lengths for the head clamp.  ``window`` is the
-    static match window C the rows were padded for."""
+    """Megha's per-GM task layout (the reference's ``MeghaLayout``), built
+    by ``megha_layout`` for a fixed trace and for the streaming window
+    alike.  ``gm_tasks`` rows list each GM's task ids in submit order (GM =
+    job id % G; the stream's global job id, so a carried job keeps its GM
+    across refills), padded with the sentinel ``T``; ``gm_len`` clamps
+    each row's head.  ``window`` is the static match window C the rows
+    were padded for."""
 
-    gm_tasks: torch.Tensor = spec("int32[G, ?]")  # rows: T_cap + window
+    gm_tasks: torch.Tensor = spec("int32[G, ?]")  # rows: capacity + window
     gm_len: torch.Tensor = spec("int32[G]")
     window: int = 1
+
+
+def megha_layout(cfg: SimxConfig, task_job: np.ndarray, device,
+                 capacity: int | None = None) -> tuple[MeghaLayout, FifoRows]:
+    """The per-GM FIFOs of a task set (``task_job`` int[T]: each task's job
+    id, -1 for none; T the sentinel) and their host rows.  Rows hold
+    ``capacity`` tasks plus the window C = min(max(W / G, 64), capacity).
+    The stream passes its task slots, and ``gm_len`` holds the real row
+    lengths; a fixed trace passes None, and the longest row is both the
+    capacity and every row's ``gm_len``: the reference's head clamp, which
+    runs a shorter row's head on through its sentinel pads."""
+    G = cfg.num_gms
+    task_gm = np.where(task_job >= 0, task_job % G, -1)
+    cap = (max(1, int(np.bincount(task_gm[task_gm >= 0], minlength=G).max()))
+           if capacity is None else capacity)
+    C = min(max(cfg.num_workers // G, 64), cap)
+    fifo = fifo_rows(task_gm, G, cap + C, task_job.size)
+    gm_len = np.full(G, cap, np.int32) if capacity is None else fifo.lens
+    return MeghaLayout(torch.from_numpy(fifo.rows).to(device),
+                       torch.from_numpy(gm_len).to(device), C), fifo
 
 
 def make_megha_step(
@@ -155,10 +179,10 @@ def make_megha_step(
     each reaches only the points that needed the pass, through the same
     select as the state.
 
-    ``layout`` (a ``MeghaLayout``, the streaming window's) replaces the
-    per-GM layout derived from ``tasks``: its rows, window and row lengths
-    (the head clamp) come in as tensors, and nothing of the trace is read
-    to the host.  It does not compose with a fault schedule.  Lane-stacked
+    ``layout`` (a ``MeghaLayout``, the streaming window's) is the per-GM
+    layout the step reads; without one the step builds the fixed trace's
+    with ``megha_layout``.  A given layout reads nothing of the trace to
+    the host, and does not compose with a fault schedule.  Lane-stacked
     windows (``tasks`` with every field ``[L, ...]``, a layout of ``[L,
     ...]`` tensors; the sharded steady state's) step L = B lanes, one
     window each."""
@@ -189,33 +213,22 @@ def make_megha_step(
     inv_int = torch.argsort(int_ord.reshape(-1, G * wi), dim=-1)  # [Bo, W] -> (g, i)
     lm_int = (int_ord // wpl).to(torch.int32)          # int32[Bo, G, wi]
 
-    if layout is None:
-        # compact per-GM task partition (jobs round-robin over GMs)
-        task_gm = tasks.job.cpu().numpy() % G
-        tg = max(1, int(np.max(np.bincount(task_gm, minlength=G))))
-        C = min(max(W // G, 64), tg)
-        # pad with C sentinels so the head window never leaves the row
-        gm_tasks_np = np.full((G, tg + C), T, np.int32)
-        task_pos_np = np.zeros(T + 1, np.int32)        # task -> window position
-        for g in range(G):
-            mine = np.nonzero(task_gm == g)[0]
-            gm_tasks_np[g, : mine.size] = mine
-            task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
-        gm_tasks = torch.from_numpy(gm_tasks_np).to(dev)[None]   # int32[1, G, Tg+C]
-        gm_len = tg
-    else:
-        # int32[1, G, T_cap+C], or [L, G, T_cap+C] for lane-stacked windows
-        gm_tasks = layout.gm_tasks.to(dev)
-        if gm_tasks.dim() == 2:
-            gm_tasks = gm_tasks[None]
-        C = layout.window
-        gm_len = layout.gm_len.to(dev)                 # int32[G] or [L, G]
+    if not layout:
+        # a fixed trace: jobs round-robin over the GMs
+        task_job = tasks.job.cpu().numpy()
+        layout, fifo = megha_layout(cfg, task_job, dev)
+    # int32[1, G, Tg+C], or [L, G, T_cap+C] for lane-stacked windows
+    gm_tasks = layout.gm_tasks.to(dev)
+    if gm_tasks.dim() == 2:
+        gm_tasks = gm_tasks[None]
+    C = layout.window
+    gm_len = layout.gm_len.to(dev)                     # int32[G] or [L, G]
     if faults is not None:
         # task -> (gm row, FIFO position) for crash-loss head rollback;
         # the T pad routes to the pad row G, which is cut off
         task_gm_pad = torch.from_numpy(
-            np.append(task_gm, G).astype(np.int64)).to(dev)
-        task_pos_pad = torch.from_numpy(task_pos_np).to(dev)
+            np.append(task_job % G, G).astype(np.int64)).to(dev)
+        task_pos_pad = torch.from_numpy(np.append(fifo.pos, np.int32(0))).to(dev)
     # task submit times in the padded compact layout (sentinel -> inf),
     # one row per point of a grid (Bt = 1 when the arrivals are shared)
     submit = tasks.submit.reshape(-1, T)                      # [Bt, T]
@@ -478,8 +491,17 @@ def _build_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[MeghaLayout] = None,
 ) -> Callable[[MeghaState], MeghaState]:
-    return make_megha_step(cfg, tasks, draws["orders"], match_fn, faults, telemetry, provenance)
+    return make_megha_step(cfg, tasks, draws["orders"], match_fn, faults, telemetry, provenance,
+                           layout)
+
+
+def _stream_layout(cfg: SimxConfig, win) -> tuple[MeghaLayout, dict]:
+    """The window's per-GM FIFOs, by the global job id of each task."""
+    gid = win.per_task(np.array([wj.gid for wj in win.jobs], np.int64), -1)
+    layout, fifo = megha_layout(cfg, gid, win.device, capacity=win.T_cap)
+    return layout, {"head": fifo}
 
 
 RULE = rt.register_rule(
@@ -491,5 +513,6 @@ RULE = rt.register_rule(
         needs_grid=True,
         draw=lambda cfg, tasks, generator: {"orders": gm_orders(generator, cfg)},
         draw_dims={"orders": 2},
+        stream_layout=_stream_layout,
     )
 )

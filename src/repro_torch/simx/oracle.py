@@ -19,12 +19,19 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.simx import runtime as rt
 from repro_torch.simx.faults import FaultSchedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
-from repro_torch.simx.state import OracleState, SimxConfig, TaskArrays, init_oracle_state
+from repro_torch.simx.state import (
+    OracleState,
+    SimxConfig,
+    TaskArrays,
+    fifo_rows,
+    init_oracle_state,
+)
 
 
 def make_oracle_step(
@@ -130,9 +137,16 @@ def _build_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: None = None,
 ) -> Callable:
-    del draws  # draws nothing
+    del draws, layout  # draws nothing; the window is its layout
     return make_oracle_step(cfg, tasks, match_fn, faults, telemetry, provenance)
+
+
+def _stream_layout(cfg: SimxConfig, win) -> tuple[None, dict]:
+    """No layout: the oracle's FIFO is the window's real tasks in order."""
+    real = np.where(np.arange(win.T_cap) < win.T_real, 0, -1)
+    return None, {"head": fifo_rows(real, 1, win.T_cap, win.T_cap)}
 
 
 RULE = rt.register_rule(
@@ -141,5 +155,6 @@ RULE = rt.register_rule(
         init=lambda cfg, tasks, batch=None: init_oracle_state(
             cfg, tasks.num_tasks, tasks.device, batch),
         build_step=_build_step,
+        stream_layout=_stream_layout,
     )
 )

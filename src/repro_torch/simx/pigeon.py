@@ -27,10 +27,11 @@ groups have idle workers (the pathology Megha fixes).  Pigeon draws no
 random numbers, so the port's runs are bitwise the reference's.  Both
 matches of a round (unreserved and reserved workers) go through the
 rank-and-select primitive over ``[B * NG, S]`` rows: at the paper's 50,000
-workers, 1,250 groups of 40.  Under the streaming engine
-(``repro_torch.simx.stream``) the per-group class FIFOs of the window are
-an argument (``PigeonLayout``), built on the host from the persistent
-distributor counters, rather than derived from the trace.
+workers, 1,250 groups of 40.  The step reads its per-group class FIFOs
+from a ``PigeonLayout``, which ``pigeon_layout`` builds for a fixed trace
+when the step is built and for the streaming engine's window
+(``repro_torch.simx.stream``, from its persistent distributor counters)
+at every refill, which passes it in.
 """
 
 from __future__ import annotations
@@ -45,9 +46,11 @@ from repro_torch.simx import runtime as rt
 from repro_torch.simx.faults import FaultSchedule
 from repro_torch.simx.runtime import MatchFn, default_match_fn
 from repro_torch.simx.state import (
+    FifoRows,
     PigeonState,
     SimxConfig,
     TaskArrays,
+    fifo_rows,
     init_pigeon_state,
     spec,
 )
@@ -73,18 +76,50 @@ def task_groups(cfg: SimxConfig, tasks: TaskArrays) -> np.ndarray:
 
 @dataclass(frozen=True)
 class PigeonLayout:
-    """The streaming window's per-group FIFOs (the reference's
-    ``PigeonLayout``).  Rows list each group's window-task ids per priority
-    class in submit order (the group of a task comes from the persistent
-    distributor round-robin counters, so a refill never re-distributes a
-    task), padded with the window sentinel ``T`` and by the window C =
-    max(S, 1); ``len_high`` / ``len_low`` hold the real row lengths for the
-    head clamps (tensors: they change at every refill)."""
+    """Pigeon's per-group FIFOs (the reference's ``PigeonLayout``), built by
+    ``pigeon_layout`` for a fixed trace and for the streaming window alike.
+    Rows list each group's task ids per priority class in submit order
+    (the group of a task comes from the distributors' round-robin, whose
+    counters the stream keeps across refills, so a refill never
+    re-distributes a task), padded with the sentinel ``T`` and by the
+    window C = max(S, 1); ``len_high`` / ``len_low`` clamp the heads."""
 
-    high_fifo: torch.Tensor = spec("int32[NG, ?]")  # rows: L_cap + C
+    high_fifo: torch.Tensor = spec("int32[NG, ?]")  # rows: capacity + C
     low_fifo: torch.Tensor = spec("int32[NG, ?]")
     len_high: torch.Tensor = spec("int32[NG]")
     len_low: torch.Tensor = spec("int32[NG]")
+
+
+def _group_sizes(cfg: SimxConfig) -> np.ndarray:
+    """int64[NG]: contiguous worker ranges, the last group absorbing the
+    remainder."""
+    sizes = np.full(cfg.num_groups, cfg.group_size, np.int64)
+    sizes[-1] = cfg.num_workers - (cfg.num_groups - 1) * cfg.group_size
+    return sizes
+
+
+def pigeon_layout(cfg: SimxConfig, task_group: np.ndarray, high: np.ndarray, device,
+                  capacity: int | None = None) -> tuple[PigeonLayout, tuple[FifoRows, ...]]:
+    """The per-group class FIFOs of a task set (``task_group`` int[T]: each
+    task's group, -1 for none; T the sentinel; ``high`` marks the short
+    jobs' tasks) and their host rows (high, low).  Rows hold ``capacity``
+    tasks plus the window C = max(S, 1).  The stream passes the most one
+    group can hold, and the lengths are the real ones; a fixed trace
+    passes None, and each class's longest row (0 for an empty class) is
+    both the capacity and every row's length, as the reference clamps."""
+    NG = cfg.num_groups
+    C = max(int(_group_sizes(cfg).max()), 1)
+    fifos, lens = [], []
+    for mask in (high, ~high):
+        row = np.where(mask, task_group, -1)
+        cap = (int(np.bincount(row[row >= 0], minlength=NG).max())
+               if capacity is None else capacity)
+        fifos.append(fifo_rows(row, NG, cap + C, task_group.size))
+        lens.append(np.full(NG, cap, np.int32) if capacity is None else fifos[-1].lens)
+    hi, lo = fifos
+    # high_fifo, low_fifo, len_high, len_low
+    return PigeonLayout(*(torch.from_numpy(a).to(device)
+                          for a in (hi.rows, lo.rows, *lens))), (hi, lo)
 
 
 def make_pigeon_step(
@@ -118,10 +153,11 @@ def make_pigeon_step(
     extras ``attempt`` (the task sat in its group's queued window) and
     ``authority`` (the group coordinator, static per worker).
 
-    ``layout`` (a ``PigeonLayout``, the streaming window's) replaces the
-    class FIFOs derived from ``tasks``; its row lengths clamp the heads.  It
-    does not compose with a fault schedule.  Lane-stacked windows (every
-    ``tasks`` field and layout tensor ``[L, ...]``) step L = B lanes."""
+    ``layout`` (a ``PigeonLayout``, the streaming window's) holds the class
+    FIFOs the step reads; without one the step builds the fixed trace's
+    with ``pigeon_layout``.  A given layout does not compose with a fault
+    schedule.  Lane-stacked windows (every ``tasks`` field and layout
+    tensor ``[L, ...]``) step L = B lanes."""
     if match_fn is None:
         match_fn = default_match_fn()
     if layout is not None and faults is not None:
@@ -135,50 +171,29 @@ def make_pigeon_step(
     weight = cfg.wfq_weight
     # -- worker grid [NG, S]: contiguous ranges, last group absorbs the
     #    remainder, pad slots get the W sentinel (they read busy)
-    sizes = np.full(NG, cfg.group_size, np.int64)
-    sizes[-1] = W - (NG - 1) * cfg.group_size
+    sizes = _group_sizes(cfg)[:, None]
     S = int(sizes.max())
-    wg_np = np.full((NG, S), W, np.int64)
-    rsv_np = np.zeros((NG, S), bool)
-    for g in range(NG):
-        base = g * cfg.group_size
-        wg_np[g, : sizes[g]] = base + np.arange(sizes[g])
-        rsv_np[g, : min(cfg.reserved_per_group, sizes[g])] = True
+    col = np.arange(S)
+    wg_np = np.where(col < sizes, np.arange(NG)[:, None] * cfg.group_size + col, W)
     wg = torch.from_numpy(wg_np).to(dev)[None]                # int64[1, NG, S]
-    reserved = torch.from_numpy(rsv_np).to(dev)               # bool[NG, S]
+    reserved = torch.from_numpy(col < np.minimum(cfg.reserved_per_group, sizes)).to(dev)
     if provenance:
         # static worker -> group map (the provenance authority)
-        wgrp_np = np.zeros(W, np.int32)
-        for g in range(NG):
-            wgrp_np[wg_np[g][wg_np[g] < W]] = g
-        worker_group = torch.from_numpy(wgrp_np).to(dev)
+        worker_group = torch.from_numpy(np.minimum(
+            np.arange(W) // cfg.group_size, NG - 1).astype(np.int32)).to(dev)
     C = max(S, 1)  # window width: a group launches at most S tasks per round
-    if layout is None:
-        # -- exact static task -> group distribution, split by priority class
+    if not layout:
+        # a fixed trace: the exact static task -> group distribution, split
+        # by priority class
         gt = task_groups(cfg, tasks)
         high_task = (tasks.job_est.cpu().numpy()[tasks.job.cpu().numpy()]
                      < cfg.long_threshold)
-        task_pos_np = np.zeros(T + 1, np.int32)  # task -> position in its FIFO
-
-        def class_layout(mask: np.ndarray) -> torch.Tensor:
-            length = int(np.max(np.bincount(gt[mask], minlength=NG))) if mask.any() else 0
-            rows = np.full((NG, length + C), T, np.int32)
-            for g in range(NG):
-                mine = np.nonzero(mask & (gt == g))[0]
-                rows[g, : mine.size] = mine
-                task_pos_np[mine] = np.arange(mine.size, dtype=np.int32)
-            return torch.from_numpy(rows).to(dev)[None]
-
-        high_fifo = class_layout(high_task)  # int32[1, NG, Lh+C], ascending = FIFO
-        low_fifo = class_layout(~high_task)  # int32[1, NG, Ll+C]
-        len_h = high_fifo.shape[-1] - C
-        len_l = low_fifo.shape[-1] - C
-    else:
-        # [1, NG, ...] rows, or [L, NG, ...] for lane-stacked windows
-        high_fifo, low_fifo = layout.high_fifo.to(dev), layout.low_fifo.to(dev)
-        if high_fifo.dim() == 2:
-            high_fifo, low_fifo = high_fifo[None], low_fifo[None]
-        len_h, len_l = layout.len_high.to(dev), layout.len_low.to(dev)
+        layout, (hi, lo) = pigeon_layout(cfg, gt, high_task, dev)
+    # [NG, ...] rows, or [L, NG, ...] for lane-stacked windows
+    high_fifo, low_fifo = layout.high_fifo.to(dev), layout.low_fifo.to(dev)
+    if high_fifo.dim() == 2:
+        high_fifo, low_fifo = high_fifo[None], low_fifo[None]
+    len_h, len_l = layout.len_high.to(dev), layout.len_low.to(dev)
     # one row of submit times per grid point (or one shared row)
     submit = tasks.submit.reshape(-1, T)                       # [Bt, T]
     submit_pad = torch.cat([submit, submit.new_full((submit.shape[0], 1), float("inf"))], -1)
@@ -186,7 +201,8 @@ def make_pigeon_step(
     if faults is not None:
         # task -> (group, FIFO position, class) for crash-loss head rollback;
         # the T pad routes to the pad group NG, which is cut off
-        task_pos_pad = torch.from_numpy(task_pos_np).to(dev)
+        task_pos_pad = torch.from_numpy(
+            np.append(np.where(high_task, hi.pos, lo.pos), np.int32(0))).to(dev)
         grp_pad = torch.from_numpy(np.append(gt, NG).astype(np.int64)).to(dev)
         high_pad = torch.from_numpy(np.append(high_task, False)).to(dev)
 
@@ -370,9 +386,25 @@ def _build_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[PigeonLayout] = None,
 ) -> Callable:
     del draws  # draws nothing
-    return make_pigeon_step(cfg, tasks, match_fn, faults, telemetry, provenance)
+    return make_pigeon_step(cfg, tasks, match_fn, faults, telemetry, provenance, layout)
+
+
+def _stream_layout(cfg: SimxConfig, win) -> tuple[PigeonLayout, dict]:
+    """The window's per-group class FIFOs, from the groups each job drew at
+    admission.  A job spreads its n tasks round-robin over the groups, so
+    one group holds at most ceil(n / NG) of each: rows of T_cap // NG plus
+    one per window job, rather than the reference's T_cap (1,250 x
+    196,608 slots a class at 50,000 workers); no result depends on it."""
+    task_group = np.full(win.T_cap, -1, np.int64)
+    if win.jobs:
+        task_group[: win.T_real] = np.concatenate([wj.groups for wj in win.jobs])
+    high = win.per_task(np.array([wj.est < cfg.long_threshold for wj in win.jobs], bool), False)
+    capacity = min(win.T_cap, win.T_cap // cfg.num_groups + win.window_jobs)
+    layout, (hi, lo) = pigeon_layout(cfg, task_group, high, win.device, capacity)
+    return layout, {"high_head": hi, "low_head": lo}
 
 
 RULE = rt.register_rule(
@@ -381,5 +413,6 @@ RULE = rt.register_rule(
         init=lambda cfg, tasks, batch=None: init_pigeon_state(
             cfg, tasks.num_tasks, tasks.device, batch),
         build_step=_build_step,
+        stream_layout=_stream_layout,
     )
 )

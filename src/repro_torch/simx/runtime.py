@@ -523,7 +523,15 @@ class Rule:
     draw with its rank for one point, so a draw one rank higher carries a
     point axis.  A rule that draws nothing has neither.  ``needs_grid``
     marks rules whose worker count must divide into the GM x LM grid;
-    ``has_queues`` rules carry ``[W, R]`` reservation queues."""
+    ``has_queues`` rules carry ``[W, R]`` reservation queues.
+
+    ``build_step`` also takes ``layout=``, the rule's layout of a streaming
+    window, which ``stream_layout(cfg, win)`` builds from the window ``win``
+    (``stream._StreamWindow``: its ``jobs``, ``T_cap``, ``T_real``,
+    ``J_cap``, ``window_jobs``, ``device``, ``per_task`` and
+    ``probe_layout``).  It returns ``(layout, fifos)``: ``fifos`` maps each
+    FIFO-head field of the state to its host ``FifoRows``, whose heads a
+    refill recomputes."""
 
     name: str
     init: Callable[..., Any]
@@ -532,6 +540,7 @@ class Rule:
     has_queues: bool = False
     draw: Callable[[SimxConfig, TaskArrays, torch.Generator], Draws] | None = None
     draw_dims: dict[str, int] = dataclasses.field(default_factory=dict)
+    stream_layout: Callable[[SimxConfig, Any], tuple[Any, dict]] | None = None
 
 
 #: name -> Rule, in registration order.

@@ -489,9 +489,10 @@ def _build_step(
     faults: FaultSchedule | None = None,
     telemetry: bool = False,
     provenance: bool = False,
+    layout: Optional[ProbeLayout] = None,
 ) -> Callable[[SparrowState], SparrowState]:
-    return make_sparrow_step(cfg, tasks, draws["targets"], match_fn, faults,
-                             telemetry, provenance)
+    return make_sparrow_step(cfg, tasks, draws.get("targets"), match_fn, faults,
+                             telemetry, provenance, layout)
 
 
 RULE = rt.register_rule(
@@ -502,5 +503,7 @@ RULE = rt.register_rule(
         has_queues=True,
         draw=draw,
         draw_dims={"targets": 2},
+        # the window's edge list, from the targets each job drew at admission
+        stream_layout=lambda cfg, win: (win.probe_layout(), {}),
     )
 )

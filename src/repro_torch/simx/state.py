@@ -12,6 +12,9 @@
                       the sparrow/eagle reservation-queue fields.
   * ``MeghaState`` / ``SparrowState`` / ``EagleState`` / ``PigeonState`` /
     ``OracleState`` — ``CoreState`` plus each rule's own fields.
+  * ``fifo_rows``   — the per-row FIFOs of task ids that megha, pigeon and
+                      eagle build their layouts from (fixed traces and the
+                      streaming window alike).
 
 A sweep grid runs B points at once (``repro_torch.simx.sweep``): its
 state carries a leading axis of B points on every field (the specs below
@@ -40,6 +43,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -233,6 +237,32 @@ def probe_edge_layout(
     edge_rank = (np.arange(edge_job.size) - starts).astype(np.int32)
     kmax = int(k.max()) if k.size else 0
     return edge_job, edge_rank, edge_end.astype(np.int32), kmax
+
+
+class FifoRows(NamedTuple):
+    """A task set's FIFO rows on the host (``fifo_rows``)."""
+
+    rows: np.ndarray  # int32[N, width]: each row's task ids, then the sentinel
+    lens: np.ndarray  # int32[N]: the rows' real lengths
+    pos: np.ndarray   # int32[T]: each task's position in its row (0 in none)
+
+
+def fifo_rows(task_row: np.ndarray, n_rows: int, width: int, sentinel: int) -> FifoRows:
+    """The FIFO rows every queueing rule's layout is built from, for a
+    fixed trace and for the stream's window alike: row r lists the tasks
+    with ``task_row == r`` in ascending task id (== submit order), padded
+    with ``sentinel`` to ``width``; ``task_row`` -1 puts a task in no row.
+    One stable sort by row, not a loop over rows, jobs or groups."""
+    tids = np.flatnonzero(task_row >= 0).astype(np.int32)
+    rows_of = task_row[tids]
+    ordered = tids[np.argsort(rows_of, kind="stable")]  # row by row, FIFO within
+    lens = np.bincount(rows_of, minlength=n_rows).astype(np.int32)
+    rows = np.full((n_rows, width), sentinel, np.int32)
+    rows[np.arange(width) < lens[:, None]] = ordered    # row-major: the same order
+    pos = np.zeros(task_row.size, np.int32)
+    pos[ordered] = np.arange(ordered.size, dtype=np.int32) - np.repeat(
+        np.cumsum(lens) - lens, lens)
+    return FifoRows(rows, lens, pos)
 
 
 def _lead(batch: int | None) -> tuple:

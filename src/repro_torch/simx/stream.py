@@ -24,7 +24,10 @@ family) through a **ring-buffer trace window**:
   * Each rule's window-dependent layout (megha's per-GM FIFOs, the
     sparrow/eagle probe edge lists, eagle's central long FIFO, pigeon's
     per-group class FIFOs) enters the step as tensors (the ``layout=``
-    argument of each ``make_*_step``) with static capacities.  Per-job
+    argument of the rule's ``build_step``) with static capacities.  The
+    rule builds it (``Rule.stream_layout``) with the same layout builder
+    its fixed path uses (``megha_layout``, ``pigeon_layout``,
+    ``eagle_layout``, all on ``state.fifo_rows``).  Per-job
     random quantities (probe targets, SSS re-route rotations) are drawn on
     the host per *global* job id at admission with numpy, exactly as the
     reference draws them, so a carried job keeps them and the streamed
@@ -36,8 +39,8 @@ Within a window the round dynamics are exactly the fixed path's.
 no compiled segment to memoise (the reference's ``lru_cache`` of one
 ``jax.jit`` per rule and config): the step is rebuilt at every refill from
 the new window's tensors and layout, which costs no host read and a few
-small device ops (the layout replaces the trace-derived numpy work of
-the ``make_*_step`` functions).  The state carries the port's leading point axis (B = 1)
+small device ops (with a layout given, the step reads nothing of the
+trace to the host).  The state carries the port's leading point axis (B = 1)
 throughout, and the sketch a lane axis of one (``_segment_core`` also runs
 the sharded steady state's L lanes).
 The round loop reads nothing to the host inside a segment; a refill reads
@@ -71,10 +74,6 @@ import torch
 from repro_torch.core.base import grid_workers
 from repro_torch.device import resolve_device
 from repro_torch.kernels import p2
-from repro_torch.simx import eagle as _eagle
-from repro_torch.simx import megha as _megha
-from repro_torch.simx import oracle as _oracle
-from repro_torch.simx import pigeon as _pigeon
 from repro_torch.simx import runtime as rt
 from repro_torch.simx import sparrow as _sparrow
 from repro_torch.simx import telemetry as tlm
@@ -121,7 +120,7 @@ def _prefix_rows(rows: np.ndarray, lens: np.ndarray, tf: np.ndarray) -> np.ndarr
 
 class _StreamWindow:
     """Host side of the ring buffer: admission, retirement, compaction,
-    per-rule layout construction, and FIFO-head recomputation."""
+    the rule's layout (``Rule.stream_layout``) and FIFO-head recomputation."""
 
     def __init__(
         self,
@@ -140,6 +139,7 @@ class _StreamWindow:
             raise ValueError("window capacities must be positive")
         self.cfg = cfg
         self.rule = rule
+        self._rule = rt.get_rule(rule)
         self.device = device
         self.window_jobs = int(window_jobs)        # real job slots
         self.J_cap = int(window_jobs) + 1          # + the pad-job slot
@@ -270,26 +270,12 @@ class _StreamWindow:
     def tasks(self) -> TaskArrays:
         return TaskArrays(**{k: torch.from_numpy(v).to(self.device) for k, v in self._np.items()})
 
-    # -- per-rule layouts ------------------------------------------------
+    # -- the rule's layout -----------------------------------------------
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _task_rows(self, task_row: np.ndarray, n_rows: int, width: int) -> tuple:
-        """``[n_rows, width]`` FIFO rows (sentinel ``T_cap``) listing the
-        window's real tasks by row in ascending task id (== submit order),
-        and the row lengths: one stable sort by row, not a loop over jobs."""
-        tids = np.nonzero(task_row >= 0)[0].astype(np.int32)
-        rows_of = task_row[tids]
-        order = np.argsort(rows_of, kind="stable")
-        lens = np.bincount(rows_of, minlength=n_rows).astype(np.int32)
-        first = np.cumsum(lens) - lens
-        r = rows_of[order]
-        rows = np.full((n_rows, width), self.T_cap, np.int32)
-        rows[r, np.arange(r.size) - first[r]] = tids[order]
-        return rows, lens
-
-    def _per_task(self, per_job: np.ndarray, fill) -> np.ndarray:
+    def per_task(self, per_job: np.ndarray, fill) -> np.ndarray:
         """A per-window-job value spread over the job's tasks (``fill`` on
         the spare slots)."""
         out = np.full(self.T_cap, fill, per_job.dtype)
@@ -297,7 +283,7 @@ class _StreamWindow:
             out[: self.T_real] = np.repeat(per_job, [wj.ntasks for wj in self.jobs])
         return out
 
-    def _probe_layout(self) -> _sparrow.ProbeLayout:
+    def probe_layout(self) -> _sparrow.ProbeLayout:
         """Flat edge list over the window's real jobs (admission-order
         targets), padded to the static ``P_cap + C`` capacity."""
         cfg = self.cfg
@@ -314,71 +300,17 @@ class _StreamWindow:
             edge_job[:p] = np.repeat(np.arange(ks.size, dtype=np.int32), ks)
             edge_worker[:p] = np.concatenate([wj.targets for wj in self.jobs])
         self._edge_start = (ends[: ks.size] - ks).astype(np.int64)
-        self._edge_count = p
         return _sparrow.ProbeLayout(
             edge_job=self._dev(edge_job), edge_worker=self._dev(edge_worker),
             edge_end=self._dev(ends), window=C,
         )
 
     def _build_layout(self) -> None:
-        cfg = self.cfg
-        T_cap = self.T_cap
-        if self.rule == "oracle":
-            self._layout = None
-        elif self.rule == "megha":
-            G = cfg.num_gms
-            C = min(max(cfg.num_workers // G, 64), T_cap)
-            gm_of_job = np.array([wj.gid % G for wj in self.jobs], np.int64)
-            rows, lens = self._task_rows(self._per_task(gm_of_job, -1), G, T_cap + C)
-            self._gm_rows, self._gm_len = rows, lens
-            self._layout = _megha.MeghaLayout(
-                gm_tasks=self._dev(rows), gm_len=self._dev(lens), window=C)
-        elif self.rule == "sparrow":
-            self._layout = self._probe_layout()
-        elif self.rule == "eagle":
-            probes = self._probe_layout()
-            off1 = np.zeros(self.J_cap, np.int32)
-            off2 = np.zeros(self.J_cap, np.int32)
-            long_job = np.zeros(len(self.jobs), np.int64)
-            for p, wj in enumerate(self.jobs):
-                off1[p], off2[p] = wj.off1, wj.off2
-                long_job[p] = 0 if wj.est >= cfg.long_threshold else -1
-            CL = min(max(T_cap, 1), max(cfg.num_workers - cfg.short_reserved, 64))
-            rows, lens = self._task_rows(self._per_task(long_job, -1), 1, T_cap + CL)
-            self._long_row, self._n_long = rows[0], int(lens[0])
-            self._layout = _eagle.EagleLayout(
-                probes=probes, off1=self._dev(off1), off2=self._dev(off2),
-                long_fifo=self._dev(self._long_row),
-                n_long=torch.tensor(self._n_long, dtype=torch.int32, device=self.device),
-                long_window=CL,
-            )
-        elif self.rule == "pigeon":
-            NG = cfg.num_groups
-            sizes = np.full(NG, cfg.group_size, np.int64)
-            sizes[-1] = cfg.num_workers - (NG - 1) * cfg.group_size
-            C = max(int(sizes.max()), 1)
-            # a job spreads its n tasks round-robin over the groups, so one
-            # group holds at most ceil(n / NG) of each: T_cap // NG plus one
-            # per window job
-            width = min(T_cap, T_cap // NG + self.window_jobs) + C
-            groups = (np.concatenate([wj.groups for wj in self.jobs])
-                      if self.jobs else np.zeros(0, np.int32))
-            task_group = np.full(T_cap, -1, np.int64)
-            task_group[: self.T_real] = groups
-            high = self._per_task(
-                np.array([wj.est < cfg.long_threshold for wj in self.jobs], bool), False)
-            self._pg_rows, self._pg_len = {}, {}
-            for cls, mask in (("high", high), ("low", ~high)):
-                rows, lens = self._task_rows(np.where(mask, task_group, -1), NG, width)
-                self._pg_rows[cls], self._pg_len[cls] = rows, lens
-            self._layout = _pigeon.PigeonLayout(
-                high_fifo=self._dev(self._pg_rows["high"]),
-                low_fifo=self._dev(self._pg_rows["low"]),
-                len_high=self._dev(self._pg_len["high"]),
-                len_low=self._dev(self._pg_len["low"]),
-            )
-        else:  # pragma: no cover - registry and stream rules move together
+        """The rule's layout of the window and the host FIFO rows whose
+        heads a refill recomputes (``Rule.stream_layout``)."""
+        if self._rule.stream_layout is None:  # pragma: no cover
             raise ValueError(f"no streaming layout for rule {self.rule!r}")
+        self._layout, self._fifos = self._rule.stream_layout(self.cfg, self)
 
     def layout(self):
         return self._layout
@@ -455,7 +387,7 @@ class _StreamWindow:
         )
         self._last_t = t
         # -- retire completed jobs, compact the carried ones --------------
-        queues = self.rule in ("sparrow", "eagle")
+        queues = self._rule.has_queues
         task_map = np.full(self.T_cap + 1, self.T_cap, np.int32)
         job_map = np.full(self.J_cap + 1, self.J_cap, np.int32)
         pv = None
@@ -502,19 +434,10 @@ class _StreamWindow:
             resq = state.resq[0].cpu().numpy()
             upd["resq"] = self._dev(job_map[resq])[None]
             upd["probe_head"] = torch.tensor([new_probe_head], dtype=torch.int32, device=dev)
-        if self.rule == "oracle":
-            row = np.arange(self.T_cap, dtype=np.int32)[None]
-            head = _prefix_rows(row, np.array([self.T_real]), new_tf)
-            upd["head"] = self._dev(head)
-        elif self.rule == "megha":
-            upd["head"] = self._dev(_prefix_rows(self._gm_rows, self._gm_len, new_tf))[None]
-        elif self.rule == "eagle":
-            head = _prefix_rows(self._long_row[None], np.array([self._n_long]), new_tf)
-            upd["long_head"] = self._dev(head)
-        elif self.rule == "pigeon":
-            for cls, fld in (("high", "high_head"), ("low", "low_head")):
-                upd[fld] = self._dev(
-                    _prefix_rows(self._pg_rows[cls], self._pg_len[cls], new_tf))[None]
+        # every FIFO head restarts at the launched prefix of its new row
+        for field, fifo in self._fifos.items():
+            head = _prefix_rows(fifo.rows, fifo.lens, new_tf)
+            upd[field] = self._dev(head).reshape(getattr(state, field).shape)
         if prov is not None:
             remapped = {}
             for f, v in pv.items():
@@ -553,20 +476,12 @@ def _segment_core(rule: str, cfg: SimxConfig, num_rounds: int, match_fn, orders=
     if tele and num_rounds % stride:
         raise ValueError("telemetry stride must divide rounds_per_refill")
 
+    r = rt.get_rule(rule)
+    draws = {} if orders is None else {"orders": orders}  # megha's GM orders
+
     def build_step(win_tasks, layout):
-        kw = dict(telemetry=tele, provenance=provenance, layout=layout)
-        if rule == "megha":
-            return _megha.make_megha_step(cfg, win_tasks, orders, match_fn, **kw)
-        if rule == "sparrow":
-            return _sparrow.make_sparrow_step(cfg, win_tasks, None, match_fn, **kw)
-        if rule == "eagle":
-            return _eagle.make_eagle_step(cfg, win_tasks, None, match_fn, **kw)
-        if rule == "pigeon":
-            return _pigeon.make_pigeon_step(cfg, win_tasks, match_fn, **kw)
-        if rule == "oracle":
-            return _oracle.make_oracle_step(cfg, win_tasks, match_fn, telemetry=tele,
-                                            provenance=provenance)
-        raise ValueError(f"no streaming segment for rule {rule!r}")
+        return r.build_step(cfg, win_tasks, draws, match_fn=match_fn, telemetry=tele,
+                            provenance=provenance, layout=layout)
 
     W = cfg.num_workers
 
